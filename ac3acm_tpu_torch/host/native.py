@@ -2,8 +2,9 @@
 
 The port keeps its own copy of the C++ host runtime and builds it at
 first use (g++ -O3) into ``native/build/``, installs the generated tables
-from this package's ``tables`` module, and exposes the dense multi-lane
-parse pool that feeds ``parallel.pipeline.BatchedDecoder``.  ctypes
+from this package's ``tables`` module, and exposes the two multi-lane
+parse pools that feed ``parallel.pipeline.BatchedDecoder``: the dense
+parser (``parser="native"``) and the side-info parser (``parser="raw"``).  ctypes
 releases the GIL during calls, and the C++ side fans lanes out over its
 own threads.
 """
@@ -102,6 +103,7 @@ def get_lib():
         lib.ac3h_init.argtypes = [C.c_void_p] * len(args)
         lib.ac3h_init(*[a.ctypes.data for a in args])
         _bind_dense(lib)
+        _bind_sideinfo(lib)
         _lib = lib
         return lib
 
@@ -203,3 +205,108 @@ class DenseBatchParser:
             "valid": valid, "premix_ok": premix_ok, "meta": meta,
             "consumed": consumed, "nframes": nframes,
         }
+
+
+# ---------------------------------------------------------------------------
+# Raw-H2D side-info parse pool: the host half of BatchedDecoder(parser="raw")
+# -- frame bytes + per-block side-info records out, mantissa walk skipped
+# (the device unpacks mantissas itself, ops.unpack_device).
+# ---------------------------------------------------------------------------
+
+# numpy mirror of native/ac3host.cpp RawRecWire (#pragma pack(1)); field
+# names match ops.unpack_device's meta keys, each in its narrow wire dtype
+RAW_REC_DTYPE = np.dtype([
+    ("exp_off", "<i2", (7,)), ("expstr", "i1", (7,)), ("ngrps", "i1", (7,)),
+    ("cplco_off", "<i2", (5,)), ("phs_off", "<i2"), ("man_off", "<i2"),
+    ("endmant", "<i2", (5,)), ("chincpl", "i1"), ("phsflginu", "i1"),
+    ("cplstrt", "<i2"), ("cplend", "<i2"), ("cplbndstrc", "<i4"),
+    ("ncplbnd", "i1"), ("cplstrtbnd", "i1"), ("bai", "<i2"),
+    ("csnroffst", "i1"), ("cplbai", "i1"), ("babai", "i1", (5,)),
+    ("lfebai", "i1"), ("cplfleak", "i1"), ("cplsleak", "i1"),
+    ("dith", "i1", (5,)), ("blksw", "i1", (5,)), ("coeff", "<f4", (5,)),
+    ("chanbias", "i1"), ("rematflg", "i1"), ("lfe_scale", "<f4"),
+    ("lfeon", "i1"), ("lfe_out", "i1"), ("fscod", "i1"), ("halfrate", "i1"),
+    ("deltba", "i1", (7, 50)),
+])
+
+
+def _bind_sideinfo(lib):
+    lib.ac3h_rawrec_size.restype = C.c_int
+    if lib.ac3h_rawrec_size() != RAW_REC_DTYPE.itemsize:
+        raise RuntimeError(
+            f"RawRecWire is {lib.ac3h_rawrec_size()} bytes in the native "
+            f"host but {RAW_REC_DTYPE.itemsize} in RAW_REC_DTYPE")
+    lib.ac3h_parse_sideinfo_many.restype = None
+    lib.ac3h_parse_sideinfo_many.argtypes = [
+        C.POINTER(C.c_void_p), C.c_int,                  # parsers, nlanes
+        C.POINTER(C.c_void_p), C.POINTER(C.c_int64),     # bufs, lens
+        C.c_int, C.c_int, C.c_float, C.c_float,          # maxframes flags level bias
+        C.c_void_p, C.c_int, C.c_void_p, C.c_void_p,     # frames mb fsizes recs
+        C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p,  # valid fmt consumed nframes
+        C.c_int,                                         # nthreads
+    ]
+
+
+class SideinfoBatchParser:
+    """N native stream parsers -> one batched side-info parse call.
+
+    One ctypes call (GIL released, lanes fan out over C++ threads) per
+    chunk: each lane's elementary stream is resynced, its frames copied
+    into a dense [nlanes, maxframes, MB_MAX] staging buffer and their
+    per-block RawRecWire side-info records filled; the mantissa field is
+    skipped entirely (liba52 parse.c:336-556 -- the device performs that
+    walk, ops.unpack_device)."""
+
+    MB_MAX = 3840                      # largest legal AC-3 frame
+
+    def __init__(self, nlanes: int, nthreads: int | None = None):
+        self.lib = get_lib()
+        self._parsers = [self.lib.ac3h_new() for _ in range(nlanes)]
+        self.nlanes = nlanes
+        if nthreads is None:
+            nthreads = min(nlanes, os.cpu_count() or 1)
+        self.nthreads = nthreads
+
+    def __del__(self):
+        for p in getattr(self, "_parsers", []):
+            self.lib.ac3h_free(p)
+        self._parsers = []
+
+    def parse(self, bufs, maxframes: int, flags: int, level: float = 1.0,
+              bias: float = 0.0):
+        """bufs: list of (bytes-like, offset) or bytes-like per lane.
+
+        Returns dict: frames [L, F, MB_MAX] u8, fsizes [L, F] i32,
+        recs [L, F*6] RAW_REC_DTYPE, valid [L, F] u8,
+        fmt [L, F, 4] i32 (acmod, output, slev_zero, have),
+        consumed [L] i64, nframes [L] i32."""
+        L, mb = self.nlanes, self.MB_MAX
+        assert len(bufs) == L
+        frames = np.zeros((L, maxframes, mb), np.uint8)
+        fsizes = np.zeros((L, maxframes), np.int32)
+        recs = np.zeros((L, maxframes * 6), RAW_REC_DTYPE)
+        valid = np.zeros((L, maxframes), np.uint8)
+        fmt = np.zeros((L, maxframes, 4), np.int32)
+        consumed = np.zeros(L, np.int64)
+        nframes = np.zeros(L, np.int32)
+
+        views = []                        # keep buffer views alive
+        pbuf = (C.c_void_p * L)()
+        plen = (C.c_int64 * L)()
+        for i, b in enumerate(bufs):
+            off = 0
+            if isinstance(b, tuple):
+                b, off = b
+            v = np.frombuffer(b, np.uint8)
+            views.append(v)
+            pbuf[i] = C.c_void_p(v.ctypes.data + off)
+            plen[i] = len(b) - off
+        pp = (C.c_void_p * L)(*self._parsers)
+        addr = lambda a: C.c_void_p(a.ctypes.data)
+        self.lib.ac3h_parse_sideinfo_many(
+            pp, L, pbuf, plen, maxframes, flags, level, bias,
+            addr(frames), mb, addr(fsizes), addr(recs), addr(valid),
+            addr(fmt), addr(consumed), addr(nframes), self.nthreads)
+        return {"frames": frames, "fsizes": fsizes, "recs": recs,
+                "valid": valid, "fmt": fmt, "consumed": consumed,
+                "nframes": nframes}

@@ -9,16 +9,22 @@ is converted to int16 goes through the fused steady kernel
 (ops.fused_steady); any other steady chunk through the plain
 ``_pipeline_steady``.  Non-steady chunks need the block scan, which is not
 ported yet.
+
+The raw-H2D path (``raw_batched_pipeline``, ``BatchedDecoder(parser=
+"raw")``) ships the coded frame bytes plus side info instead and unpacks,
+allocates and dequantizes on the device (ops.unpack_device, with the
+bitfield kernels of ops.bitgather) before the same steady tail.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from .. import tables as T
-from ..host.native import DenseBatchParser
+from ..host.native import DenseBatchParser, SideinfoBatchParser
 from ..host.parse import downmix_init, syncinfo
 from ..models.decoder import (EXACT_NOT_PORTED, StreamFormat,
                               _lanes_first, _pipeline_steady, default_exact,
@@ -26,6 +32,9 @@ from ..models.decoder import (EXACT_NOT_PORTED, StreamFormat,
 from ..ops.downmix import downmix
 from ..ops.filterbank import convert_to_int16
 from ..ops.fused_steady import fused_steady
+from ..ops.unpack_device import (init_unpack_carry, prune_raw_meta,
+                                 static_alloc_pts, static_cpl_fc,
+                                 static_emax, static_exp_pts, unpack_blocks)
 from ..utils.device import resolve_device
 
 
@@ -144,6 +153,78 @@ def batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
     return run
 
 
+def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
+                         steady: bool = False, long_only: bool = False,
+                         cpl_fc: int = -1, exp_pts: int = 6,
+                         alloc_pts: int = 6, emax: int = 256,
+                         exact: bool | None = None):
+    """Raw-H2D decode: fn (carry, frames_u8, meta, bias) -> (carry, pcm).
+
+    The host ships raw AC-3 frame bytes [B, F, MB] plus per-block side
+    info meta [B, 6F, ...] (tensors on the carry's device); the device
+    unpacks exponents, re-runs the bit allocation and dequantizes the
+    mantissas (ops.unpack_device.unpack_blocks), then decodes with the
+    plain steady body and, when asked, converts to int16.  carry =
+    (unpack carry dict, (delay, downmixed)).
+
+    cpl_fc / exp_pts / alloc_pts / emax select the unpack's RowPlan (see
+    ops.unpack_device).  Non-steady chunks need the block scan (not
+    ported yet); exact (default: the package ACCURACY policy) needs the
+    order-exact IMDCT (not ported yet): both raise."""
+    if exact is None:
+        exact = default_exact()
+    if exact:
+        raise NotImplementedError(EXACT_NOT_PORTED)
+    if not steady:
+        raise NotImplementedError(
+            "non-steady chunks need the _pipeline_body scan: ROADMAP A4")
+
+    def run(carry, frames_u8, meta, bias, clock=None):
+        ucarry, dcarry = carry
+        ucarry, blocks = unpack_blocks(frames_u8, meta, ucarry, bias,
+                                       nfch=fmt.nfchans, cpl_fc=cpl_fc,
+                                       exp_pts=exp_pts, alloc_pts=alloc_pts,
+                                       emax=emax)
+        if clock is not None:
+            clock.mark("device unpack")
+            clock.kept["blocks"] = blocks
+        dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
+                                       long_only=long_only, premixed=False)
+        if emit_int16:
+            pcm = convert_to_int16(pcm)
+        if clock is not None:
+            clock.mark("steady tail + int16")
+        return (ucarry, dcarry), pcm
+
+    return run
+
+
+class StageClock:
+    """Breaks one raw-H2D step into stages (decode_available(clock=...)).
+
+    mark(name) records, under `name`, the host-clock seconds since the
+    previous mark, taken after the device has caught up; `kept` holds
+    stage outputs for the caller's checks ("blocks": the dequantized
+    blocks of unpack_blocks).  Synchronizing serializes the step, so this
+    shows where a step's time goes; it does not time the path."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.seconds, self.kept = {}, {}
+        self._sync()
+        self._t = time.perf_counter()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def mark(self, name: str):
+        self._sync()
+        now = time.perf_counter()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
 def init_batched_carry(batch: int, device=None):
     """Zero OLA delay and downmixed=True per lane, on `device` (None: the
     CUDA card; raises without one)."""
@@ -161,18 +242,26 @@ def init_batched_carry(batch: int, device=None):
 class StreamLane:
     buf: bytes = b""
     pos: int = 0
-    # parsed-but-not-yet-emitted frames (uneven lane feeds leave a
-    # remainder here; the next decode_available resumes with it)
+    # parser="native": parsed-but-not-yet-emitted frames (uneven lane
+    # feeds leave a remainder here; the next decode_available resumes
+    # with it).  parser="raw" keeps its remainder as arrays (_raw_chunk)
     pending: list = field(default_factory=list)
 
 
 class BatchedDecoder:
     """N same-format streams -> batched PCM on the device.
 
-    The host half is the native dense parser: one ctypes call parses every
-    lane (C++ threads, GIL released) and emits device-ready planes --
-    dequantized frequency planes, premixed output planes when the chunk
-    qualifies for the steady path.  The planes go to the device with
+    parser="native" (default): the host half is the native dense parser:
+    one ctypes call parses every lane (C++ threads, GIL released) and
+    emits device-ready planes -- dequantized frequency planes, premixed
+    output planes when the chunk qualifies for the steady path.
+
+    parser="raw": the host half is the native side-info parser (it skips
+    the mantissas); the coded frame bytes and the per-block side info go
+    to the device, which unpacks and dequantizes them itself
+    (raw_batched_pipeline).  The lanes must share one format.
+
+    Either way the host arrays go to the device with
     torch.from_numpy(...).to(device); PCM comes back as a device tensor.
 
     A bad frame marks the lane invalid for that frame (its PCM is zeroed)
@@ -187,10 +276,10 @@ class BatchedDecoder:
                  parser: str = "native", nthreads=None,
                  compact_h2d: bool = False, device=None,
                  fused: bool | None = None):
-        if parser != "native":
+        if parser not in ("native", "raw"):
             raise NotImplementedError(
-                f"parser={parser!r} is not ported yet (python: ROADMAP A3, "
-                "raw/raw_py: ROADMAP A6); use parser='native'")
+                f"parser={parser!r} needs the Python A52Parser, which is not "
+                "ported yet: ROADMAP A3; use parser='native' or 'raw'")
         self.device = resolve_device(device)
         self.lanes = [StreamLane() for _ in range(batch)]
         self.flags = flags
@@ -203,8 +292,16 @@ class BatchedDecoder:
         self.fused = fused
         self._fmt = None
         self._carry = init_batched_carry(batch, self.device)
-        self._dense = DenseBatchParser(batch, nthreads)
         self._pre_planes = None
+        self._dense = self._sdense = None
+        if parser == "native":
+            self._dense = DenseBatchParser(batch, nthreads)
+        else:
+            self._sdense = SideinfoBatchParser(batch, nthreads)
+            self._raw_carry = init_unpack_carry(batch, self.device)
+            # parsed-but-not-yet-emitted frames, per lane (see _raw_chunk)
+            self._raw_pending = None
+            self._raw_npend = np.zeros(batch, np.int64)
 
     def feed(self, lane: int, data: bytes):
         ln = self.lanes[lane]
@@ -213,13 +310,143 @@ class BatchedDecoder:
             ln.buf = ln.buf[ln.pos:]
             ln.pos = 0
 
-    def decode_available(self, max_frames: int = 8):
+    def decode_available(self, max_frames: int = 8,
+                         clock: StageClock | None = None):
         """Parse up to max_frames per lane, run the device pipeline once.
 
         Returns (pcm [B, nblk, nch, 256] device tensor, valid [B, nframes]
         bool numpy) or None if no lane had a complete frame.
+
+        clock (parser="raw" only): a StageClock that breaks the step into
+        its stages.
         """
+        if self._sdense is not None:
+            return self._decode_available_raw_native(max_frames, clock)
+        if clock is not None:
+            raise ValueError("StageClock breaks down the raw-H2D step only")
         return self._decode_available_native(max_frames)
+
+    # -- raw-H2D path (device bitstream unpack) -----------------------------
+
+    def _raw_pick_fmt(self, fmts: set):
+        if len(fmts) > 1:
+            raise ValueError(
+                "raw-H2D mode requires a format-homogeneous batch; use "
+                "parser='native' for mixed-format lanes")
+        if fmts:
+            return fmts.pop()
+        if self._fmt is not None:
+            return self._fmt
+        out = self.flags & T.A52_CHANNEL_MASK
+        return StreamFormat(acmod=out, output=out, slev_zero=True,
+                            chanbias=0)
+
+    # the side-info parser's per-frame arrays, frame axis 1 ("recs" as
+    # [L, F, 6] block records)
+    _RAW_FRAME_KEYS = ("frames", "fsizes", "valid", "fmt", "recs")
+
+    def _raw_chunk(self, max_frames: int, clock=None):
+        """Host half of one raw-H2D step: parse up to max_frames per lane
+        with the native side-info pool and assemble the chunk, all lanes
+        at once, from each lane's pending frames (an uneven feed leaves
+        some) followed by its new ones.
+
+        Returns (fmt, frames_u8 [L, F, MB] uint8, meta {key: [L, 6F, ...]}
+        in the wire dtypes, valid [L, F] bool) as numpy arrays, or None if
+        no lane had a complete frame."""
+        L = len(self.lanes)
+        src, npend = self._raw_pending, self._raw_npend
+        P = 0 if src is None else src["valid"].shape[1]
+        need = max_frames - int(npend.min())
+        total = npend
+        if need > 0:
+            r = self._sdense.parse([(l.buf, l.pos) for l in self.lanes],
+                                   need, self.flags, self.level, self.bias)
+            for i, lane in enumerate(self.lanes):
+                lane.pos += int(r["consumed"][i])
+            new = {k: r[k] for k in self._RAW_FRAME_KEYS}
+            new["recs"] = new["recs"].reshape(L, need, 6)
+            src = new if src is None else {
+                k: np.concatenate([src[k], new[k]], axis=1)
+                for k in self._RAW_FRAME_KEYS}
+            total = npend + r["nframes"]
+            if clock is not None:
+                clock.mark("host side-info parse")
+        # lane i's frame j: its pending frame j, else new frame j - npend[i]
+        # (with nothing pending, every lane's frame j: a plain slice)
+        tmax, nf = int(total.max(initial=0)), int(total.min())
+        if P == 0:
+            pick = lambda a, lo, hi: a[:, lo:hi]
+        else:
+            j = np.arange(tmax)
+            idx = np.minimum(np.where(j < npend[:, None], j,
+                                      P + j - npend[:, None]),
+                             src["valid"].shape[1] - 1)
+            lanes = np.arange(L)[:, None]
+            pick = lambda a, lo, hi: a[lanes, idx[:, lo:hi]]
+        self._raw_pending = None if tmax == nf else {
+            k: pick(src[k], nf, tmax) for k in self._RAW_FRAME_KEYS}
+        self._raw_npend = total - nf
+        if nf == 0:
+            return None
+        fsizes, fvalid, ffmt, recs = (pick(src[k], 0, nf) for k in
+                                      ("fsizes", "valid", "fmt", "recs"))
+        ok = (fvalid != 0) & (ffmt[..., 3] != 0)
+        fmts = {StreamFormat(acmod=int(a), output=int(o), slev_zero=bool(z),
+                             chanbias=int(c))
+                for a, o, z, c in np.unique(np.stack(
+                    [ffmt[..., 0][ok], ffmt[..., 1][ok], ffmt[..., 2][ok],
+                     recs[..., 0]["chanbias"][ok]], axis=-1), axis=0)}
+        mb = int(np.where(fvalid != 0, fsizes, 0).max(initial=0))
+        mb = max(-(-mb // 128) * 128, 128)
+        frames_u8 = pick(src["frames"][:, :, :mb], 0, nf)
+        recs = recs.reshape(L, 6 * nf)
+        meta = {k: np.ascontiguousarray(recs[k]) for k in recs.dtype.names}
+        if clock is not None:
+            clock.mark("chunk assembly")
+        return self._raw_pick_fmt(fmts), frames_u8, meta, ok
+
+    @staticmethod
+    def _raw_plan(fmt, meta) -> dict:
+        """raw_batched_pipeline's plan arguments for one chunk's (numpy,
+        pruned) meta, each count the chunk's own."""
+        steady = steady_ok(fmt, {"blksw": meta["blksw"].astype(bool),
+                                 "coeff": meta["coeff"]})
+        return dict(steady=steady,
+                    long_only=steady and not meta["blksw"].any(),
+                    cpl_fc=static_cpl_fc(meta),
+                    exp_pts=static_exp_pts(meta),
+                    alloc_pts=static_alloc_pts(meta),
+                    emax=static_emax(meta))
+
+    def _decode_available_raw_native(self, max_frames: int, clock=None):
+        """Raw-H2D decode step: ship frame bytes + side-info meta, unpack
+        and decode everything else on the device."""
+        chunk = self._raw_chunk(max_frames, clock)
+        if chunk is None:
+            return None
+        fmt, fu8, meta, valid = chunk
+        # drop meta for features absent from the whole chunk (delta bit
+        # allocation, coupling, dither, LFE): the plan gets fewer rows, a
+        # smaller lattice and no coupling/dither stages, and the dropped
+        # arrays never cross the host link
+        meta = prune_raw_meta(meta)
+        fn = raw_batched_pipeline(fmt, self.emit_int16,
+                                  **self._raw_plan(fmt, meta))
+        L, nf = fu8.shape[:2]
+        bias = np.full((L, T.NB_BLOCKS * nf), self.bias, np.float32)
+        if clock is not None:
+            clock.mark("prune + plan probes")
+        host = dict(meta, frames_u8=fu8, bias=bias)
+        dev = {k: self._to_device(v) for k, v in host.items()}
+        if clock is not None:
+            clock.mark("H2D copy")
+            clock.kept["h2d_bytes"] = sum(v.nbytes for v in host.values())
+        self._fmt = fmt
+        (self._raw_carry, self._carry), pcm = fn(
+            (self._raw_carry, self._carry), dev.pop("frames_u8"), dev,
+            dev.pop("bias"), clock=clock)
+        return pcm, valid
 
     def _expected_pre_planes(self):
         """Output-plane count for the premixed steady path, derived from the

@@ -19,7 +19,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
                kernel's launch count must rise on every chunk, the PCM must
                equal the plain path within 1 LSB, and lane 0 must match the
                committed reference-decoder oracle within 1 LSB
-  6. report    one JSON line listing every kernel, then the device line
+  6. gathers   every bitfield/table gather of the raw-H2D unpack (K2-K4)
+               against its plain version, bitwise, as one step of each raw
+               path's decoder gives it (4096 lanes x 16 frames of the
+               golden 5.1 stream; 4096 lanes x 12 frames of the golden
+               coupling stream), and the times of the K2 mantissa, K3 and
+               K4 calls beside their byte bounds
+  7. raw path  BatchedDecoder(parser="raw") on the main path's lanes: the
+               gathers' launch counts must rise on every chunk, the first
+               chunk's dequantized planes must equal the native parser's
+               bitwise, the PCM must equal the native plain path's within
+               1 LSB and lane 0 the oracle within 1 LSB; peak memory; one
+               step broken into stages (StageClock)
+  8. coupling  BatchedDecoder(parser="raw") on 4096 lanes of the golden
+               coupling stream: the shared-table gather must launch on
+               every chunk, lane 0 within 1 LSB of its oracle; peak memory
+  9. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -37,11 +52,22 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "bench_51_448.ac3")
+CPL_GOLDEN = os.path.join(HERE, "tests", "golden", "cpl51_hazard.ac3")
 
 # bench shape (bench.py config 2): lanes x frames, 6 blocks per frame
 BATCH, FRAMES = 4096, 64
 # main path: lanes, frames per chunk, chunks
 MAIN_BATCH, CHUNK_FRAMES, NCHUNKS = 4096, 16, 3
+# raw-H2D main path: frames per chunk (the native path's 16 while peak
+# device memory stays <= 60 GB).  Coupling path: lanes, frames per chunk,
+# chunks.  Its interleaved lattice holds a coupling copy per channel, so
+# a frame costs more device memory than a main-path frame: the main
+# path's lanes in chunks of two passes of the 6-frame golden stream (each
+# lane plays it from frame 0, over and over) is what fits under the same
+# limit
+CPL_BATCH, CPL_CHUNK_FRAMES, CPL_NCHUNKS = 4096, 12, 2
+RAW_CHUNK_FRAMES = 16
+PEAK_MEM_LIMIT = 60e9
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
@@ -85,7 +111,8 @@ def phase_build():
     from ac3acm_tpu_torch.host import native
     from ac3acm_tpu_torch.ops import _cuda
     jobs = {"native host (g++)": native._build,
-            "fused_steady (nvcc)": lambda: _cuda.build("fused_steady")}
+            "fused_steady (nvcc)": lambda: _cuda.build("fused_steady"),
+            "bitgather (nvcc)": lambda: _cuda.build("bitgather")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -231,20 +258,24 @@ def phase_times(bench_inputs):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def lane_streams(batch, nframes):
-    """Distinct per-lane byte streams: golden frames, rotated start."""
+def lane_streams(batch, nframes, path=GOLDEN, rotate=True):
+    """Per-lane byte streams of golden frames; with rotate, lane i starts
+    at frame i mod n (distinct lanes).  A stream whose frames lean on the
+    state of the frame before (the coupling hazard stream) cannot start
+    mid-stream: rotate=False gives every lane the stream from frame 0."""
     from ac3acm_tpu_torch.host.parse import syncinfo
-    es = open(GOLDEN, "rb").read()
+    es = open(path, "rb").read()
     base, pos = [], 0
     while pos + 7 <= len(es):
         size = syncinfo(es[pos:pos + 7])[0]
         assert size
         base.append(es[pos:pos + size])
         pos += size
-    assert len(base) == 8
-    rots = [b"".join(base[i:] + base[:i]) * (nframes // 8 + 1)
-            for i in range(8)]
-    return [rots[i % 8][: nframes * len(base[0]) + 7] for i in range(batch)]
+    n = len(base)
+    rots = [b"".join(base[i:] + base[:i]) * (nframes // n + 1)
+            for i in range(n if rotate else 1)]
+    return [rots[i % len(rots)][: nframes * len(base[0]) + 7]
+            for i in range(batch)]
 
 
 def decode(streams, compact, fused):
@@ -300,6 +331,7 @@ def phase_main_path():
     log(f"host parse alone ({os.cpu_count()} CPUs): {dt_parse:.3f} s "
         f"-> {blocks * 256 / 48000.0 / dt_parse:.0f}x realtime")
     launches = 0
+    plain_f32 = None
     for compact in (False, True):
         plain, counts_p, dt_p = decode(streams, compact, fused=False)
         assert sum(counts_p) == 0
@@ -320,8 +352,278 @@ def phase_main_path():
             f"{oerr} LSB; {dt:.3f} s -> "
             f"{blocks * 256 / 48000.0 / dt:.0f}x realtime "
             f"(plain path {blocks * 256 / 48000.0 / dt_p:.0f}x)")
+        if not compact:
+            plain_f32 = plain
         del plain, fused
+    return launches, plain_f32
+
+
+# the raw-H2D gathers: port entry, kernel name in the report, the line of
+# the TPU kernel's pallas_call in ac3acm_tpu/ops/bitgather.py
+GATHER_KERNELS = (("extract_fields", "bitgather_fields (K2)", 247),
+                  ("extract_fields_shared", "bitgather_shared (K3)", 306),
+                  ("extract_i16_table", "bitgather_i16 (K4)", 142))
+FLAGS_51_TO_20 = 2 | 32                       # A52_STEREO | A52_ADJUST_LEVEL
+
+
+def gather_counts():
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    return {"extract_fields": BG.launches_fields,
+            "extract_fields_shared": BG.launches_shared,
+            "extract_i16_table": BG.launches_i16}
+
+
+def zero_gather_counts():
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    BG.launches_fields = BG.launches_shared = BG.launches_i16 = 0
+
+
+def raw_decoder(streams):
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    dec = BatchedDecoder(len(streams), FLAGS_51_TO_20, bias=384.0,
+                         emit_int16=True, parser="raw")
+    for i, s in enumerate(streams):
+        dec.feed(i, s)
+    return dec
+
+
+def record_gathers(fn):
+    """Run fn() with every gather entry recording its arguments (each call
+    still launches its kernel); -> [(entry, args)] in call order."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    orig = {e: getattr(BG, e) for e, _, _ in GATHER_KERNELS}
+    calls = []
+
+    def wrap(entry):
+        def call(*args):
+            calls.append((entry, args))
+            return orig[entry](*args)
+        return call
+
+    for e in orig:
+        setattr(BG, e, wrap(e))
+    try:
+        fn()
+    finally:
+        for e, f in orig.items():
+            setattr(BG, e, f)
+    return calls
+
+
+# least bytes per slot each gather must move: its index at the narrowest
+# type that holds it, and the int16 result.  A bit offset within one
+# frame (at most 3,840 B, so < 32,768 bits) fits int16 and a width
+# (0..16) int8; an orbit entry (65,535 of them) fits uint16
+LEAST_SLOT_BYTES = {"extract_fields": 2 + 1 + 2,
+                    "extract_fields_shared": 2 + 2,
+                    "extract_i16_table": 2 + 2}
+
+
+def gather_bound(entry, args):
+    """-> (least bytes the call must move, bytes its wire moves, bound
+    ms): every slot at LEAST_SLOT_BYTES and each data/table byte once;
+    the wire counts offsets, widths and results at their tensors'
+    dtypes."""
+    data, offsets = args[0], args[1]
+    slots = offsets.numel()
+    table = data.numel() * data.element_size()
+    nbytes = slots * LEAST_SLOT_BYTES[entry] + table
+    wire = table + slots * (offsets.element_size() + 2) + sum(
+        a.numel() * a.element_size() for a in args[2:] if a is not None)
+    return nbytes, wire, nbytes / PEAK_BYTES * 1e3
+
+
+def phase_raw_gathers():
+    """Every gather of the raw unpack against its plain version, bitwise,
+    at the raw paths' shapes; times of the K2 mantissa, K3 and K4 calls."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    plain = {"extract_fields": BG.extract_fields_ref,
+             "extract_fields_shared": BG.extract_fields_shared_ref,
+             "extract_i16_table": BG.extract_i16_table_ref}
+    timed, errs = {}, {e: 0 for e, _, _ in GATHER_KERNELS}
+    for tag, path, batch, nframes, rotate in (
+            ("main", GOLDEN, MAIN_BATCH, RAW_CHUNK_FRAMES, True),
+            ("coupling", CPL_GOLDEN, CPL_BATCH, CPL_CHUNK_FRAMES, False)):
+        # one step of the decoder itself, its gathers' arguments recorded
+        dec = raw_decoder(lane_streams(batch, nframes, path, rotate))
+        calls = record_gathers(
+            lambda: dec.decode_available(max_frames=nframes))
+        del dec
+        for i, (entry, args) in enumerate(calls):
+            got = getattr(BG, entry)(*args)
+            want = plain[entry](*args)
+            torch.cuda.synchronize()
+            diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+            mism, err = int((diff != 0).sum()), int(diff.max())
+            errs[entry] = max(errs[entry], err)
+            log(f"check {entry} {tag} call {i} offsets "
+                f"{tuple(args[1].shape)}: {mism} mismatches vs plain")
+            assert mism == 0, (entry, tag, i, mism)
+            del got, want, diff
+        # time the largest call of each entry on its path
+        for entry in {e for e, _ in calls}:
+            args = max((a for e, a in calls if e == entry),
+                       key=lambda a: a[1].numel())
+            if entry in timed or (entry == "extract_fields"
+                                  and tag != "main"):
+                continue
+            nbytes, wire, bound_ms = gather_bound(entry, args)
+            ms = cuda_ms(lambda: getattr(BG, entry)(*args))
+            plain_ms = cuda_ms(lambda: plain[entry](*args))
+            library_ms = None
+            if entry == "extract_i16_table":
+                tab, idx = args           # same int32 indices, one call
+                library_ms = cuda_ms(
+                    lambda: torch.index_select(tab, 0, idx.view(-1)))
+            timed[entry] = dict(ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms,
+                                bound_by="bytes")
+            lib = "" if library_ms is None else \
+                f" library_ms(torch.index_select) {library_ms:.3f}"
+            log(f"time {entry} {tag} offsets {tuple(args[1].shape)}: "
+                f"kernel_ms {ms:.3f} plain_ms {plain_ms:.3f}{lib} bound_ms "
+                f"{bound_ms:.3f} = {nbytes} B (least) / 3.35e12 B/s -> "
+                f"bytes; its wire moves {wire} B; "
+                f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s of the least bytes "
+                f"achieved")
+        del calls
+        torch.cuda.empty_cache()
+    for entry in timed:
+        timed[entry]["max_abs_err"] = errs[entry]
+    return timed
+
+
+def phase_raw_main(native_plain):
+    """BatchedDecoder(parser="raw") on the main path's lanes; -> the
+    gathers' launch counts over its run."""
+    import ac3acm_tpu_torch as port
+    from ac3acm_tpu_torch.host.native import (DenseBatchParser,
+                                              SideinfoBatchParser)
+    from ac3acm_tpu_torch.parallel.pipeline import StageClock
+    port.set_accuracy("fast")
+    dev = torch.device("cuda")
+    nframes = RAW_CHUNK_FRAMES * NCHUNKS
+    streams = lane_streams(MAIN_BATCH, nframes)
+    blocks = MAIN_BATCH * nframes * 6
+    rt = lambda dt: blocks * 256 / 48000.0 / dt
+    # the host half alone: one native side-info parse of the same chunks
+    parser = SideinfoBatchParser(MAIN_BATCH)
+    pos = [0] * MAIN_BATCH
+    t0 = time.perf_counter()
+    for _ in range(NCHUNKS):
+        r = parser.parse(list(zip(streams, pos)), RAW_CHUNK_FRAMES,
+                         FLAGS_51_TO_20, 1.0, 384.0)
+        pos = [p + int(c) for p, c in zip(pos, r["consumed"])]
+    dt_parse = time.perf_counter() - t0
+    del parser, r
+    log(f"raw path: host side-info parse alone ({os.cpu_count()} CPUs): "
+        f"{dt_parse:.3f} s -> {rt(dt_parse):.0f}x realtime")
+
+    dec = raw_decoder(streams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_gather_counts()                      # the raw main path's own run
+    chunks, counts = [], []
+    t0 = time.perf_counter()
+    for _ in range(NCHUNKS):
+        before = gather_counts()
+        r = dec.decode_available(max_frames=RAW_CHUNK_FRAMES)
+        assert r is not None, "raw path ran dry"
+        pcm, valid = r
+        assert valid.all() and pcm.shape == (MAIN_BATCH, RAW_CHUNK_FRAMES * 6,
+                                             2, 256), pcm.shape
+        counts.append({e: n - before[e] for e, n in gather_counts().items()})
+        chunks.append(pcm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = gather_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for c in counts:
+        assert c["extract_fields"] >= 1 and c["extract_i16_table"] >= 1, \
+            f"a gather skipped a chunk: launches per chunk {counts}"
+    assert peak <= PEAK_MEM_LIMIT, f"peak device memory {peak} B"
+    raw = torch.cat(chunks, dim=1).to(torch.int32)
+    del chunks, dec
+    nat = torch.cat(native_plain, dim=1)[:, :raw.shape[1]]
+    err = int((raw - nat.to(torch.int32)).abs().max())
+    del nat
+    assert err <= 1, f"raw vs native plain path: {err} LSB"
+    oracle = np.load(GOLDEN + ".stereo_float.npy")
+    want = np.clip(np.round(oracle.reshape(48, 2, 256).astype(np.float64)
+                            * 32768.0), -32768, 32767)
+    oerr = int(np.abs(raw[0, :48].cpu().numpy() - want).max())
+    assert oerr <= 1, f"raw lane 0 vs reference oracle: {oerr} LSB"
+    del raw
+
+    # the first chunk again, stage by stage (host clock, synchronized):
+    # its dequantized planes vs the native dense parser's, and where a
+    # chunk's time goes
+    dec = raw_decoder(streams)
+    clock = StageClock(dev)
+    dec.decode_available(max_frames=RAW_CHUNK_FRAMES, clock=clock)
+    blk, h2d = clock.kept["blocks"], clock.kept["h2d_bytes"]
+    del dec
+    log(f"raw path, one {RAW_CHUNK_FRAMES}-frame chunk by stage: " + ", ".join(
+        f"{name} {sec:.3f} s" for name, sec in clock.seconds.items()))
+    dense = DenseBatchParser(MAIN_BATCH).parse(
+        streams, RAW_CHUNK_FRAMES, FLAGS_51_TO_20, 1.0, 384.0)["freq_full"]
+    want_f = torch.from_numpy(dense).to(dev)
+    del dense
+    fmism = int((blk["freq"] != want_f).sum())
+    bmism = int((blk["freq"].view(torch.int32)
+                 != want_f.view(torch.int32)).sum())
+    del blk, want_f
+    per_frame = h2d / (MAIN_BATCH * RAW_CHUNK_FRAMES)
+    log(f"raw path: {MAIN_BATCH} lanes x {NCHUNKS} chunks x "
+        f"{RAW_CHUNK_FRAMES} frames per chunk; gather launches per chunk "
+        f"{counts}; first chunk's freq vs the dense parser's freq_full: "
+        f"{fmism} values / {bmism} bit patterns differ; PCM vs native "
+        f"plain path max {err} LSB; lane 0 vs oracle max {oerr} LSB; "
+        f"{dt:.3f} s -> {rt(dt):.0f}x realtime; H2D {per_frame:.1f} B per "
+        f"frame (frame bytes + side info); peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    assert fmism == 0 and bmism == 0
     return launches
+
+
+def phase_raw_coupling():
+    """BatchedDecoder(parser="raw") on coupled lanes; -> the shared-table
+    gather's launches over the run."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    streams = lane_streams(CPL_BATCH, CPL_CHUNK_FRAMES * CPL_NCHUNKS,
+                           CPL_GOLDEN, rotate=False)
+    dec = raw_decoder(streams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_gather_counts()                      # the coupling path's own run
+    chunks, counts = [], []
+    t0 = time.perf_counter()
+    for _ in range(CPL_NCHUNKS):
+        before = BG.launches_shared
+        pcm, valid = dec.decode_available(max_frames=CPL_CHUNK_FRAMES)
+        assert valid.all()
+        counts.append(BG.launches_shared - before)
+        chunks.append(pcm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert all(c >= 1 for c in counts), \
+        f"shared-table gather skipped a chunk: {counts}"
+    peak = torch.cuda.max_memory_allocated()
+    assert peak <= PEAK_MEM_LIMIT, f"peak device memory {peak} B"
+    # the oracle is one pass of the stream decoded from frame 0
+    oracle = np.load(CPL_GOLDEN + ".stereo_float.npy")
+    want = np.clip(np.round(oracle.reshape(-1, 2, 256).astype(np.float64)
+                            * 32768.0), -32768, 32767)
+    lane0 = chunks[0][0].cpu().numpy().astype(np.int64)
+    oerr = int(np.abs(lane0[:len(want)] - want).max())
+    audio_s = CPL_BATCH * CPL_NCHUNKS * CPL_CHUNK_FRAMES * 1536 / 48000.0
+    log(f"coupling path: {CPL_BATCH} lanes x {CPL_NCHUNKS} chunks x "
+        f"{CPL_CHUNK_FRAMES} frames of cpl51_hazard; shared-table launches "
+        f"per chunk {counts}; lane 0 vs oracle max {oerr} LSB; {dt:.3f} s "
+        f"-> {audio_s / dt:.0f}x realtime; peak device memory "
+        f"{peak / 1e9:.2f} GB")
+    assert oerr <= 1, f"coupling lane 0 vs reference oracle: {oerr} LSB"
+    return BG.launches_shared
 
 
 def main():
@@ -333,12 +635,25 @@ def main():
     times = phase_times(bench_inputs)
     del bench_inputs
     torch.cuda.empty_cache()
-    launches = phase_main_path()
+    launches, native_plain = phase_main_path()
+    torch.cuda.empty_cache()
+    gathers = phase_raw_gathers()
+    torch.cuda.empty_cache()
+    raw_launches = phase_raw_main(native_plain)
+    del native_plain
+    torch.cuda.empty_cache()
+    raw_launches["extract_fields_shared"] = phase_raw_coupling()
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
         replaces="ac3acm_tpu/ops/pallas_steady.py:210",
         launches=launches, max_abs_err=err, **times)]
+    for entry, kname, line in GATHER_KERNELS:
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="ac3acm_tpu_torch/csrc/bitgather.cu",
+            replaces=f"ac3acm_tpu/ops/bitgather.py:{line}",
+            launches=raw_launches[entry], **gathers[entry]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,8 +138,8 @@ def test_unported_paths_refuse(fast):
     """Other parsers and mixed-format batches raise instead of guessing."""
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         BatchedDecoder(2, FLAGS, parser="python", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        BatchedDecoder(2, FLAGS, parser="raw", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        BatchedDecoder(2, FLAGS, parser="raw_py", device="cpu")
     dec = BatchedDecoder(2, FLAGS, bias=384.0, emit_int16=True, device="cpu")
     dec.feed(0, _es())
     dec.feed(1, _es("stereo_192.ac3"))

@@ -23,7 +23,10 @@ def test_import_every_module_without_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ac3acm_tpu' or m.startswith('ac3acm_tpu.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 12, names\n"
+        "new = {'ac3acm_tpu_torch.ops.bitgather', 'ac3acm_tpu_torch.ops.alloc',"
+        " 'ac3acm_tpu_torch.ops.unpack_device'}\n"
+        "assert new <= set(names), names\n"
+        "assert len(names) >= 15, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -40,7 +43,7 @@ def test_sources_name_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 14
+    assert len(files) >= 17
     for path in files:
         text = open(path).read()
         m = _FORBIDDEN.search(text)
@@ -57,6 +60,11 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         init_batched_carry(4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedDecoder(2, T.A52_STEREO)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchedDecoder(2, T.A52_STEREO, parser="raw")
+    from ac3acm_tpu_torch.ops.unpack_device import init_unpack_carry
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_unpack_carry(2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         carry_from_numpy(torch.zeros(2, 6, 128).numpy(),
                          torch.ones(2, dtype=torch.bool).numpy())
