@@ -22,24 +22,31 @@
 // table of 16-bit fields for every row: K3, and K2's shared entry) has
 // row_stride = 0 and no width array.
 //
-// extract_i16_kernel (K4), one thread per slot: out = table[idx], 0 for an
-// index outside the table.
+// extract_i16_kernel (K4), one thread per 8 consecutive slots:
+// out = table[idx], 0 for an index outside the table.
 //
-// Bound on the card: both are gathers with no arithmetic to speak of, so
+// Bound on the card: all are gathers with no arithmetic to speak of, so
 // bytes bound them.  Per slot a K2/K3 launch moves a 4-byte offset, a
 // 4-byte width (none for the shared form, whose width is one constant) and
 // a 2-byte result; K4 a 4-byte index and a 2-byte result.  The data bytes
 // (one 1,792-byte frame per row at 448 kbps, the 131,070-byte orbit) are
 // read from L2 after the first touch.
 //
-// What this simple design does about it: it moves nothing else -- no byte
-// planes, no one-hot matmul, no window per 1024-slot step and so no
-// step-span contract (the TPU windows and their contract existed because
-// Mosaic has no per-lane gather).  Neighbouring threads take neighbouring
+// What the design does about it: it moves nothing else -- no byte planes,
+// no one-hot matmul, no window per 1024-slot step and so no step-span
+// contract (the TPU windows and their contract existed because Mosaic has
+// no per-lane gather).  K2/K3: neighbouring threads take neighbouring
 // slots, so the offset, width and result streams are coalesced; the three
 // byte loads of a warp fall within a few cache lines of one frame, because
-// offsets rise slot by slot.  Vectorized loads and staging a row's bytes
-// in shared memory are later work.
+// offsets rise slot by slot.  Vectorized loads and staging a row's bytes in
+// shared memory are later work for K2/K3.  K4: the indices of a row are
+// draw ordinals that rise by 0 or 1 from slot to slot, so a thread's eight
+// slots read at most 16 neighbouring table bytes; it takes its indices as
+// two 16-byte loads, its eight table entries from L1 (__ldg) and writes one
+// 16-byte store.  A total that is not a multiple of 8 ends in a scalar
+// tail; index or result pointers that are not 16-byte aligned (a sliced
+// view; the unpack's own tensors never are) are served by the same kernel,
+// each thread taking its eight slots one by one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,16 +87,38 @@ extract_fields_kernel(const uint8_t* __restrict__ data, int64_t row_stride,
     out[i] = (int16_t)(uint16_t)v;
 }
 
+__device__ __forceinline__ int16_t table_at(const int16_t* __restrict__ table,
+                                            int64_t tb, int32_t k)
+{
+    return (k >= 0 && k < tb) ? __ldg(table + k) : (int16_t)0;
+}
+
+// eight slots a thread.  vec: idx and out are 16-byte aligned (every tensor
+// the unpack makes is); a view that is not, and the ragged last group, take
+// the slots one by one in the same thread
 __global__ void __launch_bounds__(THREADS)
 extract_i16_kernel(const int16_t* __restrict__ table, int64_t tb,
                    const int32_t* __restrict__ idx,
-                   int16_t* __restrict__ out, int64_t total)
+                   int16_t* __restrict__ out, int64_t total, bool vec)
 {
-    const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-    if (i >= total)
-        return;
-    const int64_t k = idx[i];
-    out[i] = (k >= 0 && k < tb) ? __ldg(table + k) : (int16_t)0;
+    const int64_t i = ((int64_t)blockIdx.x * THREADS + threadIdx.x) * 8;
+    if (vec && i + 8 <= total) {
+        const int4 a = __ldg(reinterpret_cast<const int4*>(idx + i));
+        const int4 b = __ldg(reinterpret_cast<const int4*>(idx + i) + 1);
+        const int32_t k[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+        uint32_t w[4];
+#pragma unroll
+        for (int e = 0; e < 4; e++)
+            w[e] = (uint32_t)(uint16_t)table_at(table, tb, k[2 * e])
+                   | ((uint32_t)(uint16_t)table_at(table, tb, k[2 * e + 1])
+                      << 16);
+        *reinterpret_cast<uint4*>(out + i) = make_uint4(w[0], w[1], w[2],
+                                                        w[3]);
+    } else {
+        const int64_t end = i + 8 < total ? i + 8 : total;
+        for (int64_t j = i; j < end; j++)
+            out[j] = table_at(table, tb, idx[j]);
+    }
 }
 
 }  // namespace
@@ -118,12 +147,13 @@ extern "C" int bitgather_i16_launch(const void* table, long long tb,
 {
     if (total == 0)
         return 0;
-    const long long blocks = (total + THREADS - 1) / THREADS;
+    const bool vec = ((uintptr_t)idx % 16 == 0) && ((uintptr_t)out % 16 == 0);
+    const long long blocks = (total + THREADS * 8 - 1) / (THREADS * 8);
     if (blocks > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
-    extract_i16_kernel<<<(unsigned)blocks, THREADS, 0,
-                         (cudaStream_t)stream>>>(
-        (const int16_t*)table, tb, (const int32_t*)idx, (int16_t*)out, total);
+    extract_i16_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const int16_t*)table, tb, (const int32_t*)idx, (int16_t*)out, total,
+        vec);
     return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,13 @@ import torch
 
 from .. import tables as T
 
-# FP32 products on the card run in full FP32: the fast-mode contract
-# (<= 1 int16 LSB) leaves no room for TF32's 10-bit mantissa.
+# The library's TF32 switch stays off: every torch.matmul of the port runs
+# in full FP32, because ONE TF32 pass (11 significant bits on each operand)
+# moves the PCM by several int16 LSB and the fast-mode contract allows one.
+# The fused steady kernel (csrc/fused_steady.cu) does use the tensor cores,
+# but as THREE TF32 passes over a hi/lo split of both operands (split_tf32
+# below), which keeps 22 significant bits and lands where the FP32 product
+# lands; tests/test_torch_fused_steady.py holds both statements.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -49,6 +54,51 @@ def mats_on(device) -> tuple:
         _DEV_MATS[key] = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in (w_long, w_short, win, win[::-1]))
+    return _DEV_MATS[key]
+
+
+def split_tf32(x: torch.Tensor) -> tuple:
+    """x (float32) -> (hi, lo), both exactly representable in TF32 (low 13
+    mantissa bits clear) with |x - hi - lo| <= 2^-21 |x|.
+
+    hi is x rounded to TF32's 10 mantissa bits, to nearest with ties away
+    from zero (what cvt.rna.tf32.f32 does on the card: add half a TF32 ulp
+    to the magnitude, clear the low bits); x - hi is exact in FP32 and is
+    rounded the same way.  The tensor cores would truncate an unrounded
+    operand, so the split is made explicitly, here for W and in the kernel
+    for freq."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+@lru_cache(maxsize=1)
+def wt_split() -> tuple:
+    """(Wt_hi, Wt_lo): w_long transposed to [384, 256] (K contiguous, the
+    operand form the tensor cores take for TF32) and split with split_tf32,
+    on the CPU.  The kernel reads them as wt_tiles_on lays them out."""
+    wt = torch.from_numpy(np.ascontiguousarray(_mats()[0].T))
+    return tuple(a.contiguous() for a in split_tf32(wt))
+
+
+def wt_tiles_on(device) -> torch.Tensor:
+    """The fused steady kernel's B operand: [32, 2, 384, 8] float32 on
+    `device`, made once.  Tile [s, m] is columns [8s, 8s + 8) of Wt_hi
+    (m = 0) or Wt_lo (m = 1), all 384 rows, as the kernel's shared memory
+    holds it (K-major rows of 32 bytes, 32-byte swizzle: the two 16-byte
+    halves of rows 4..7 of every 8 swapped), so that a K step is one
+    contiguous 24,576-byte copy."""
+    device = torch.device(device)
+    key = (str(device), "wt_tiles")
+    if key not in _DEV_MATS:
+        wt = torch.stack(wt_split())                          # [2, 384, 256]
+        t = wt.view(2, 384, 32, 2, 4).permute(2, 0, 1, 3, 4)  # [32,2,384,2,4]
+        swap = ((torch.arange(384) >> 2) & 1).bool()
+        t = torch.where(swap[None, None, :, None, None], t.flip(3), t)
+        _DEV_MATS[key] = t.reshape(32, 2, 384, 8).contiguous().to(device)
     return _DEV_MATS[key]
 
 

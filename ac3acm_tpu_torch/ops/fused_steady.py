@@ -15,8 +15,9 @@ tensors on the CPU it runs ``fused_steady_ref``, the plain PyTorch
 version of the same function.  There is no other path: a CUDA tensor
 launches the kernel or raises.
 
-The source note in csrc/fused_steady.cu states the kernel's bound on the
-card (FP32 operations, not bytes) and what the design does about it.
+The source note in csrc/fused_steady.cu states the bounds on the card
+(the function's: bytes; this design's: tensor operations, three TF32
+passes) and what the design does about them.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import ctypes as C
 import torch
 
 from . import _cuda
-from .filterbank import convert_to_int16, mats_on
+from .filterbank import convert_to_int16, mats_on, wt_tiles_on
 
 # THE fused-path accuracy contract, the same two bounds as the JAX
 # package's (ops/pallas_steady.py): against the plain steady pipeline,
@@ -33,11 +34,16 @@ from .filterbank import convert_to_int16, mats_on
 #   * PCM:   max |fused - plain| <= PCM_LSB_TOL int16 LSB
 #   * carry: max |fused - plain| <= CARRY_ATOL in float units
 #
-# The kernel computes in full FP32 like the plain version
-# (torch.backends.cuda.matmul.allow_tf32 = False, ops.filterbank); the
-# two differ only in the GEMM's summation order, a few FP32 ulps of the
-# partial sums, so an output may round to the neighbouring int16 at a
-# half-LSB boundary and the carry drifts far below one float LSB.
+# The plain version's product is a full-FP32 torch.matmul: the library's
+# TF32 switch stays off (ops.filterbank), since one TF32 pass keeps 11
+# significant bits of each operand and moves the PCM by several LSB.  The
+# kernel's product runs on the tensor cores as three TF32 passes over a
+# hi/lo split of both operands (hi*w_lo + lo*w_hi + hi*w_hi, FP32
+# accumulators; filterbank.split_tf32), which keeps 22 significant bits:
+# its sums sit as close to the exact ones as the FP32 product's do, so the
+# two differ by a few FP32 ulps of the partial sums, an output may round
+# to the neighbouring int16 at a half-LSB boundary, and the carry drifts
+# far below one float LSB.  The epilogue is bitwise the plain version's.
 PCM_LSB_TOL = 1
 CARRY_ATOL = 1.0 / 32768
 
@@ -46,16 +52,22 @@ CARRY_ATOL = 1.0 / 32768
 launches = 0
 
 
-def fused_steady_ref(freq, d0, bias):
-    """Plain PyTorch version: freq [B, n, P, 256], d0 [B, P, 128],
-    bias [B, n] -> (pcm int16 [B, n, P, 256], dlast [B, P, 128])."""
-    w_long, _, win, win_r = mats_on(freq.device)
-    zd = torch.matmul(freq, w_long)                       # [B, n, P, 384]
+def steady_epilogue(zd, d0, bias):
+    """The part after the product: zd [B, n, P, 384] (z ++ d), d0
+    [B, P, 128], bias [B, n] -> (pcm int16 [B, n, P, 256], dlast)."""
+    _, _, win, win_r = mats_on(zd.device)
     z, d = zd[..., :256], zd[..., 256:]
     dchain = torch.cat([d0[:, None], d[:, :-1]], dim=1)
     dfold = torch.cat([dchain, dchain.flip(-1)], dim=-1)
     out = z * win + dfold * win_r + bias[:, :, None, None]
     return convert_to_int16(out), d[:, -1]
+
+
+def fused_steady_ref(freq, d0, bias):
+    """Plain PyTorch version: freq [B, n, P, 256], d0 [B, P, 128],
+    bias [B, n] -> (pcm int16 [B, n, P, 256], dlast [B, P, 128])."""
+    return steady_epilogue(torch.matmul(freq, mats_on(freq.device)[0]),
+                           d0, bias)
 
 
 def _bind(lib):
@@ -102,7 +114,10 @@ def fused_steady(freq, d0, bias):
     _check("bias", bias, torch.float32, (B, n), dev)
     if n < 1:
         raise ValueError("fused_steady needs at least one block")
-    w_long, _, win, _ = mats_on(dev)
+    if freq.data_ptr() % 16:
+        raise ValueError("freq must be 16-byte aligned")
+    wt = wt_tiles_on(dev)
+    win = mats_on(dev)[2]
     pcm = torch.empty((B, n, P, 256), dtype=torch.int16, device=dev)
     dlast = torch.empty((B, P, 128), dtype=torch.float32, device=dev)
     lib = _cuda.load("fused_steady", _bind)
@@ -110,7 +125,7 @@ def fused_steady(freq, d0, bias):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fused_steady_launch(
             freq.data_ptr(), d0.data_ptr(), bias.data_ptr(),
-            w_long.data_ptr(), win.data_ptr(), pcm.data_ptr(),
+            wt.data_ptr(), win.data_ptr(), pcm.data_ptr(),
             dlast.data_ptr(), B, n, P, stream)
     if rc != 0:
         raise RuntimeError("fused_steady kernel launch failed: "

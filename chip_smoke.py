@@ -8,12 +8,20 @@ Phases, each fatal on failure (nothing is caught and passed over):
   1. card      nvidia-smi name and power limit, torch / CUDA versions
   2. build     the native host library (g++) and every CUDA kernel (nvcc),
                started together, each build timed
-  3. check     every kernel against its plain PyTorch version on the card:
-               at the bench shape (4096 lanes x 64 frames of the golden
-               5.1 stream, premixed to 2 planes) and, through
-               batched_pipeline, on four formats x both entry-fixup branches
-  4. times     kernel, plain version, library call and bound at the bench
-               shape (CUDA events, median after warm-up)
+  3. check     the fused steady kernel (K1) against its plain PyTorch
+               version on the card: at the bench shape (4096 lanes x 64
+               frames of the golden 5.1 stream, premixed to 2 planes);
+               through batched_pipeline on four formats x both entry-fixup
+               branches; on ragged shapes (1..384 blocks x 1..6 planes, a
+               non-zero carry in); and twice on the same inputs, bitwise
+               equal.  The orbit gather (K4) on totals that are not
+               multiples of 8, from a view that is not 16-byte aligned,
+               with indices outside the table
+  4. times     kernel, plain version and library call at the bench shape
+               (CUDA events, median after warm-up) beside the function's
+               bound (bytes, or one pass of tensor operations) and, labelled
+               apart, the design bounds (three TF32 or bf16 passes, the
+               FP32 pipes)
   5. main path BatchedDecoder(parser="native") in fast mode on 4096 lanes
                of distinct golden byte streams, f32 and compact H2D: the
                kernel's launch count must rise on every chunk, the PCM must
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -69,8 +78,8 @@ CPL_BATCH, CPL_CHUNK_FRAMES, CPL_NCHUNKS = 4096, 12, 2
 RAW_CHUNK_FRAMES = 16
 PEAK_MEM_LIMIT = 60e9
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
-# outside the tensor cores
-PEAK_BYTES, PEAK_FP32 = 3.35e12, 67e12
+# outside the tensor cores, dense TF32 and bf16 FLOP/s in them
+PEAK_BYTES, PEAK_FP32, PEAK_TF32, PEAK_BF16 = 3.35e12, 67e12, 495e12, 989e12
 
 
 def log(msg):
@@ -135,7 +144,11 @@ def phase_build():
         log(f"build {name}: {dt:.1f} s")
     for name, info in _cuda.ptxas_info.items():
         log(f"ptxas {name}: " + " | ".join(
-            ln.strip() for ln in info.splitlines() if "ptxas" in ln))
+            ln.strip() for ln in info.splitlines()
+            if "ptxas" in ln or "spill" in ln))
+        spills = [int(x) for ln in info.splitlines() if "spill" in ln
+                  for x in re.findall(r"(\d+) bytes spill", ln)]
+        assert spills and not any(spills), f"{name}: register spills"
 
 
 def golden_planes(dev):
@@ -226,6 +239,67 @@ def phase_check_formats(dev):
                 f"LSB, carry max {cerr:.3e}")
 
 
+def phase_check_ragged(dev):
+    """K1 against its plain version where tiles are ragged: n around the
+    64-row tile and the main path's 96, every plane count the formats
+    give, odd chain counts, a non-zero carry in; each shape launched
+    twice, the two results bitwise equal."""
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    rng = np.random.default_rng(3)
+    B = 3
+    worst, cworst = 0, 0.0
+    for n in (1, 7, 63, 64, 65, 96, 384):
+        for P in (1, 2, 3, 6):
+            freq = torch.from_numpy((rng.standard_normal((B, n, P, 256))
+                                     * 0.05).astype(np.float32)).to(dev)
+            d0 = torch.from_numpy((rng.standard_normal((B, P, 128))
+                                   * 0.05).astype(np.float32)).to(dev)
+            bias = torch.full((B, n), 384.0, device=dev)
+            pcm_k, dl_k = FS.fused_steady(freq, d0, bias)
+            pcm_2, dl_2 = FS.fused_steady(freq, d0, bias)
+            pcm_p, dl_p = FS.fused_steady_ref(freq, d0, bias)
+            torch.cuda.synchronize()
+            err = int((pcm_k.to(torch.int32)
+                       - pcm_p.to(torch.int32)).abs().max())
+            cerr = float((dl_k - dl_p).abs().max())
+            assert err <= FS.PCM_LSB_TOL and cerr <= FS.CARRY_ATOL, \
+                (n, P, err, cerr)
+            assert torch.equal(pcm_k, pcm_2) and torch.equal(dl_k, dl_2), \
+                f"two launches differ at n={n} P={P}"
+            worst, cworst = max(worst, err), max(cworst, cerr)
+    log(f"check fused_steady ragged shapes (n in 1..384 x P in 1..6, {B} "
+        f"lanes, carry in): pcm max {worst} LSB, carry max {cworst:.3e}; "
+        f"two launches bitwise equal on all 28 shapes")
+
+
+def phase_check_gather_edges(dev):
+    """K4 where its 8-slot groups are ragged: totals that are not
+    multiples of 8, an index view that is not 16-byte aligned (the
+    slot-by-slot branch), indices on and past both ends of the table."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.integers(-32768, 32768, 65535)
+                             .astype(np.int16)).to(dev)
+    edge = np.array([-1, 65534, 65535, 70000, 0], np.int32)
+    cases = 0
+    for total in (1, 7, 8, 9, 8 * 1000 + 3):
+        idx = ((rng.integers(0, 65535) + np.cumsum(
+            rng.integers(0, 2, total + 1))) % 65535).astype(np.int32)
+        idx[::5] = edge[np.arange(len(idx[::5])) % len(edge)]
+        buf = torch.from_numpy(idx).to(dev)
+        for off in (0, 1):
+            view = buf[off:off + total].view(1, total)
+            assert (view.data_ptr() % 16 == 0) == (off == 0)
+            got = BG.extract_i16_table(table, view)
+            want = BG.extract_i16_table_ref(table, view)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (total, off)
+            cases += 1
+    log(f"check extract_i16_table edges: {cases} cases (totals 1, 7, 8, 9, "
+        f"8003; aligned and offset views; indices outside the table) "
+        f"bitwise equal to the plain version")
+
+
 def phase_times(bench_inputs):
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops.filterbank import mats_on
@@ -239,21 +313,52 @@ def phase_times(bench_inputs):
     plain_ms = cuda_ms(lambda: FS.fused_steady_ref(freq, d0, bias))
     flat = freq.view(R, 256)
     library_ms = cuda_ms(lambda: torch.matmul(flat, w_long))
-    # least work: each input read once, each output written once; the
-    # GEMM's 2*256*384 plus 6 epilogue operations per output sample
-    nbytes = (R * 256 * 4 + B * P * 128 * 4 + B * n * 4 + 256 * 384 * 4
-              + 256 * 4 + R * 256 * 2 + B * P * 128 * 4)
-    flops = R * (2 * 256 * 384 + 6 * 256)
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    # least work of the FUNCTION: each input read once, each output written
+    # once; the product's 2*256*384 operations per row, once, at the tensor
+    # cores' rate for float32 operands (TF32).  How a design reaches the
+    # 1-LSB contract on those cores (three passes over a hi/lo split) is
+    # the design's cost, not the function's: the three-pass figures are
+    # printed beside the bound, as is the FP32 pipes' (product plus 6
+    # epilogue operations per output sample), the earlier design's bound.
+    def least_bytes(n_):
+        r = B * n_ * P
+        return (r * 256 * 4 + B * P * 128 * 4 + B * n_ * 4 + 256 * 384 * 4
+                + 256 * 4 + r * 256 * 2 + B * P * 128 * 4)
+
+    nbytes = least_bytes(n)
+    gemm = R * 2 * 256 * 384
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_tensor = gemm / PEAK_TF32 * 1e3
+    t_simt = R * (2 * 256 * 384 + 6 * 256) / PEAK_FP32 * 1e3
+    t_3tf32 = 3 * gemm / PEAK_TF32 * 1e3
+    t_3bf16 = 3 * gemm / PEAK_BF16 * 1e3
+    bound_ms = max(t_bytes, t_tensor)
+    bound_by = "operations" if t_tensor > t_bytes else "bytes"
     log(f"time fused_steady [{B}x{n}x{P} rows={R}]: kernel_ms {ms:.3f} "
         f"plain_ms {plain_ms:.3f} library_ms(torch.matmul "
-        f"[{R},256]@[256,384]) {library_ms:.3f} bound_ms {bound_ms:.3f} "
-        f"= max({nbytes} B / 3.35e12 B/s = {t_bytes:.3f} ms, {flops:.4e} "
-        f"FLOP / 67e12 FLOP/s = {t_ops:.3f} ms) -> {bound_by}; "
-        f"{per_call:g} launch per call; "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s achieved")
+        f"[{R},256]@[256,384]) {library_ms:.3f}; bounds: bytes {nbytes} B / "
+        f"3.35e12 B/s = {t_bytes:.3f} ms | tensor operations {gemm:.4e} "
+        f"FLOP / 495e12 FLOP/s = {t_tensor:.3f} ms; bound_ms "
+        f"{bound_ms:.3f} -> {bound_by} ({bound_ms / ms:.0%} of the kernel's "
+        f"time); {per_call:g} launch per call")
+    log(f"     fused_steady design bounds (not bound_ms): three TF32 passes "
+        f"{t_3tf32:.3f} ms ({t_3tf32 / ms:.0%} of the kernel's time, "
+        f"{3 * gemm / (ms * 1e-3) / 1e12:.1f} tensor TFLOP/s achieved) | "
+        f"three bf16 passes at 989e12 FLOP/s {t_3bf16:.3f} ms | FP32 pipes "
+        f"at 67e12 FLOP/s {t_simt:.3f} ms")
+    # the native main path's own shape: one 16-frame chunk of 4096 lanes
+    # (a 96-block chain is one full 64-row tile and half of another)
+    n_main = CHUNK_FRAMES * 6
+    f_main, b_main = freq[:, :n_main].contiguous(), \
+        bias[:, :n_main].contiguous()
+    ms_main = cuda_ms(lambda: FS.fused_steady(f_main, d0, b_main))
+    t_main = max(least_bytes(n_main) / PEAK_BYTES * 1e3,
+                 t_tensor * n_main / n)
+    log(f"time fused_steady [{B}x{n_main}x{P}] (a main-path chunk): "
+        f"kernel_ms {ms_main:.3f}, bound {t_main:.3f} ms "
+        f"({t_main / ms_main:.0%}); three TF32 passes "
+        f"{t_3tf32 * n_main / n:.3f} ms "
+        f"({t_3tf32 * n_main / n / ms_main:.0%})")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -632,6 +737,8 @@ def main():
     phase_build()
     bench_inputs, err = phase_check_bench(dev)
     phase_check_formats(dev)
+    phase_check_ragged(dev)
+    phase_check_gather_edges(dev)
     times = phase_times(bench_inputs)
     del bench_inputs
     torch.cuda.empty_cache()

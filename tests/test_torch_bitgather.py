@@ -171,3 +171,57 @@ def test_cpu_tensors_launch_nothing():
                          torch.zeros((2, 3), dtype=torch.int32))
     assert (BG.launches_fields, BG.launches_shared, BG.launches_i16) \
         == before
+
+
+def _orbit_run(rng, total):
+    """Draw ordinals like the unpack's: a non-decreasing run (steps of 0
+    or 1) inside the 65,535-entry orbit."""
+    start = int(rng.integers(0, 65535 - total))
+    return (start + np.cumsum(rng.integers(0, 2, total))).astype(np.int32)
+
+
+@pytest.mark.parametrize("total", [1, 7, 8, 9, 8 * 37 + 3])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset_view"])
+def test_extract_i16_table_ragged_totals(total, offset):
+    """Totals around the kernel's 8-slot groups, from a view that starts
+    one index into its buffer (the CUDA kernel's scalar path): a run like
+    the unpack's against the JAX entry and numpy, then the same run with
+    indices on and past both ends of the orbit mixed in (0 outside)."""
+    rng = np.random.default_rng(100 * total + offset)
+    table = rng.integers(-32768, 32768, 65535).astype(np.int16)
+    run = _orbit_run(rng, total)
+
+    def port(k):
+        buf = torch.from_numpy(np.concatenate([np.zeros(offset, np.int32), k]))
+        got = BG.extract_i16_table(torch.from_numpy(table),
+                                   buf[offset:].view(1, total))
+        assert got.dtype == torch.int16 and tuple(got.shape) == (1, total)
+        return got.numpy()[0]
+
+    np.testing.assert_array_equal(port(run), table[run])
+    # the JAX entry reads whole 1024-slot groups: pad with the last index
+    G = JBG.TPG * JBG.TS
+    pad = np.full((1, G), run[-1], np.int32)
+    pad[0, :total] = run
+    jax_out = np.asarray(JBG.extract_i16_table(table, jnp.asarray(pad)))
+    np.testing.assert_array_equal(port(run), jax_out[0, :total])
+
+    edged = run.copy()
+    edge = np.array([-1, 65534, 65535, 0, 70000], np.int32)
+    edged[::3] = edge[np.arange(len(edged[::3])) % len(edge)]
+    ok = (edged >= 0) & (edged < 65535)
+    want = np.where(ok, table[np.clip(edged, 0, 65534)], 0)
+    np.testing.assert_array_equal(port(edged), want)
+
+
+def test_extract_i16_table_keeps_any_offsets_shape():
+    """The wrapper takes offsets of any shape (the kernel sees them flat)
+    and refuses what the kernel would: int64 indices, a 2-D table."""
+    table = torch.arange(-8, 8, dtype=torch.int16)
+    idx = torch.tensor([[[0, 15, 16], [-1, 7, 8]]], dtype=torch.int32)
+    got = BG.extract_i16_table(table, idx)
+    assert got.tolist() == [[[-8, 7, 0], [0, -1, 0]]]
+    with pytest.raises(TypeError, match="offsets"):
+        BG.extract_i16_table(table, idx.long())
+    with pytest.raises(ValueError, match="table"):
+        BG.extract_i16_table(table.view(4, 4), idx)

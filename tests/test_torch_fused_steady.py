@@ -7,6 +7,8 @@ body -- and through the port's fused branch, which on CPU tensors runs the
 kernel's plain PyTorch version.  Held to the fused-path contract:
 <= PCM_LSB_TOL int16 LSB on PCM, <= CARRY_ATOL on the carried delay.
 """
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from ac3acm_tpu.ops import pallas_steady as PS
 from ac3acm_tpu.parallel.pipeline import batched_pipeline as jax_pipeline
 from ac3acm_tpu_torch.models.decoder import StreamFormat
 from ac3acm_tpu_torch.ops import fused_steady as FS
+from ac3acm_tpu_torch.ops.filterbank import mats_on, split_tf32, wt_split
 from ac3acm_tpu_torch.parallel.pipeline import batched_pipeline
 
 # (acmod, output, slev_zero, chanbias): tests/test_pallas_steady.py:18-29
@@ -114,3 +117,139 @@ def test_fused_steady_ref_matches_jax_kernel(monkeypatch):
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=0,
                                atol=FS.CARRY_ATOL)
 
+
+
+# ---------------------------------------------------------------------------
+# The 3xTF32 split the CUDA kernel's tensor-core product relies on
+# ---------------------------------------------------------------------------
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "bench_51_448.ac3")
+
+
+def _split_inputs(name):
+    rng = np.random.default_rng(23)
+    if name == "random":
+        x = rng.standard_normal(4096) * 10.0 ** rng.integers(-6, 4, 4096)
+    elif name == "zeros_and_tiny":
+        # +-0, and tiny values whose low part stays a normal float32
+        x = np.concatenate([[0.0, -0.0], 2.0 ** -100 * (1 + rng.random(510)),
+                            -(2.0 ** -90) * (1 + rng.random(512))])
+    elif name == "ties":
+        # exactly half a TF32 ulp above a TF32 value: ties go away from zero
+        m = rng.integers(0, 1 << 10, 1024)
+        x = (1.0 + m / 1024.0 + 2.0 ** -11) * np.where(m % 2, 1.0, -1.0)
+    else:
+        x = mats_on("cpu")[0].numpy().ravel()
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("name", ["random", "zeros_and_tiny", "ties",
+                                  "w_long"])
+def test_split_tf32_hi_lo(name):
+    """hi and lo are TF32 values (low 13 mantissa bits clear) and x - hi - lo
+    is at most 2^-21 |x|: two operands of 11 significant bits hold 22."""
+    x = _split_inputs(name)
+    hi, lo = split_tf32(x)
+    for part in (hi, lo):
+        assert part.dtype == torch.float32
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    x64, hi64, lo64 = (t.double() for t in (x, hi, lo))
+    assert bool(((x64 - hi64).abs() <= 2.0 ** -11 * x64.abs()).all())
+    assert bool(((x64 - hi64 - lo64).abs() <= 2.0 ** -21 * x64.abs()).all())
+    if name == "ties":
+        assert bool((hi.abs() > x.abs()).all())
+
+
+def test_wt_split_rebuilds_w_long():
+    """Wt_hi + Wt_lo, transposed back, is w_long to the split's bound, in
+    the [384, 256] K-contiguous form the kernel reads."""
+    w = mats_on("cpu")[0]
+    wt_hi, wt_lo = wt_split()
+    for part in (wt_hi, wt_lo):
+        assert tuple(part.shape) == (384, 256) and part.is_contiguous()
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    back = (wt_hi.double() + wt_lo.double()).T
+    assert bool(((back - w.double()).abs() <= 2.0 ** -21 * w.abs().double())
+                .all())
+    hi, lo = split_tf32(w)
+    assert torch.equal(wt_hi, hi.T) and torch.equal(wt_lo, lo.T)
+
+
+def _golden_planes(lanes=4, frames=8):
+    """Premixed 5.1 -> 2.0 planes of the golden stream, one frame rotation
+    per lane: freq [B, n, 2, 256], d0 [B, 2, 128], bias [B, n]."""
+    from ac3acm_tpu_torch.host.native import DenseBatchParser
+    es = open(GOLDEN, "rb").read()
+    r = DenseBatchParser(1).parse([es], frames,
+                                  JT.A52_STEREO | JT.A52_ADJUST_LEVEL,
+                                  1.0, 384.0, pre_planes=2)
+    assert r["nframes"][0] == frames and r["premix_ok"].all()
+    one = r["freq_pre"][0]                                   # [n, 2, 256]
+    freq = np.stack([np.roll(one, 6 * k, axis=0) for k in range(lanes)])
+    bias = np.broadcast_to(r["bias"], (lanes, one.shape[0])).copy()
+    rng = np.random.default_rng(0)
+    d0 = (rng.standard_normal((lanes, 2, 128)) * 0.01).astype(np.float32)
+    return freq.astype(np.float32), d0, bias.astype(np.float32)
+
+
+def _tf32_product(freq, passes):
+    """The kernel's product, emulated in FP32 on the CPU: operands split
+    with split_tf32, small terms first, lo * w_lo dropped."""
+    f_hi, f_lo = split_tf32(freq)
+    wt_hi, wt_lo = wt_split()
+    big = torch.matmul(f_hi, wt_hi.T)
+    if passes == 1:
+        return big
+    return (torch.matmul(f_hi, wt_lo.T) + torch.matmul(f_lo, wt_hi.T)) + big
+
+
+@pytest.mark.parametrize("against", ["plain", "jax_kernel"])
+def test_three_pass_product_meets_contract(against, monkeypatch):
+    """The emulated 3xTF32 product through the plain epilogue is inside the
+    fused-path contract against the plain version and against the JAX
+    kernel (interpret mode), on golden-derived content."""
+    freq, d0, bias = _golden_planes()
+    pcm, dlast = FS.steady_epilogue(
+        _tf32_product(torch.from_numpy(freq), 3), torch.from_numpy(d0),
+        torch.from_numpy(bias))
+    if against == "plain":
+        want, dwant = FS.fused_steady_ref(*(torch.from_numpy(a)
+                                            for a in (freq, d0, bias)))
+        want, dwant = want.numpy(), dwant.numpy()
+    else:
+        from ac3acm_tpu.ops.pallas_steady import fused_steady as jax_fused
+        monkeypatch.setattr(PS, "INTERPRET", True)
+        want, dwant = (np.asarray(a) for a in jax_fused(
+            jnp.asarray(freq), jnp.asarray(d0), jnp.asarray(bias)))
+    assert np.abs(pcm.numpy().astype(np.int64)
+                  - want.astype(np.int64)).max() <= FS.PCM_LSB_TOL
+    np.testing.assert_allclose(dlast.numpy(), dwant, rtol=0,
+                               atol=FS.CARRY_ATOL)
+
+
+def test_one_pass_product_breaks_contract():
+    """Why three passes: ONE TF32 pass on the same content is off by more
+    than the contract's one LSB (and the library's TF32 switch stays off)."""
+    freq, d0, bias = _golden_planes()
+    args = [torch.from_numpy(a) for a in (d0, bias)]
+    pcm, _ = FS.steady_epilogue(_tf32_product(torch.from_numpy(freq), 1),
+                                *args)
+    want, _ = FS.fused_steady_ref(torch.from_numpy(freq), *args)
+    err = (pcm.to(torch.int32) - want.to(torch.int32)).abs().max()
+    assert int(err) > FS.PCM_LSB_TOL
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_wt_tiles_hold_the_split_in_kernel_order():
+    """The kernel's B operand: tile [s, m] is columns [8s, 8s + 8) of
+    Wt_hi (m = 0) / Wt_lo (m = 1); in it element (r, k) lies in 16-byte
+    chunk (k // 4) ^ ((r >> 2) & 1) of row r (the 32-byte swizzle)."""
+    from ac3acm_tpu_torch.ops.filterbank import wt_tiles_on
+    tiles = wt_tiles_on("cpu")
+    assert tuple(tiles.shape) == (32, 2, 384, 8) and tiles.is_contiguous()
+    parts = wt_split()
+    r = torch.arange(384)[:, None]
+    k = torch.arange(256)[None, :]
+    pos = (((k % 8) // 4) ^ ((r >> 2) & 1)) * 4 + k % 4
+    for m in range(2):
+        assert torch.equal(tiles[k // 8, m, r, pos], parts[m])
