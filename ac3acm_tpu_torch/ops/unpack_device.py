@@ -29,8 +29,11 @@ to the active plan.  Dead rows pass their carry state through unchanged,
 like liba52's untouched a52_state_t fields.
 
 The bitfield reads are the kernels of ops.bitgather; everything else is
-plain PyTorch.  Integer tensors stay int32 throughout (cumsums name their
-dtype), and each float product of the dequantization is its own op, so
+plain PyTorch.  Integer tensors are int32 (cumsums name their dtype)
+except the gathers' wire, which each stage builds narrow from the start:
+slot widths uint8 (bap int8 on the mantissa lattice), slot offsets int16
+(_narrow), the dither ordinals in steps of 16 bits.  Each float product
+of the dequantization is its own op, so
 ``freq`` equals liba52's (q * a) * b bit for bit.
 """
 from __future__ import annotations
@@ -270,6 +273,23 @@ def _excl_cumsum(x, dim=-1):
     return torch.cumsum(x, dim=dim, dtype=torch.int32) - x
 
 
+def _narrow(a, b):
+    """Slot bit offsets a + b as int16, written by the add itself (no pass
+    of its own) for the bitfield gathers' narrow wire.
+
+    Every slot offset here is a side-info bit position of the wire record
+    (exp_off, cplco_off, phs_off, man_off: the parser's cursor stored as
+    int16) plus the bits of the block's earlier fields of the same kind, at
+    most 16 for each of 5 x 256 + 256 + 7 = 1,543 live mantissa slots, so
+    the int32 sum lies in [-32768, 57455].  Up to 32,767 the int16 is the
+    sum itself; above it the int16 wraps into [-32768, -8081], before the
+    row, where the sum lies past bit 32,767, after any frame (at most
+    3,840 B): both read 0, so the gathers give what int32 offsets give."""
+    out = torch.empty(torch.broadcast_shapes(a.shape, b.shape),
+                      dtype=torch.int16, device=a.device)
+    return torch.add(a, b, out=out)
+
+
 def _pow2(e):
     """Exact float32 2**e for integer e (clamped to the normal range; a
     clamped value only ever lands in a masked-out lane)."""
@@ -373,10 +393,9 @@ def _exp_slots(meta, plan: RowPlan):
     ngrps = meta["ngrps"][..., sel]
     g = _ar(EXP_ROW_SLOTS, exp_off)
     # slot offsets: abs at +0 (4 bits), group k at +4 + 7k
-    offs = exp_off[..., None] + torch.where(g == 0, 0, 4 + 7 * (g - 1))
+    offs = _narrow(exp_off[..., None], torch.where(g == 0, 0, 4 + 7 * (g - 1)))
     live = (exp_off >= 0)[..., None] & ((g == 0) | (g - 1 < ngrps[..., None]))
-    widths = torch.where(live, torch.where(g == 0, 4, torch.full_like(g, 7)),
-                         0)
+    widths = torch.where(live, torch.where(g == 0, 4, 7).to(torch.uint8), 0)
     return offs, widths
 
 
@@ -626,14 +645,14 @@ def _cplco_slots(meta):
     j = (k - 1) // 2
     is_exp = (k % 2) == 1
     foff = torch.where(k == 0, 0, torch.where(is_exp, 2 + 8 * j, 6 + 8 * j))
-    offs = off[..., None] + foff                         # [L, S, 5, 37]
+    offs = _narrow(off[..., None], foff)                 # [L, S, 5, 37]
     live = (off[..., None] >= 0) & ((k == 0) | (j < ncpl[..., None, None]))
-    w = torch.where(live, torch.where(k == 0, 2, torch.full_like(k, 4)), 0)
+    w = torch.where(live, torch.where(k == 0, 2, 4).to(torch.uint8), 0)
 
     ph = meta["phs_off"]                                 # [L, S]
     pj = _ar(18, ph)
-    ph_offs = ph[..., None] + pj
-    ph_w = ((ph[..., None] >= 0) & (pj < ncpl[..., None])).to(torch.int32)
+    ph_offs = _narrow(ph[..., None], pj)
+    ph_w = ((ph[..., None] >= 0) & (pj < ncpl[..., None])).to(torch.uint8)
     return (torch.cat([offs.reshape(L, S, 185), ph_offs], -1),
             torch.cat([w.reshape(L, S, 185), ph_w], -1))
 
@@ -817,7 +836,7 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
     seg = plan.seg
     dev = exp.device
     bins = _ar(256, exp)
-    bap = bap.to(torch.int32)
+    bap = bap.to(torch.int8)      # so the slot widths below are int8 too
 
     endm = meta["endmant"][..., :nfch]                   # [L, S, nfch]
     fbw_act = bins < endm[..., None]                     # [L, S, nfch, 256]
@@ -885,9 +904,10 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
     reads2 = is2 & (cnt2 % 3 == 0)
     reads4 = is4 & (cnt4 % 2 == 0)
     w = torch.where(reads1, 5, torch.where(reads2 | reads4, 7, w_simple))
-    offsets = (meta["man_off"][..., None] + _excl_cumsum(w_simple)
-               + 5 * ((cnt1 + 2) // 3) + 7 * ((cnt2 + 2) // 3)
-               + 7 * ((cnt4 + 1) // 2))
+    offsets = _narrow(meta["man_off"][..., None] + _excl_cumsum(w_simple)
+                      + 5 * ((cnt1 + 2) // 3) + 7 * ((cnt2 + 2) // 3),
+                      7 * ((cnt4 + 1) // 2))
+    w = w.view(torch.uint8)                              # 0..16
     del w_simple
 
     if not plan.has_cpl and (plan.emax < 256 or plan.has_lfe):
@@ -977,9 +997,10 @@ def unpack_mantissas(frames_u8, exp, bap, cplco, meta, carry_dpos,
                  (ord_cpl[..., None] + torch.minimum(chN, rmax)).reshape(
                      L, S, nfch * 256)], dim=-1) % 65535
             # the orbit's big-endian byte pairs through the bitfield
-            # gather (the TPU path's per-tile shared-table kernel)
+            # gather (the TPU path's per-tile shared-table kernel), one
+            # 16-bit field per ordinal
             states = BG.extract_fields_shared(
-                orbit_bytes, (d_off * 16).reshape(L * F, -1).contiguous())
+                orbit_bytes, d_off.reshape(L * F, -1).contiguous(), unit=16)
         else:
             d_off = abs_ord[..., :nfch * 256] % 65535
             states = BG.extract_i16_table(

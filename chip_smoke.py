@@ -16,7 +16,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
                non-zero carry in); and twice on the same inputs, bitwise
                equal.  The orbit gather (K4) on totals that are not
                multiples of 8, from a view that is not 16-byte aligned,
-               with indices outside the table
+               with indices outside the table.  The bitfield gathers (K2,
+               K3) on ragged rows, unaligned views and rows, fields on
+               and past the edges, widths 0 and 16, the int32 and narrow
+               wires, unit=16 against unit=1, a row too wide to stage
   4. times     kernel, plain version and library call at the bench shape
                (CUDA events, median after warm-up) beside the function's
                bound (bytes, or one pass of tensor operations) and, labelled
@@ -32,7 +35,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                path's decoder gives it (4096 lanes x 16 frames of the
                golden 5.1 stream; 4096 lanes x 12 frames of the golden
                coupling stream), and the times of the K2 mantissa, K3 and
-               K4 calls beside their byte bounds
+               K4 calls beside their byte bounds (K2 also on the int32
+               wire; K3 and K4 beside torch.index_select of the same
+               entries)
   7. raw path  BatchedDecoder(parser="raw") on the main path's lanes: the
                gathers' launch counts must rise on every chunk, the first
                chunk's dequantized planes must equal the native parser's
@@ -41,7 +46,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                step broken into stages (StageClock)
   8. coupling  BatchedDecoder(parser="raw") on 4096 lanes of the golden
                coupling stream: the shared-table gather must launch on
-               every chunk, lane 0 within 1 LSB of its oracle; peak memory
+               every chunk, lane 0 within 1 LSB of its oracle; peak memory;
+               one step broken into stages
   9. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
@@ -300,6 +306,93 @@ def phase_check_gather_edges(dev):
         f"bitwise equal to the plain version")
 
 
+def phase_check_field_edges(dev):
+    """K2 and K3 against their plain versions, bitwise, where the design
+    has edges: rows whose slot count is not a multiple of 8 (scalar head
+    and tail), offset and width views that are not 16-byte aligned (all
+    slots one by one), frame rows of 3,840 B and of a length that is not
+    a multiple of 16 (so row starts are unaligned and the stage takes a
+    ragged first and last chunk), a row too wide to stage (read through
+    L1, as the shared table is), fields on a row's last bits, past its
+    end and at negative offsets, widths 0 and 16; the int32 and narrow
+    wires on the same slots give identical fields; the shared form with
+    unit=16 equals unit=1 at 16*d, on the orbit's size and a 262,144-byte
+    table."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    rng = np.random.default_rng(9)
+    cases = 0
+
+    def same(got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int16 and torch.equal(got, want), what
+        cases += 1
+
+    for MB, sizes in ((1, None), (13, None), (1001, None), (1792, None),
+                      (3840, None), (50001, (9, 8 * 37 + 3))):
+        for S in sizes or (1, 7, 9, 8 * 37 + 3, 7104):
+            N = 5
+            narrow = MB <= 4095         # int16 offsets reach bit 32,767
+            data = torch.from_numpy(rng.integers(0, 256, (N, MB),
+                                                 dtype=np.uint8)).to(dev)
+            w = rng.integers(0, 17, (N, S)).astype(np.int32)
+            w[:, ::5] = 0
+            w[:, 1::5] = 16
+            off = rng.integers(-40, 8 * MB + 40, (N, S)).astype(np.int32)
+            off[:, 2::7] = 8 * MB - w[:, 2::7]           # ends on the last bit
+            off[:, 3::7] = 8 * MB - 1                    # starts on it
+            off[:, 4::11] = -w[:, 4::11]                 # ends before the row
+            o32 = torch.from_numpy(off).to(dev)
+            w32 = torch.from_numpy(w).to(dev)
+            want = BG.extract_fields_ref(data, o32, w32)
+            same(BG.extract_fields(data, o32, w32), want, (MB, S, "i32"))
+            nd = torch.int16 if narrow else torch.int32
+            same(BG.extract_fields(data, o32.to(nd), w32.to(torch.uint8)),
+                 want, (MB, S, nd, "u8"))
+            # unaligned views of the same slots (the slot-by-slot branch)
+            for od, wd in ((torch.int32, torch.int32), (nd, torch.uint8)):
+                ob = torch.zeros(N * S + 1, dtype=od, device=dev)
+                wb = torch.zeros(N * S + 1, dtype=wd, device=dev)
+                ob[1:] = o32.view(-1).to(od)
+                wb[1:] = w32.view(-1).to(wd)
+                ov, wv = ob[1:].view(N, S), wb[1:].view(N, S)
+                assert ov.data_ptr() % 16 != 0 and wv.data_ptr() % 16 != 0
+                same(BG.extract_fields(data, ov, wv), want,
+                     (MB, S, od, "view"))
+            # a data view whose rows start off 16-byte boundaries
+            buf = torch.zeros(N * MB + 3, dtype=torch.uint8, device=dev)
+            buf[3:] = data.view(-1)
+            dv = buf[3:].view(N, MB)
+            same(BG.extract_fields(dv, o32, w32), want, (MB, S, "data view"))
+    # the shared form: the orbit's size and a wider table; unit=16
+    # against unit=1
+    for TB in (131070, 262144):
+        table = torch.from_numpy(rng.integers(0, 256, TB,
+                                              dtype=np.uint8)).to(dev)
+        for N, S in ((3, 9), (300, 8 * 211 + 5)):
+            d = rng.integers(-3, TB // 2 + 3, (N, S)).astype(np.int32)
+            d_t = torch.from_numpy(d).to(dev)
+            want = BG.extract_fields_shared_ref(table, d_t * 16)
+            same(BG.extract_fields_shared(table, d_t * 16), want,
+                 (TB, N, S, "unit 1"))
+            same(BG.extract_fields_shared(table, d_t, unit=16), want,
+                 (TB, N, S, "unit 16"))
+            assert torch.equal(want, BG.extract_fields_shared_ref(
+                table, d_t, unit=16))
+            bits = torch.from_numpy(rng.integers(-20, 8 * TB + 20, (N, S))
+                                    .astype(np.int32)).to(dev)
+            same(BG.extract_fields_shared(table, bits),
+                 BG.extract_fields_shared_ref(table, bits),
+                 (TB, N, S, "bit offsets"))
+    log(f"check extract_fields / extract_fields_shared edges: {cases} cases "
+        f"(rows of 1, 13, 1001, 1792, 3840 B x 1, 7, 9, 299, 7104 slots "
+        f"and of 50,001 B, read through L1; int32 and int16/uint8 wires, "
+        f"unaligned offset, width and data views; fields on, past and "
+        f"before the row's ends, widths 0 and 16; orbit-size and "
+        f"262,144-byte tables, 3 and 300 rows, unit 16 vs 1) bitwise equal "
+        f"to the plain versions")
+
+
 def phase_times(bench_inputs):
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops.filterbank import mats_on
@@ -494,15 +587,16 @@ def raw_decoder(streams):
 
 def record_gathers(fn):
     """Run fn() with every gather entry recording its arguments (each call
-    still launches its kernel); -> [(entry, args)] in call order."""
+    still launches its kernel); -> [(entry, args, kwargs)] in call
+    order."""
     from ac3acm_tpu_torch.ops import bitgather as BG
     orig = {e: getattr(BG, e) for e, _, _ in GATHER_KERNELS}
     calls = []
 
     def wrap(entry):
-        def call(*args):
-            calls.append((entry, args))
-            return orig[entry](*args)
+        def call(*args, **kw):
+            calls.append((entry, args, kw))
+            return orig[entry](*args, **kw)
         return call
 
     for e in orig:
@@ -525,17 +619,24 @@ LEAST_SLOT_BYTES = {"extract_fields": 2 + 1 + 2,
 
 
 def gather_bound(entry, args):
-    """-> (least bytes the call must move, bytes its wire moves, bound
-    ms): every slot at LEAST_SLOT_BYTES and each data/table byte once;
-    the wire counts offsets, widths and results at their tensors'
-    dtypes."""
+    """-> (least bytes the call must move, bytes its wire moves, its wire
+    per slot, bound ms): every slot at LEAST_SLOT_BYTES and each
+    data/table byte once; the wire counts offsets, widths and results at
+    their tensors' dtypes."""
     data, offsets = args[0], args[1]
     slots = offsets.numel()
     table = data.numel() * data.element_size()
     nbytes = slots * LEAST_SLOT_BYTES[entry] + table
-    wire = table + slots * (offsets.element_size() + 2) + sum(
-        a.numel() * a.element_size() for a in args[2:] if a is not None)
-    return nbytes, wire, nbytes / PEAK_BYTES * 1e3
+    per_slot = offsets.element_size() + 2 + sum(
+        a.element_size() for a in args[2:] if a is not None)
+    return (nbytes, table + slots * per_slot, per_slot,
+            nbytes / PEAK_BYTES * 1e3)
+
+
+def field_table_i16(table):
+    """The int16 entries a byte table holds as big-endian 16-bit fields."""
+    pairs = table.view(-1, 2).to(torch.int32)
+    return ((pairs[:, 0] << 8) | pairs[:, 1]).to(torch.int16)
 
 
 def phase_raw_gathers():
@@ -546,6 +647,7 @@ def phase_raw_gathers():
              "extract_fields_shared": BG.extract_fields_shared_ref,
              "extract_i16_table": BG.extract_i16_table_ref}
     timed, errs = {}, {e: 0 for e, _, _ in GATHER_KERNELS}
+    wires = {}
     for tag, path, batch, nframes, rotate in (
             ("main", GOLDEN, MAIN_BATCH, RAW_CHUNK_FRAMES, True),
             ("coupling", CPL_GOLDEN, CPL_BATCH, CPL_CHUNK_FRAMES, False)):
@@ -554,32 +656,46 @@ def phase_raw_gathers():
         calls = record_gathers(
             lambda: dec.decode_available(max_frames=nframes))
         del dec
-        for i, (entry, args) in enumerate(calls):
-            got = getattr(BG, entry)(*args)
-            want = plain[entry](*args)
+        for i, (entry, args, kw) in enumerate(calls):
+            got = getattr(BG, entry)(*args, **kw)
+            want = plain[entry](*args, **kw)
             torch.cuda.synchronize()
             diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
             mism, err = int((diff != 0).sum()), int(diff.max())
             errs[entry] = max(errs[entry], err)
+            wire = "/".join(str(a.dtype).replace("torch.", "")
+                            for a in args[1:] if a is not None)
+            wires.setdefault(entry, set()).add(wire)
             log(f"check {entry} {tag} call {i} offsets "
-                f"{tuple(args[1].shape)}: {mism} mismatches vs plain")
+                f"{tuple(args[1].shape)} ({wire}{kw or ''}): {mism} "
+                f"mismatches vs plain")
             assert mism == 0, (entry, tag, i, mism)
             del got, want, diff
         # time the largest call of each entry on its path
-        for entry in {e for e, _ in calls}:
-            args = max((a for e, a in calls if e == entry),
-                       key=lambda a: a[1].numel())
+        for entry in {e for e, _, _ in calls}:
+            args, kw = max(((a, k) for e, a, k in calls if e == entry),
+                           key=lambda ak: ak[0][1].numel())
             if entry in timed or (entry == "extract_fields"
                                   and tag != "main"):
                 continue
-            nbytes, wire, bound_ms = gather_bound(entry, args)
-            ms = cuda_ms(lambda: getattr(BG, entry)(*args))
-            plain_ms = cuda_ms(lambda: plain[entry](*args))
+            nbytes, wire, per_slot, bound_ms = gather_bound(entry, args)
+            ms = cuda_ms(lambda: getattr(BG, entry)(*args, **kw))
+            plain_ms = cuda_ms(lambda: plain[entry](*args, **kw))
             library_ms = None
             if entry == "extract_i16_table":
                 tab, idx = args           # same int32 indices, one call
                 library_ms = cuda_ms(
                     lambda: torch.index_select(tab, 0, idx.view(-1)))
+            elif entry == "extract_fields_shared":
+                # the same function as one library call: the orbit as
+                # int16 entries, indexed by the same int32 ordinals
+                assert kw == {"unit": 16}, kw
+                tab = field_table_i16(args[0])
+                idx = args[1].view(-1)
+                assert torch.equal(torch.index_select(tab, 0, idx),
+                                   getattr(BG, entry)(*args, **kw).view(-1))
+                library_ms = cuda_ms(lambda: torch.index_select(tab, 0, idx))
+                del tab, idx
             timed[entry] = dict(ms=ms, plain_ms=plain_ms,
                                 library_ms=library_ms, bound_ms=bound_ms,
                                 bound_by="bytes")
@@ -587,14 +703,28 @@ def phase_raw_gathers():
                 f" library_ms(torch.index_select) {library_ms:.3f}"
             log(f"time {entry} {tag} offsets {tuple(args[1].shape)}: "
                 f"kernel_ms {ms:.3f} plain_ms {plain_ms:.3f}{lib} bound_ms "
-                f"{bound_ms:.3f} = {nbytes} B (least) / 3.35e12 B/s -> "
-                f"bytes; its wire moves {wire} B; "
-                f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s of the least bytes "
-                f"achieved")
+                f"{bound_ms:.3f} = {nbytes} B (least, "
+                f"{LEAST_SLOT_BYTES[entry]} B a slot) / 3.35e12 B/s -> "
+                f"bytes; its wire ({per_slot} B a slot) moves {wire} B; "
+                f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s of the least bytes, "
+                f"{wire / (ms * 1e-3) / 1e12:.2f} TB/s of its wire")
+            if entry == "extract_fields":
+                # the same slots on the int32 wire, for the record
+                wide = (args[0], args[1].to(torch.int32),
+                        args[2].to(torch.int32))
+                _, wire32, per32, _ = gather_bound(entry, wide)
+                ms32 = cuda_ms(lambda: BG.extract_fields(*wide))
+                log(f"time {entry} {tag} offsets {tuple(args[1].shape)} on "
+                    f"the int32 wire ({per32} B a slot, {wire32} B): kernel_ms "
+                    f"{ms32:.3f}, {wire32 / (ms32 * 1e-3) / 1e12:.2f} TB/s "
+                    f"of its wire")
+                del wide
         del calls
         torch.cuda.empty_cache()
     for entry in timed:
         timed[entry]["max_abs_err"] = errs[entry]
+    log("gather wires (offsets/widths): " + "; ".join(
+        f"{e} {sorted(w)}" for e, w in wires.items()))
     return timed
 
 
@@ -728,7 +858,19 @@ def phase_raw_coupling():
         f"-> {audio_s / dt:.0f}x realtime; peak device memory "
         f"{peak / 1e9:.2f} GB")
     assert oerr <= 1, f"coupling lane 0 vs reference oracle: {oerr} LSB"
-    return BG.launches_shared
+    launches = BG.launches_shared
+    del chunks, dec
+    # the first chunk again, stage by stage
+    from ac3acm_tpu_torch.parallel.pipeline import StageClock
+    dec = raw_decoder(streams)
+    clock = StageClock(torch.device("cuda"))
+    dec.decode_available(max_frames=CPL_CHUNK_FRAMES, clock=clock)
+    del dec
+    clock.kept.clear()
+    log(f"coupling path, one {CPL_CHUNK_FRAMES}-frame chunk by stage: "
+        + ", ".join(f"{name} {sec:.3f} s"
+                    for name, sec in clock.seconds.items()))
+    return launches
 
 
 def main():
@@ -739,6 +881,7 @@ def main():
     phase_check_formats(dev)
     phase_check_ragged(dev)
     phase_check_gather_edges(dev)
+    phase_check_field_edges(dev)
     times = phase_times(bench_inputs)
     del bench_inputs
     torch.cuda.empty_cache()

@@ -106,17 +106,34 @@ def test_extract_fields_shared_matches_jax(per_tile):
 
 def test_wrappers_refuse_what_the_kernels_refuse():
     """dtype and shape are checked on CPU tensors too, so drift that the
-    card would refuse (int64 widths, say) fails the CPU tests first."""
+    card would refuse (int64 widths, say) fails the CPU tests first.  The
+    wire takes int32 or int16 offsets and int32 or uint8 widths, nothing
+    else."""
     data = torch.zeros((2, 8), dtype=torch.uint8)
     offs = torch.zeros((2, 3), dtype=torch.int32)
     with pytest.raises(TypeError, match="widths"):
         BG.extract_fields(data, offs, offs.long())
+    with pytest.raises(TypeError, match="widths"):
+        BG.extract_fields(data, offs, offs.to(torch.int8))
     with pytest.raises(TypeError, match="offsets"):
         BG.extract_fields_shared(data[0], offs.long())
+    for bad in (torch.int64, torch.int8, torch.uint8):
+        with pytest.raises(TypeError, match="offsets"):
+            BG.extract_fields(data, offs.to(bad), offs)
+        with pytest.raises(TypeError, match="offsets"):
+            BG.extract_fields_shared(data[0], offs.to(bad), unit=16)
+    for unit in (0, 17, 2.0):
+        with pytest.raises(ValueError, match="unit"):
+            BG.extract_fields_shared(data[0], offs, unit=unit)
     with pytest.raises(ValueError, match="data"):
         BG.extract_fields(data[:1], offs, offs)
     with pytest.raises(TypeError, match="table"):
         BG.extract_i16_table(data[0], offs)
+    # the narrow wire itself is taken, in every pairing
+    for o in (torch.int32, torch.int16):
+        for w in (torch.int32, torch.uint8):
+            BG.extract_fields(data, offs.to(o), offs.to(w))
+        BG.extract_fields_shared(data[0], offs.to(o), unit=16)
 
 
 def test_extract_i16_table_matches_jax():
@@ -225,3 +242,103 @@ def test_extract_i16_table_keeps_any_offsets_shape():
         BG.extract_i16_table(table, idx.long())
     with pytest.raises(ValueError, match="table"):
         BG.extract_i16_table(table.view(4, 4), idx)
+
+
+# ---------------------------------------------------------------------------
+# the narrow wire (int16 offsets, uint8 widths) and offset units
+# ---------------------------------------------------------------------------
+
+WIRES = {"i16_u8": (torch.int16, torch.uint8),
+         "i16_i32": (torch.int16, torch.int32),
+         "i32_u8": (torch.int32, torch.uint8)}
+
+
+@pytest.mark.parametrize("wire", list(WIRES))
+@pytest.mark.parametrize("case", list(CASES))
+def test_narrow_wire_matches_int32_wire(case, wire):
+    """The same slots on a narrower wire give the same fields bitwise, and
+    the numpy oracle's (its rows are at most 3,840 B, so every offset fits
+    int16)."""
+    data, offs, widths = CASES[case](np.random.default_rng(7))
+    od, wd = WIRES[wire]
+    assert offs.max() <= 32767 and widths.max() <= 16
+    d = torch.from_numpy(data)
+    o32, w32 = torch.from_numpy(offs), torch.from_numpy(widths)
+    got = BG.extract_fields(d, o32.to(od), w32.to(wd))
+    assert got.dtype == torch.int16
+    assert torch.equal(got, BG.extract_fields(d, o32, w32))
+    np.testing.assert_array_equal(_u16(got.numpy()),
+                                  JBG.reference_extract(data, offs, widths))
+
+
+@pytest.mark.parametrize("offset_dtype", [torch.int32, torch.int16])
+def test_shared_unit16_matches_bit_offsets(offset_dtype):
+    """unit=16 reads the 16-bit field of index d where unit=1 reads bit
+    offset 16*d: the orbit's ordinals as the coupling path passes them
+    (int32, the 131,070-byte orbit) and, on a table of at most 65,534 B,
+    as int16; indices past the table's end and before it read 0."""
+    rng = np.random.default_rng(11)
+    TB = 131070 if offset_dtype == torch.int32 else 65534
+    table = torch.from_numpy(rng.integers(0, 256, TB, dtype=np.uint8))
+    d = rng.integers(0, TB // 2, (3, 8 * 40 + 5)).astype(np.int32)
+    d[0, :4] = [TB // 2 - 1, TB // 2, -1, -2]
+    d_t = torch.from_numpy(d)
+    got = BG.extract_fields_shared(table, d_t.to(offset_dtype), unit=16)
+    want = BG.extract_fields_shared(table, d_t * 16)
+    assert torch.equal(got, want)
+    assert got[0, 1:4].tolist() == [0, 0, 0]
+    pairs = table.numpy().reshape(-1, 2).astype(np.int64)
+    live = d[:, 4:]
+    np.testing.assert_array_equal(_u16(got[:, 4:].numpy()),
+                                  pairs[live, 0] << 8 | pairs[live, 1])
+
+
+# an int16 offset that stands for one it cannot hold: saturated (32767,
+# -32768) or, as ops/unpack_device.py:_narrow's sums in [32768, 65519]
+# do, wrapped into [-32768, -17]
+NARROWED = {"saturated_hi": (40000, 32767), "saturated_lo": (-40000, -32768),
+            "wrapped_32768": (32768, -32768), "wrapped_57455": (57455, -8081),
+            "wrapped_65519": (65519, -17)}
+
+
+@pytest.mark.parametrize("name", list(NARROWED))
+@pytest.mark.parametrize("MB", [1792, 3840, 4095])
+def test_narrowed_offsets_read_zero(name, MB):
+    """With a row of at most 4,095 B (the wrapper's bar for int16
+    offsets) the int16 offset and the int32 one it stands for both read
+    only bytes outside the row: 0, whatever the width, in both forms."""
+    wide, narrow = NARROWED[name]
+    data = torch.full((2, MB), 0xFF, dtype=torch.uint8)
+    w = torch.tensor([[1, 7, 16, 16], [16, 3, 1, 9]], dtype=torch.uint8)
+    o32 = torch.full((2, 4), wide, dtype=torch.int32)
+    o16 = torch.full((2, 4), narrow, dtype=torch.int16)
+    assert BG.extract_fields(data, o32, w).eq(0).all()
+    assert BG.extract_fields(data, o16, w).eq(0).all()
+    assert BG.extract_fields_shared(data[0], o16).eq(0).all()
+    # next to them the row's first and last bits are read: a field that
+    # starts on the last bit, or one bit before the row, keeps its bits
+    # inside the row and reads 0 for those outside
+    edge = torch.tensor([[0, 8 * MB - 16, 8 * MB - 1, -1]], dtype=torch.int16)
+    got = BG.as_u16(BG.extract_fields(data[:1], edge, w[:1]))
+    assert got.tolist() == [[1, 0x7F, 0x8000, 0x7FFF]]
+
+
+def test_int16_offsets_refuse_a_row_past_bit_32767():
+    """int16 offsets reach bit 32,767 * unit: a row of 4,096 B or more
+    (unit 1), a table of 65,535 B or more (unit 16) raises on both
+    paths; one byte less is taken."""
+    o = torch.zeros((1, 8), dtype=torch.int16)
+    w = torch.full((1, 8), 8, dtype=torch.uint8)
+    BG.extract_fields(torch.zeros((1, 4095), dtype=torch.uint8), o, w)
+    with pytest.raises(ValueError, match="int16 offsets"):
+        BG.extract_fields(torch.zeros((1, 4096), dtype=torch.uint8), o, w)
+    with pytest.raises(ValueError, match="int16 offsets"):
+        BG.extract_fields_shared(torch.zeros(4096, dtype=torch.uint8), o)
+    BG.extract_fields_shared(torch.zeros(65534, dtype=torch.uint8), o,
+                             unit=16)
+    with pytest.raises(ValueError, match="int16 offsets"):
+        BG.extract_fields_shared(torch.zeros(65535, dtype=torch.uint8), o,
+                                 unit=16)
+    # int32 offsets take the wide row
+    BG.extract_fields(torch.zeros((1, 4096), dtype=torch.uint8),
+                      o.to(torch.int32), w)
