@@ -1,12 +1,14 @@
-"""Batched AC-3 decode math on tensors: the scan-free steady pipeline.
+"""Batched AC-3 decode math on tensors: the steady and block-scan bodies.
 
 The host pre-pass (native parser) emits dense per-block frequency planes;
-this module turns a chunk of them into PCM.  ``_pipeline_steady``
-reproduces a52_block's math for chunks in which every block takes the
-same strategy (checked on the host by ``steady_ok``): dequantized planes,
-stereo rematrixing, the downmix-before-IMDCT vs IMDCT-then-downmix
-decision with its ``downmixed`` carry fixups, the 128-float OLA delay per
-channel, and the exact mixer orderings from downmix.c.
+this module turns a chunk of them into PCM, reproducing a52_block's math:
+dequantized planes, stereo rematrixing, the downmix-before-IMDCT vs
+IMDCT-then-downmix decision with its ``downmixed`` carry fixups, the
+128-float OLA delay per channel, and the exact mixer orderings from
+downmix.c.  ``_pipeline_steady`` serves chunks in which every block takes
+the same strategy (checked on the host by ``steady_ok``) without a
+sequential loop; ``_pipeline_body`` serves any chunk, one block step at a
+time after the hoisted transforms.
 
 Every function takes the lane axis explicitly: tensors are
 [B, n, ...] (lanes, blocks), the carry is (delay [B, 6, 128] f32,
@@ -22,23 +24,20 @@ import torch
 from .. import tables as T
 from ..ops.downmix import downmix, upmix
 from ..ops.filterbank import mats_on
+from ..ops.imdct_exact import split_fb_exact
 
 # ---------------------------------------------------------------------------
 # Package-wide decode accuracy policy (same names and default as the JAX
 # package).
 #
-#   "reference" (default): the order-exact IMDCT, bit-identical to the
-#       compiled float liba52.  Not ported yet: building a pipeline in this
-#       mode raises NotImplementedError (ROADMAP A2, the order-exact slice).
+#   "reference" (default): the order-exact IMDCT (ops.imdct_exact, the
+#       B1 kernel on the card), bit-identical to the compiled float liba52.
 #   "fast": the matmul filterbank (+ the fused steady kernel).  Contract:
 #       max <= 0.02, mean <= 0.001, sigma <= 0.002 in 16-bit units against
 #       the reference decoder.
 #
 # Resolved when a pipeline is built: set it before constructing decoders.
 ACCURACY = "reference"
-
-EXACT_NOT_PORTED = ("the order-exact IMDCT (ACCURACY='reference') is not "
-                    "ported yet: ROADMAP A2; call set_accuracy('fast')")
 
 
 def set_accuracy(mode: str):
@@ -95,6 +94,57 @@ def _lanes_first(fn, planes, *args, **kw):
     return fn(planes.movedim(1, 0), *args, **kw).movedim(0, 1)
 
 
+def _filterbank_ops(device, exact: bool):
+    """(split_fb, ola) of one accuracy mode on `device`.
+
+    split_fb(coeffs [..., 256], blksw [...] bool or None: every row long)
+    -> (z [..., 256], d [..., 128]): exact=True the order-exact transform
+    (ops.imdct_exact), else the matmul filterbank in full FP32.
+
+    ola(z, delay, bias) = (z*win + dfold*win_r) + bias, each op rounding
+    its own result: eager PyTorch never contracts a product into the add
+    that follows it, so this is the reference's own evaluation order in
+    both modes.  (Never addcmul or torch.compile here: both fuse the
+    multiply into the add and move the exact mode by an ulp.)"""
+    w_long, w_short, win, win_r = mats_on(device)
+    if exact:
+        def split_fb(coeffs, blksw):
+            return split_fb_exact(
+                coeffs.contiguous(),
+                None if blksw is None else blksw.contiguous())
+    else:
+        def split_fb(coeffs, blksw):
+            if blksw is None:
+                # a strided view (a plane slice) does not fold into one
+                # [rows, 256] product: matmul would broadcast w_long and
+                # run a batched GEMM of a few rows per (lane, block)
+                zd = torch.matmul(coeffs.contiguous(), w_long)
+            else:
+                blk = blksw[..., None]
+                zd = (torch.matmul(torch.where(blk, 0.0, coeffs), w_long)
+                      + torch.matmul(torch.where(blk, coeffs, 0.0), w_short))
+            return zd[..., :256], zd[..., 256:]
+
+    def ola(z, delay, bias):
+        dfold = torch.cat([delay, delay.flip(-1)], dim=-1)
+        return z * win + dfold * win_r + bias
+
+    return split_fb, ola
+
+
+def _remat(fmt: StreamFormat, blocks):
+    """Stereo rematrixing of full [B, n, 6, 256] planes (a no-op for other
+    modes)."""
+    freq = blocks["freq"]
+    if fmt.acmod != T.A52_STEREO:
+        return freq
+    s0, s1 = freq[:, :, 0], freq[:, :, 1]
+    m = blocks["remat"]
+    return torch.stack([torch.where(m, s0 + s1, s0),
+                        torch.where(m, s0 - s1, s1)]
+                       + list(freq[:, :, 2:].unbind(2)), dim=2)
+
+
 def _pipeline_steady(fmt: StreamFormat, carry, blocks,
                      long_only: bool = False, premixed: bool = False,
                      exact: bool = False):
@@ -102,7 +152,7 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
 
     When every block takes the same strategy, the OLA delay chain is a
     pure one-block shift (delay[i+1] = d[i]), so the whole chunk is
-    elementwise after the hoisted matrix products.
+    elementwise after the hoisted transforms.
 
     Validity (checked on the host by `steady_ok`):
       * reduces (freq path): blksw uniform across coded channels in every
@@ -117,27 +167,15 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
     -> ((delay, downmixed), pcm [B, n, nch_out, 256] float32, LFE first).
 
     long_only=True (no short block anywhere in the chunk, host-checked)
-    skips the all-zero short-matrix product.
+    skips the short transform.  exact=True (ACCURACY="reference") takes
+    the order-exact transform: its delay output does not depend on the
+    entering delay either, so the chunk structure is the same and the
+    output is bit-identical to the reference float build.
     """
-    if exact:
-        raise NotImplementedError(EXACT_NOT_PORTED)
     delay, downmixed = carry
     freq = blocks["freq"]
-    w_long, w_short, win, win_r = mats_on(freq.device)
+    split_fb, ola = _filterbank_ops(freq.device, exact)
     reduces = fmt.nf_out < fmt.nfchans
-
-    def split_fb(coeffs, blksw):
-        if long_only:
-            zd = torch.matmul(coeffs, w_long)
-        else:
-            blk = blksw[..., None]
-            zd = (torch.matmul(torch.where(blk, 0.0, coeffs), w_long)
-                  + torch.matmul(torch.where(blk, coeffs, 0.0), w_short))
-        return zd[..., :256], zd[..., 256:]
-
-    def ola(z, delay, bias):
-        dfold = torch.cat([delay, delay.flip(-1)], dim=-1)
-        return z * win + dfold * win_r + bias
 
     def chain(d, d0):
         # delay seen by block i is block i-1's output delay; i=0 sees d0
@@ -146,13 +184,9 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
     if premixed:
         assert reduces or fmt.identity_mix, \
             "premixed blocks require the freq path or an identity mix"
-    if fmt.acmod == T.A52_STEREO and not premixed:
-        s0, s1 = freq[:, :, 0], freq[:, :, 1]
-        m = blocks["remat"]
-        freq = torch.stack([torch.where(m, s0 + s1, s0),
-                            torch.where(m, s0 - s1, s1)]
-                           + list(freq[:, :, 2:].unbind(2)), dim=2)
-    blksw = blocks["blksw"]
+    else:
+        freq = _remat(fmt, blocks)
+    blksw = None if long_only else blocks["blksw"]
     bias = blocks["bias"][:, :, None, None]              # [B, n, 1, 1]
     fbw = None if premixed else freq[:, :, :5]
     zero = torch.zeros((), dtype=freq.dtype, device=freq.device)
@@ -161,7 +195,7 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
 
     if fmt.lfe_out:
         lfe_plane = freq[:, :, fmt.nf_out] if premixed else freq[:, :, 5]
-        z_l, d_l = split_fb(lfe_plane, torch.zeros_like(blksw[..., 0]))
+        z_l, d_l = split_fb(lfe_plane, None)             # always long
         lfe = ola(z_l, chain(d_l, delay[:, 5]), bias[:, :, 0])
         new_delay[:, 5] = d_l[:, -1]
         outs.append(lfe[:, :, None])
@@ -173,7 +207,7 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
         else:
             f_freq = downmix(fbw.movedim(2, 0), fmt.acmod, fmt.output, zero,
                              slev_zero=fmt.slev_zero).movedim(0, 2)[:, :, :nfo]
-        blk0 = blksw[:, :, :1].expand(-1, -1, nfo)
+        blk0 = None if long_only else blksw[:, :, :1].expand(-1, -1, nfo)
         z_f, d_f = split_fb(f_freq, blk0)
         # entry fixup: a carry from a time-path block holds per-channel
         # delays; downmix them once (the scan's first-step behaviour)
@@ -191,7 +225,8 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
         # masking and the output mix are no-ops for this format, and the
         # unused upper delay planes are what the generic path computes
         # for all-zero planes (exactly 0)
-        z_t, d_t = split_fb(freq[:, :, :nfo], blksw[:, :, :nfo])
+        z_t, d_t = split_fb(freq[:, :, :nfo],
+                            None if long_only else blksw[:, :, :nfo])
         out = ola(z_t, chain(d_t, delay[:, :nfo]), bias)
         new_delay[:, :nfo] = d_t[:, -1]
         new_delay[:, nfo:5] = 0.0
@@ -211,6 +246,82 @@ def _pipeline_steady(fmt: StreamFormat, carry, blocks,
         flag = torch.zeros_like(downmixed)
     pcm = torch.cat(outs + [out], dim=2) if outs else out
     return (new_delay, flag), pcm
+
+
+def _pipeline_body(fmt: StreamFormat, carry, blocks, exact: bool = False):
+    """Decode of any chunk for B lanes: a52_block's strategy per block.
+
+    The transforms of every block are hoisted out of the sequential part
+    (each one's delay output is independent of the entering delay), so
+    they run once per chunk on all lanes x blocks x channels; the loop
+    over the chunk's blocks then carries the OLA delay and the
+    ``downmixed`` layout flag with elementwise work only, all lanes in
+    each step.  Per block: the time path (IMDCT of the coded channels,
+    zero-coefficient channels keep their delay and emit the bias, then the
+    time-domain mix) and, for a reducing mix, the freq path (mix, then
+    IMDCT of the output channels), chosen per lane by whether blksw is
+    uniform across the coded channels.
+
+    blocks as for _pipeline_steady (full planes, not premixed).
+    -> ((delay, downmixed), pcm [B, n, nch_out, 256] float32, LFE first).
+    """
+    delay, downmixed = carry
+    freq = _remat(fmt, blocks)                           # [B, n, 6, 256]
+    split_fb, ola = _filterbank_ops(freq.device, exact)
+    nf, nfo = fmt.nfchans, fmt.nf_out
+    reduces = nfo < nf
+    blksw, bias = blocks["blksw"], blocks["bias"]        # [B, n, 5], [B, n]
+    zero_ch = (blocks["coeff"] == 0.0)[..., None]        # [B, n, 5, 1]
+    fbw = freq[:, :, :5]
+    zero = torch.zeros((), dtype=freq.dtype, device=freq.device)
+    mix = dict(acmod=fmt.acmod, output=fmt.output)
+
+    z_t, d_t = split_fb(fbw, blksw)
+    if reduces:
+        # only the nf_out output channels are transformed on this path
+        # (parse.c:918-936); upper delay planes stay stale
+        f_freq = downmix(fbw.movedim(2, 0), bias=zero, slev_zero=fmt.slev_zero,
+                         **mix).movedim(0, 2)[:, :, :nfo]
+        z_f, d_f = split_fb(f_freq, blksw[:, :, :1].expand(-1, -1, nfo))
+        uniform = (blksw[:, :, :nf] == blksw[:, :, :1]).all(-1)   # [B, n]
+    if fmt.lfe_out:
+        z_l, d_l = split_fb(freq[:, :, 5], None)          # always long
+    bias_mask = torch.tensor([bool((fmt.chanbias >> i) & 1) for i in range(5)],
+                             device=freq.device)[:, None]
+
+    pcms = []
+    for i in range(freq.shape[1]):
+        b = bias[:, i, None, None]                       # [B, 1, 1]
+        d5 = delay[:, :5]
+        outs = []
+        if fmt.lfe_out:
+            outs.append(ola(z_l[:, i], delay[:, 5], b[:, 0])[:, None])
+        delay_t = torch.where(downmixed[:, None, None],
+                              _lanes_first(upmix, d5, **mix), d5)
+        t_out = ola(z_t[:, i], delay_t, torch.where(bias_mask, zero, b))
+        t_out = torch.where(zero_ch[:, i], b, t_out)
+        t_dnew = torch.where(zero_ch[:, i], delay_t, d_t[:, i])
+        t_mixed = _lanes_first(downmix, t_out, bias=b[:, 0],
+                               slev_zero=fmt.slev_zero, **mix)[:, :nfo]
+        if reduces:
+            delay_f = torch.where(
+                downmixed[:, None, None], d5,
+                _lanes_first(downmix, d5, bias=zero,
+                             slev_zero=fmt.slev_zero, **mix))
+            f_out = ola(z_f[:, i], delay_f[:, :nfo], b)
+            u = uniform[:, i, None, None]
+            out = torch.where(u, f_out, t_mixed)
+            d_f_full = torch.cat([d_f[:, i], delay_f[:, nfo:]], dim=1)
+            d5 = torch.where(u, d_f_full, t_dnew)
+            downmixed = uniform[:, i]
+        else:
+            out = t_mixed
+            d5 = t_dnew
+            downmixed = torch.zeros_like(downmixed)
+        d_lfe = d_l[:, i, None] if fmt.lfe_out else delay[:, 5:]
+        delay = torch.cat([d5, d_lfe], dim=1)
+        pcms.append(torch.cat(outs + [out], dim=1))
+    return (delay, downmixed), torch.stack(pcms, dim=1)
 
 
 def premix_blocks(fmt: StreamFormat, blocks) -> dict:

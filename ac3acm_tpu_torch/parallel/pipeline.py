@@ -4,16 +4,18 @@ N streams of a common format are a leading lane axis through the decode
 pipeline.  Per-lane carried state (OLA delay planes + downmixed flag) is
 the checkpoint/resume unit: a plain tuple of tensors (utils.state).
 
-Dispatch (``batched_pipeline``): a steady, long-only, premixed chunk that
-is converted to int16 goes through the fused steady kernel
-(ops.fused_steady); any other steady chunk through the plain
-``_pipeline_steady``.  Non-steady chunks need the block scan, which is not
-ported yet.
+Dispatch (``batched_pipeline``): in fast mode a steady, long-only,
+premixed chunk that is converted to int16 goes through the fused steady
+kernel (ops.fused_steady); any other steady chunk through
+``_pipeline_steady``, and a chunk that is not steady through the block
+scan ``_pipeline_body``.  In reference mode (the default) both bodies take
+the order-exact IMDCT (ops.imdct_exact).  ``BatchedDecoder`` buckets a
+mixed-format batch by format (``_decode_heterogeneous``).
 
 The raw-H2D path (``raw_batched_pipeline``, ``BatchedDecoder(parser=
 "raw")``) ships the coded frame bytes plus side info instead and unpacks,
 allocates and dequantizes on the device (ops.unpack_device, with the
-bitfield kernels of ops.bitgather) before the same steady tail.
+bitfield kernels of ops.bitgather) before the same decode bodies.
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import torch
 from .. import tables as T
 from ..host.native import DenseBatchParser, SideinfoBatchParser
 from ..host.parse import downmix_init, syncinfo
-from ..models.decoder import (EXACT_NOT_PORTED, StreamFormat,
-                              _lanes_first, _pipeline_steady, default_exact,
+from ..models.decoder import (StreamFormat, _lanes_first, _pipeline_body,
+                              _pipeline_steady, default_exact, premix_blocks,
                               steady_ok)
 from ..ops.downmix import downmix
 from ..ops.filterbank import convert_to_int16
@@ -117,35 +119,37 @@ def batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
 
     steady=True selects the scan-free body (valid on chunks that pass
     models.decoder.steady_ok -- checked per call on the host);
-    long_only=True additionally skips the short-block product.
+    long_only=True additionally skips the short-block transform.
+    steady=False selects the block scan (any chunk; full planes).
+
+    exact (default: the package ACCURACY policy; an explicit fused=True
+    is a fast-mode request) selects the order-exact filterbank,
+    bit-identical to the reference float build.
 
     fused=None (default) sends every eligible chunk (steady + long_only +
     premixed + int16, fast mode) through the fused steady kernel;
     fused=False forces the plain steady body (A/B comparisons),
     fused=True asserts eligibility.
-
-    exact (default: the package ACCURACY policy) selects the order-exact
-    filterbank, which is not ported yet and raises.
     """
     if exact is None:
-        exact = default_exact()
-    if exact:
-        raise NotImplementedError(EXACT_NOT_PORTED)
-    if not steady:
-        raise NotImplementedError(
-            "non-steady chunks need the _pipeline_body scan: ROADMAP A4")
-    eligible = long_only and premixed and emit_int16
+        exact = False if fused else default_exact()
+    eligible = steady and long_only and premixed and emit_int16 and not exact
     if fused is None:
         fused = eligible
     if fused:
         assert eligible, "the fused kernel requires steady+long_only+" \
-                         "premixed+int16"
+                         "premixed+int16 in fast mode"
         return _fused_run(fmt)
+    assert steady or not premixed, "the block scan takes full planes"
 
     def run(carry, blocks):
         blocks = _expand_compact(blocks)
-        carry, pcm = _pipeline_steady(fmt, carry, blocks,
-                                      long_only=long_only, premixed=premixed)
+        if steady:
+            carry, pcm = _pipeline_steady(fmt, carry, blocks,
+                                          long_only=long_only,
+                                          premixed=premixed, exact=exact)
+        else:
+            carry, pcm = _pipeline_body(fmt, carry, blocks, exact=exact)
         if emit_int16:
             pcm = convert_to_int16(pcm)
         return carry, pcm
@@ -164,20 +168,14 @@ def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
     info meta [B, 6F, ...] (tensors on the carry's device); the device
     unpacks exponents, re-runs the bit allocation and dequantizes the
     mantissas (ops.unpack_device.unpack_blocks), then decodes with the
-    plain steady body and, when asked, converts to int16.  carry =
-    (unpack carry dict, (delay, downmixed)).
+    steady body (steady=True) or the block scan and, when asked, converts
+    to int16.  carry = (unpack carry dict, (delay, downmixed)).
 
     cpl_fc / exp_pts / alloc_pts / emax select the unpack's RowPlan (see
-    ops.unpack_device).  Non-steady chunks need the block scan (not
-    ported yet); exact (default: the package ACCURACY policy) needs the
-    order-exact IMDCT (not ported yet): both raise."""
+    ops.unpack_device); exact (default: the package ACCURACY policy)
+    selects the order-exact filterbank."""
     if exact is None:
         exact = default_exact()
-    if exact:
-        raise NotImplementedError(EXACT_NOT_PORTED)
-    if not steady:
-        raise NotImplementedError(
-            "non-steady chunks need the _pipeline_body scan: ROADMAP A4")
 
     def run(carry, frames_u8, meta, bias, clock=None):
         ucarry, dcarry = carry
@@ -188,12 +186,16 @@ def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
         if clock is not None:
             clock.mark("device unpack")
             clock.kept["blocks"] = blocks
-        dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
-                                       long_only=long_only, premixed=False)
+        if steady:
+            dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
+                                           long_only=long_only, exact=exact)
+        else:
+            dcarry, pcm = _pipeline_body(fmt, dcarry, blocks, exact=exact)
         if emit_int16:
             pcm = convert_to_int16(pcm)
         if clock is not None:
-            clock.mark("steady tail + int16")
+            clock.mark(("steady tail" if steady else "block scan")
+                       + " + int16")
         return (ucarry, dcarry), pcm
 
     return run
@@ -570,7 +572,12 @@ class BatchedDecoder:
                     for i in range(len(self.lanes)) for f in range(nf)
                     if r["meta"][i, f, 6]}
                 if len(lane_fmts) > 1:
-                    return self._decode_heterogeneous()
+                    # formats differ across lanes or within a lane's
+                    # frames: one bucketed call per distinct format
+                    emit = [[self._frame_slice(r, i, f) for f in range(nf)]
+                            for i in range(len(self.lanes))]
+                    valid = r["valid"][:, :nf].astype(bool)
+                    return self._decode_heterogeneous(emit, valid)
                 # fast path: the parse output is already the batch
                 rows = nf * 6
                 fmt = (next(iter(lane_fmts)) if lane_fmts
@@ -603,7 +610,7 @@ class BatchedDecoder:
         emit_fmts = {self._fmt_of(fr) for frames in emit for fr in frames
                      if fr["meta"] is not None}
         if len(emit_fmts) > 1:
-            return self._decode_heterogeneous()
+            return self._decode_heterogeneous(emit, valid)
         meta = next((fr["meta"] for frames in emit for fr in frames
                      if fr["meta"] is not None), None)
         fmt = self._fmt_from_meta(meta)
@@ -625,7 +632,136 @@ class BatchedDecoder:
             freq_man=cat("freq_man") if compact else None,
             freq_scale=cat("freq_scale") if compact else None)
 
-    def _decode_heterogeneous(self):
-        raise NotImplementedError(
-            "mixed-format batches (per-format lane bucketing, "
-            "_decode_heterogeneous) are not ported yet: ROADMAP A4")
+    # -- mixed-format batches ------------------------------------------------
+
+    @staticmethod
+    def _generic_blocks(obj):
+        """Full-plane [6, ...] block arrays of one native frame slice."""
+        return {"freq": obj["freq_full"], "blksw": obj["blksw"].astype(bool),
+                "coeff": obj["coeff"], "remat": obj["remat"].astype(bool),
+                "bias": obj["bias"]}
+
+    @staticmethod
+    def _premixed_frame(obj, fmt):
+        """Premixed [6, nch_out, 256] block arrays of one native frame
+        slice, or None when the frame carries no premix for `fmt`
+        (ineligible frame, or a plane count from another format)."""
+        if not obj.get("premix_ok"):
+            return None
+        fp = obj.get("freq_pre")
+        if fp is None or fp.shape[-2] != fmt.nch_out:
+            return None
+        return {"freq": fp, "blksw": obj["blksw"].astype(bool),
+                "bias": obj["bias"]}
+
+    @staticmethod
+    def _bucket_size(nsel: int) -> int:
+        """A bucket's lane count: the next power of two, so that a mixed
+        stream reuses a few batch shapes (and the allocator's blocks for
+        them) instead of one per lane count."""
+        return 1 << max(nsel - 1, 0).bit_length()
+
+    def _decode_heterogeneous(self, per_lane, valid):
+        """Decode frames whose formats differ across lanes or within a
+        lane: per_lane[lane] = that lane's frame slices (one chunk).
+
+        The chunk is cut into segments, maximal runs of frames in which
+        every lane keeps its format (without a mid-stream change: one
+        segment).  In each segment the lanes are gathered into one bucket
+        per format, padded to _bucket_size, and each bucket takes the
+        dispatch a homogeneous batch of its format would (premixed or full
+        planes, steady or block scan).  The carries are gathered and
+        scattered by lane index on the device, so a lane's OLA state
+        survives a change of format as the reference's single a52_state_t
+        does; PCM lands in one device buffer of the widest layout.
+        -> (pcm [B, 6 * nf, nch_max, 256] device tensor, valid)."""
+        B = len(self.lanes)
+        nf = len(per_lane[0])
+        fmts = []
+        for row in per_lane:
+            lane_fmts, prev = [], self._fmt
+            for f in row:
+                cur = self._fmt_of(f)
+                if cur is None:         # an invalid frame keeps the format
+                    cur = prev or next(
+                        self._fmt_of(g) for r2 in per_lane for g in r2
+                        if self._fmt_of(g) is not None)
+                lane_fmts.append(cur)
+                prev = cur
+            fmts.append(lane_fmts)
+        nch_max = max(f.nch_out for row in fmts for f in row)
+        dtype = torch.int16 if self.emit_int16 else torch.float32
+        out = torch.zeros((B, nf * 6, nch_max, 256), dtype=dtype,
+                          device=self.device)
+        bias = np.full((6,), np.float32(self.bias))
+        # a pad lane: silent long blocks whose coefficients count as coded
+        # (a zero coeff would fail steady_ok and send the whole bucket to
+        # the block scan)
+        empty = {"freq": np.zeros((6, 6, 256), np.float32),
+                 "blksw": np.zeros((6, 5), bool),
+                 "coeff": np.ones((6, 5), np.float32),
+                 "remat": np.zeros((6, 256), bool), "bias": bias}
+        d_all, m_all = (t.clone() for t in self._carry)
+        catframes = lambda frames: {k: np.concatenate([f[k] for f in frames])
+                                    for k in frames[0]}
+        seg0 = 0
+        while seg0 < nf:
+            key = [fmts[li][seg0] for li in range(B)]
+            seg1 = seg0 + 1
+            while seg1 < nf and all(fmts[li][seg1] == key[li]
+                                    for li in range(B)):
+                seg1 += 1
+            frames = range(seg0, seg1)
+            groups = {}
+            for li in range(B):
+                groups.setdefault(key[li], []).append(li)
+            for fmt, sel in groups.items():
+                pad = self._bucket_size(len(sel)) - len(sel)
+                # premixed bucket: every frame carries a native premix for
+                # this format (pad lanes: zero planes)
+                pres = [[self._premixed_frame(per_lane[li][fi], fmt)
+                         for fi in frames] for li in sel]
+                premixed = ((fmt.nf_out < fmt.nfchans or fmt.identity_mix)
+                            and all(p is not None for r2 in pres for p in r2))
+                if premixed:
+                    blank = {"freq": np.zeros((6, fmt.nch_out, 256),
+                                              np.float32),
+                             "blksw": np.zeros((6, 5), bool), "bias": bias}
+                    rows = [catframes(r2) for r2 in pres]
+                else:
+                    blank = empty
+                    rows = [catframes([self._generic_blocks(per_lane[li][fi])
+                                       for fi in frames]) for li in sel]
+                rows += [catframes([blank] * len(frames))] * pad
+                blocks = {k: np.stack([r2[k] for r2 in rows])
+                          for k in rows[0]}
+                lo = not blocks["blksw"].any()
+                if premixed:
+                    fn = batched_pipeline(fmt, self.emit_int16, steady=True,
+                                          long_only=lo, premixed=True,
+                                          fused=self.fused)
+                elif steady_ok(fmt, blocks):
+                    pre = fmt.nf_out < fmt.nfchans or fmt.identity_mix
+                    if pre:
+                        blocks = premix_blocks(fmt, blocks)
+                    fn = batched_pipeline(fmt, self.emit_int16, steady=True,
+                                          long_only=lo, premixed=pre,
+                                          fused=self.fused)
+                else:
+                    fn = batched_pipeline(fmt, self.emit_int16,
+                                          fused=self.fused)
+                idx = torch.tensor(sel, device=self.device)
+                dg, mg = d_all[idx], m_all[idx]
+                if pad:
+                    dg = torch.cat([dg, dg.new_zeros((pad, 6, 128))])
+                    mg = torch.cat([mg, mg.new_ones((pad,))])
+                (dg, mg), pcm = fn((dg, mg), {k: self._to_device(v)
+                                              for k, v in blocks.items()})
+                d_all[idx] = dg[:len(sel)]
+                m_all[idx] = mg[:len(sel)]
+                out[idx, seg0 * 6:seg1 * 6, :fmt.nch_out] = \
+                    pcm[:len(sel)].to(dtype)
+                self._fmt = fmt
+            seg0 = seg1
+        self._carry = (d_all, m_all)
+        return out, valid

@@ -7,7 +7,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
 
   1. card      nvidia-smi name and power limit, torch / CUDA versions
   2. build     the native host library (g++) and every CUDA kernel (nvcc),
-               started together, each build timed
+               started together, each build timed; no kernel spills, and
+               the order-exact IMDCT kernel's SASS (cuobjdump) holds no
+               FFMA (every product rounds on its own)
   3. check     the fused steady kernel (K1) against its plain PyTorch
                version on the card: at the bench shape (4096 lanes x 64
                frames of the golden 5.1 stream, premixed to 2 planes);
@@ -20,11 +22,18 @@ Phases, each fatal on failure (nothing is caught and passed over):
                K3) on ragged rows, unaligned views and rows, fields on
                and past the edges, widths 0 and 16, the int32 and narrow
                wires, unit=16 against unit=1, a row too wide to stage
+               The order-exact IMDCT kernel (B1) equal to its plain
+               version BY VALUE on long, short and mixed rows, ragged row
+               counts, rows with +-0, subnormals and near-full-scale
+               values, and the main path's first chunk of real premixed
+               planes (786,432 rows)
   4. times     kernel, plain version and library call at the bench shape
                (CUDA events, median after warm-up) beside the function's
                bound (bytes, or one pass of tensor operations) and, labelled
                apart, the design bounds (three TF32 or bf16 passes, the
-               FP32 pipes)
+               FP32 pipes); B1 at the main path's chunk beside its byte
+               bound, its plain version and the fast mode's matmul of the
+               same rows (not the same function bitwise)
   5. main path BatchedDecoder(parser="native") in fast mode on 4096 lanes
                of distinct golden byte streams, f32 and compact H2D: the
                kernel's launch count must rise on every chunk, the PCM must
@@ -48,12 +57,30 @@ Phases, each fatal on failure (nothing is caught and passed over):
                coupling stream: the shared-table gather must launch on
                every chunk, lane 0 within 1 LSB of its oracle; peak memory;
                one step broken into stages
-  9. report    one JSON line listing every kernel, then the device line
+  9. reference the package default ACCURACY="reference" (no set_accuracy
+               call) on the main path: B1 launches on every chunk and the
+               fused kernel never; every lane within 1 LSB of the fast
+               mode's PCM; 256 lanes of float output at bias 0 whose lanes
+               start at frame 0 equal the reference decoder's output at
+               max |diff| 0.0; x-realtime beside the fast path's
+ 10. ref raw   the same lanes through parser="raw": int16 PCM equal to the
+               reference native path's; peak memory; stages (StageClock)
+ 11. general   4096 lanes of the coupling/short-block stream whose every
+               chunk needs the block scan, in chunks of 4 frames, through
+               both parsers in reference mode and the native one in fast
+               mode: the scan runs on every chunk and the steady body
+               never; lane 0 equals its golden at 0.0; raw equals native;
+               fast within 1 LSB of reference
+ 12. mixed     4096 lanes cycling 5.1 / 2.0 / 1.0 streams, some switching
+               5.1 -> 2.0 mid-stream, in reference mode: every lane equals
+               its stream decoded in a format-homogeneous batch
+ 13. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -68,6 +95,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "bench_51_448.ac3")
 CPL_GOLDEN = os.path.join(HERE, "tests", "golden", "cpl51_hazard.ac3")
+SPEC_GOLDEN = os.path.join(HERE, "tests", "golden", "spec_cpl51_hazard.ac3")
+STEREO_GOLDEN = os.path.join(HERE, "tests", "golden", "stereo_192.ac3")
+MONO_GOLDEN = os.path.join(HERE, "tests", "golden", "mono_96.ac3")
 
 # bench shape (bench.py config 2): lanes x frames, 6 blocks per frame
 BATCH, FRAMES = 4096, 64
@@ -83,6 +113,15 @@ MAIN_BATCH, CHUNK_FRAMES, NCHUNKS = 4096, 16, 3
 CPL_BATCH, CPL_CHUNK_FRAMES, CPL_NCHUNKS = 4096, 12, 2
 RAW_CHUNK_FRAMES = 16
 PEAK_MEM_LIMIT = 60e9
+# general decode (every chunk needs the block scan) and mixed formats:
+# lanes, frames per chunk, chunks
+GEN_BATCH, GEN_CHUNK_FRAMES, GEN_NCHUNKS = 4096, 4, 2
+MIX_BATCH, MIX_CHUNK_FRAMES, MIX_NCHUNKS = 4096, 4, 2
+# FP32 operations of one long row of the order-exact IMDCT (B1): the
+# pre-twiddle 128 x 6, the leaves 11 ifft8 x 56 + 10 ifft4 x 16, the
+# passes (a zero butterfly 12, another 24) 5 x 84 + 3 x 180 + 372 + 756,
+# the post-twiddle 64 x 12
+B1_LONG_ROW_FLOP = 768 + 776 + 420 + 540 + 372 + 756 + 768
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores, dense TF32 and bf16 FLOP/s in them
 PEAK_BYTES, PEAK_FP32, PEAK_TF32, PEAK_BF16 = 3.35e12, 67e12, 495e12, 989e12
@@ -122,12 +161,26 @@ def phase_card():
         f"({torch.cuda.get_device_name(0)})")
 
 
+@contextlib.contextmanager
+def accuracy(mode):
+    """The package accuracy policy set to `mode` inside, restored after,
+    so that the reference-mode phases run on the package default."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    before = PD.ACCURACY
+    PD.set_accuracy(mode)
+    try:
+        yield
+    finally:
+        PD.ACCURACY = before
+
+
 def phase_build():
     from ac3acm_tpu_torch.host import native
     from ac3acm_tpu_torch.ops import _cuda
     jobs = {"native host (g++)": native._build,
             "fused_steady (nvcc)": lambda: _cuda.build("fused_steady"),
-            "bitgather (nvcc)": lambda: _cuda.build("bitgather")}
+            "bitgather (nvcc)": lambda: _cuda.build("bitgather"),
+            "imdct_exact (nvcc)": lambda: _cuda.build("imdct_exact")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -155,6 +208,18 @@ def phase_build():
         spills = [int(x) for ln in info.splitlines() if "spill" in ln
                   for x in re.findall(r"(\d+) bytes spill", ln)]
         assert spills and not any(spills), f"{name}: register spills"
+    # B1 is exact only if no product was contracted into an add
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _cuda.build("imdct_exact")],
+                          check=True, capture_output=True, text=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if "imdct_exact" in f.split("\n", 1)[0]]
+    assert funcs, "no imdct_exact function in the SASS"
+    ops = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
+           for op in ("FFMA", "FMUL", "FADD")}
+    log(f"sass imdct_exact ({len(funcs)} function(s)): " + ", ".join(
+        f"{op} {n}" for op, n in ops.items()))
+    assert ops["FFMA"] == 0 and ops["FMUL"] > 0, ops
 
 
 def golden_planes(dev):
@@ -393,6 +458,94 @@ def phase_check_field_edges(dev):
         f"to the plain versions")
 
 
+def b1_rows(rng, R):
+    """R rows of 256 coefficients with the edge cases: +0 and -0 entries
+    and rows, subnormals, near-full-scale values and a row of them."""
+    x = (rng.standard_normal((R, 256)) * 0.05).astype(np.float32)
+    x[::3, ::5] = -0.0
+    x[1::3, ::7] = 0.0
+    x[::4, 1::9] = rng.choice(np.array([1e-45, -1e-45, 1e-40, -3e-39],
+                                       np.float32), x[::4, 1::9].shape)
+    x[::5, 2::11] = rng.choice(np.array([0.99997, -0.99997, 1.0, -1.0],
+                                        np.float32), x[::5, 2::11].shape)
+    x[2::7] = np.where(rng.random((len(x[2::7]), 256)) < 0.5, 1.0, -1.0)
+    x[0] = -0.0
+    return x
+
+
+def phase_check_b1(dev, bench_inputs):
+    """B1 against its plain version on the card, BY VALUE (torch.equal;
+    -0.0 and +0.0 are one value): long, short and mixed rows, ragged row
+    counts, the edge-case rows of b1_rows, and the main path's first chunk
+    of real premixed planes, long and with random short rows.
+    -> (that chunk [4096, 96, 2, 256], max |kernel - plain|)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    rng = np.random.default_rng(13)
+    cases, worst = 0, 0.0
+
+    def same(x, blk, what):
+        nonlocal cases, worst
+        z, d = IE.split_fb_exact(x, blk)
+        zr, dr = IE.split_fb_exact_ref(x, blk)
+        torch.cuda.synchronize()
+        err = max(float((z - zr).abs().max()), float((d - dr).abs().max()))
+        worst = max(worst, err)
+        assert torch.equal(z, zr) and torch.equal(d, dr), (what, err)
+        cases += 1
+
+    for R in (1, 2, 31, 1000):
+        x = torch.from_numpy(b1_rows(rng, R)).to(dev)
+        for tag, blk in (("long", None),
+                         ("long flags", torch.zeros(R, dtype=torch.bool)),
+                         ("short", torch.ones(R, dtype=torch.bool)),
+                         ("mixed", torch.from_numpy(rng.random(R) < 0.5))):
+            same(x, None if blk is None else blk.to(dev), (R, tag))
+    freq = bench_inputs[0][:, :CHUNK_FRAMES * 6].contiguous()
+    same(freq, None, "main-path chunk")
+    same(freq, torch.rand(freq.shape[:-1], device=dev) < 0.3,
+         "main-path chunk, 30% short rows")
+    log(f"check imdct_exact: {cases} cases (1, 2, 31, 1000 rows x long, "
+        f"long with flags, short, mixed, with +-0, subnormals and "
+        f"near-full-scale values; the main path's first chunk "
+        f"{tuple(freq.shape)} = {freq.numel() // 256} rows, long and 30% "
+        f"short) equal to the plain version by value, max |diff| {worst}")
+    return freq, worst
+
+
+def phase_times_b1(freq):
+    """B1 at the main path's chunk: kernel, plain version, and the fast
+    mode's matmul of the same rows, beside the byte bound."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops.filterbank import mats_on
+    R = freq.numel() // 256
+    before = IE.launches
+    ms = cuda_ms(lambda: IE.split_fb_exact(freq))
+    per_call = (IE.launches - before) / 9
+    blk = torch.rand(freq.shape[:-1], device=freq.device) < 0.3
+    ms_mixed = cuda_ms(lambda: IE.split_fb_exact(freq, blk))
+    plain_ms = cuda_ms(lambda: IE.split_fb_exact_ref(freq), warmup=1, reps=3)
+    flat, w_long = freq.view(R, 256), mats_on(freq.device)[0]
+    library_ms = cuda_ms(lambda: torch.matmul(flat, w_long))
+    # least work: each coefficient read once, z and d written once; the
+    # FP32 operations of the split-radix replay
+    nbytes = R * (256 + 256 + 128) * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = R * B1_LONG_ROW_FLOP / PEAK_FP32 * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"time imdct_exact [{R} long rows]: kernel_ms {ms:.3f} plain_ms "
+        f"{plain_ms:.3f} library_ms(torch.matmul [{R},256]@[256,384], the "
+        f"fast mode's product: NOT the same function bitwise) "
+        f"{library_ms:.3f}; bounds: bytes {nbytes} B / 3.35e12 B/s = "
+        f"{t_bytes:.3f} ms | FP32 operations {R * B1_LONG_ROW_FLOP:.4e} / "
+        f"67e12 FLOP/s = {t_ops:.3f} ms; bound_ms {bound_ms:.3f} -> "
+        f"{bound_by} ({bound_ms / ms:.0%} of the kernel's time, "
+        f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s); 30% short rows "
+        f"{ms_mixed:.3f} ms; {per_call:g} launch per call")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_times(bench_inputs):
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops.filterbank import mats_on
@@ -456,19 +609,25 @@ def phase_times(bench_inputs):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def golden_frames(path):
+    """The frames of a golden stream, as a list of byte strings."""
+    from ac3acm_tpu_torch.host.parse import syncinfo
+    es = open(path, "rb").read()
+    frames, pos = [], 0
+    while pos + 7 <= len(es):
+        size = syncinfo(es[pos:pos + 7])[0]
+        assert size
+        frames.append(es[pos:pos + size])
+        pos += size
+    return frames
+
+
 def lane_streams(batch, nframes, path=GOLDEN, rotate=True):
     """Per-lane byte streams of golden frames; with rotate, lane i starts
     at frame i mod n (distinct lanes).  A stream whose frames lean on the
     state of the frame before (the coupling hazard stream) cannot start
     mid-stream: rotate=False gives every lane the stream from frame 0."""
-    from ac3acm_tpu_torch.host.parse import syncinfo
-    es = open(path, "rb").read()
-    base, pos = [], 0
-    while pos + 7 <= len(es):
-        size = syncinfo(es[pos:pos + 7])[0]
-        assert size
-        base.append(es[pos:pos + size])
-        pos += size
+    base = golden_frames(path)
     n = len(base)
     rots = [b"".join(base[i:] + base[:i]) * (nframes // n + 1)
             for i in range(n if rotate else 1)]
@@ -476,12 +635,14 @@ def lane_streams(batch, nframes, path=GOLDEN, rotate=True):
             for i in range(batch)]
 
 
-def decode(streams, compact, fused):
+def decode(streams, compact, fused, counter=None):
     """One BatchedDecoder run; -> (chunks of device PCM, launches per
-    chunk, seconds from the first parse to the last chunk on device)."""
+    chunk of counter() (default: the fused kernel's), seconds from the
+    first parse to the last chunk on device)."""
     from ac3acm_tpu_torch import tables as T
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    counter = counter or (lambda: FS.launches)
     dec = BatchedDecoder(len(streams), T.A52_STEREO | T.A52_ADJUST_LEVEL,
                          bias=384.0, emit_int16=True, parser="native",
                          compact_h2d=compact, fused=fused)
@@ -491,28 +652,34 @@ def decode(streams, compact, fused):
     chunks, counts = [], []
     t0 = time.perf_counter()
     for _ in range(NCHUNKS):
-        before = FS.launches
+        before = counter()
         r = dec.decode_available(max_frames=CHUNK_FRAMES)
         assert r is not None, "main path ran dry"
         pcm, valid = r
         assert valid.all() and pcm.shape == (len(streams), CHUNK_FRAMES * 6,
                                              2, 256), pcm.shape
-        counts.append(FS.launches - before)
+        counts.append(counter() - before)
         chunks.append(pcm)
     torch.cuda.synchronize()
     return chunks, counts, time.perf_counter() - t0
 
 
+def golden_i16(path):
+    """The reference decoder's committed float output (bias 0) of a
+    golden stream as int16 PCM [blocks, 2, 256]."""
+    oracle = np.load(path + ".stereo_float.npy")
+    return np.clip(np.round(oracle.reshape(-1, 2, 256).astype(np.float64)
+                            * 32768.0), -32768, 32767)
+
+
 def phase_main_path():
-    import ac3acm_tpu_torch as port
+    """Fast mode; -> (K1 launches, the plain path's f32 chunks,
+    x-realtime by compact_h2d)."""
     from ac3acm_tpu_torch import tables as T
     from ac3acm_tpu_torch.host.native import DenseBatchParser
     from ac3acm_tpu_torch.ops import fused_steady as FS
-    port.set_accuracy("fast")
     streams = lane_streams(MAIN_BATCH, CHUNK_FRAMES * NCHUNKS)
-    oracle = np.load(GOLDEN + ".stereo_float.npy")         # [48, 512], bias 0
-    want = np.clip(np.round(oracle.reshape(48, 2, 256).astype(np.float64)
-                            * 32768.0), -32768, 32767)
+    want = golden_i16(GOLDEN)                               # [48, 2, 256]
     blocks = MAIN_BATCH * CHUNK_FRAMES * NCHUNKS * 6
     # the host half alone, for the breakdown: one native parse of the same
     # lanes, chunk by chunk, with the premix the decoder asks for
@@ -529,7 +696,7 @@ def phase_main_path():
     log(f"host parse alone ({os.cpu_count()} CPUs): {dt_parse:.3f} s "
         f"-> {blocks * 256 / 48000.0 / dt_parse:.0f}x realtime")
     launches = 0
-    plain_f32 = None
+    plain_f32, rt = None, {}
     for compact in (False, True):
         plain, counts_p, dt_p = decode(streams, compact, fused=False)
         assert sum(counts_p) == 0
@@ -550,10 +717,11 @@ def phase_main_path():
             f"{oerr} LSB; {dt:.3f} s -> "
             f"{blocks * 256 / 48000.0 / dt:.0f}x realtime "
             f"(plain path {blocks * 256 / 48000.0 / dt_p:.0f}x)")
+        rt[compact] = blocks * 256 / 48000.0 / dt
         if not compact:
             plain_f32 = plain
         del plain, fused
-    return launches, plain_f32
+    return launches, plain_f32, rt
 
 
 # the raw-H2D gathers: port entry, kernel name in the report, the line of
@@ -731,11 +899,9 @@ def phase_raw_gathers():
 def phase_raw_main(native_plain):
     """BatchedDecoder(parser="raw") on the main path's lanes; -> the
     gathers' launch counts over its run."""
-    import ac3acm_tpu_torch as port
     from ac3acm_tpu_torch.host.native import (DenseBatchParser,
                                               SideinfoBatchParser)
     from ac3acm_tpu_torch.parallel.pipeline import StageClock
-    port.set_accuracy("fast")
     dev = torch.device("cuda")
     nframes = RAW_CHUNK_FRAMES * NCHUNKS
     streams = lane_streams(MAIN_BATCH, nframes)
@@ -783,9 +949,7 @@ def phase_raw_main(native_plain):
     err = int((raw - nat.to(torch.int32)).abs().max())
     del nat
     assert err <= 1, f"raw vs native plain path: {err} LSB"
-    oracle = np.load(GOLDEN + ".stereo_float.npy")
-    want = np.clip(np.round(oracle.reshape(48, 2, 256).astype(np.float64)
-                            * 32768.0), -32768, 32767)
+    want = golden_i16(GOLDEN)
     oerr = int(np.abs(raw[0, :48].cpu().numpy() - want).max())
     assert oerr <= 1, f"raw lane 0 vs reference oracle: {oerr} LSB"
     del raw
@@ -846,9 +1010,7 @@ def phase_raw_coupling():
     peak = torch.cuda.max_memory_allocated()
     assert peak <= PEAK_MEM_LIMIT, f"peak device memory {peak} B"
     # the oracle is one pass of the stream decoded from frame 0
-    oracle = np.load(CPL_GOLDEN + ".stereo_float.npy")
-    want = np.clip(np.round(oracle.reshape(-1, 2, 256).astype(np.float64)
-                            * 32768.0), -32768, 32767)
+    want = golden_i16(CPL_GOLDEN)
     lane0 = chunks[0][0].cpu().numpy().astype(np.int64)
     oerr = int(np.abs(lane0[:len(want)] - want).max())
     audio_s = CPL_BATCH * CPL_NCHUNKS * CPL_CHUNK_FRAMES * 1536 / 48000.0
@@ -873,6 +1035,229 @@ def phase_raw_coupling():
     return launches
 
 
+def max_lsb(a, b):
+    return int((a.to(torch.int32) - b.to(torch.int32)).abs().max())
+
+
+def phase_ref_main(fast_plain, fast_rt):
+    """The native main path with the package default ACCURACY="reference";
+    -> (B1 launches over its run, its int16 chunks of the f32 run)."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    assert PD.ACCURACY == "reference" and PD.default_exact()
+    streams = lane_streams(MAIN_BATCH, CHUNK_FRAMES * NCHUNKS)
+    blocks = MAIN_BATCH * CHUNK_FRAMES * NCHUNKS * 6
+    launches, ref_f32 = 0, None
+    for compact in (False, True):
+        FS.launches = IE.launches = 0         # the reference path's own run
+        chunks, counts, dt = decode(streams, compact, fused=None,
+                                    counter=lambda: IE.launches)
+        assert FS.launches == 0, "the fused kernel ran in reference mode"
+        assert all(c >= 1 for c in counts), \
+            f"B1 skipped a chunk: launches per chunk {counts}"
+        launches += IE.launches
+        err = max(max_lsb(a, b) for a, b in zip(chunks, fast_plain))
+        assert err <= 1, f"reference vs fast mode: {err} LSB"
+        # the compact wire quantizes the planes to 16-bit block-float
+        # mantissas: within 1 LSB of the f32 wire, not bit-exact
+        vs_f32 = "" if ref_f32 is None else \
+            f"; vs the f32 wire max {max(map(max_lsb, chunks, ref_f32))} LSB"
+        if ref_f32 is None:
+            ref_f32 = chunks
+        rt = blocks * 256 / 48000.0 / dt
+        log(f"reference main path compact_h2d={compact}: {MAIN_BATCH} lanes "
+            f"x {NCHUNKS} chunks x {CHUNK_FRAMES} frames; B1 launches per "
+            f"chunk {counts}, fused kernel 0; vs fast-mode PCM max {err} "
+            f"LSB{vs_f32}; {dt:.3f} s -> {rt:.0f}x realtime (fast mode "
+            f"{fast_rt[compact]:.0f}x in this run)")
+    # float output at bias 0: every lane that starts at frame 0 against the
+    # reference decoder's committed output, bit for bit
+    oracle = np.load(GOLDEN + ".stereo_float.npy")            # [48, 512]
+    dec = BatchedDecoder(256, FLAGS_51_TO_20, bias=0.0)
+    for i, s in enumerate(lane_streams(256, 8)):
+        dec.feed(i, s)
+    pcm, valid = dec.decode_available(max_frames=8)
+    assert valid.all()
+    lanes = pcm[::8].reshape(32, 48, 512).cpu().numpy()       # frame-0 lanes
+    oerr = float(np.abs(lanes.astype(np.float64) - oracle).max())
+    log(f"reference main path, 256 lanes x 8 frames, float at bias 0: the "
+        f"32 lanes that start at frame 0 vs the reference decoder's output "
+        f"max |diff| {oerr}")
+    assert oerr == 0.0
+    return launches, ref_f32
+
+
+def phase_ref_raw(ref_native):
+    """parser="raw" on the main path's lanes in reference mode: int16 PCM
+    equal to the reference native path's; -> B1 launches over its run."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.parallel.pipeline import StageClock
+    assert PD.ACCURACY == "reference"
+    nframes = RAW_CHUNK_FRAMES * NCHUNKS
+    streams = lane_streams(MAIN_BATCH, nframes)
+    dec = raw_decoder(streams)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    IE.launches = 0                           # the raw reference run's own
+    chunks, counts = [], []
+    t0 = time.perf_counter()
+    for _ in range(NCHUNKS):
+        before = IE.launches
+        pcm, valid = dec.decode_available(max_frames=RAW_CHUNK_FRAMES)
+        assert valid.all()
+        counts.append(IE.launches - before)
+        chunks.append(pcm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = IE.launches
+    assert all(c >= 1 for c in counts), f"B1 skipped a chunk: {counts}"
+    err = max(max_lsb(a, b) for a, b in zip(chunks, ref_native))
+    del chunks, dec
+    rt = MAIN_BATCH * nframes * 1536 / 48000.0 / dt
+    log(f"reference raw path: {MAIN_BATCH} lanes x {NCHUNKS} chunks x "
+        f"{RAW_CHUNK_FRAMES} frames; B1 launches per chunk {counts}; PCM vs "
+        f"the reference native path max {err} LSB; {dt:.3f} s -> {rt:.0f}x "
+        f"realtime; peak device memory {peak / 1e9:.2f} GB")
+    assert err == 0, f"raw vs native reference PCM: {err} LSB"
+    assert peak <= PEAK_MEM_LIMIT, f"peak device memory {peak} B"
+    dec = raw_decoder(streams)
+    clock = StageClock(torch.device("cuda"))
+    dec.decode_available(max_frames=RAW_CHUNK_FRAMES, clock=clock)
+    del dec
+    clock.kept.clear()
+    log(f"reference raw path, one {RAW_CHUNK_FRAMES}-frame chunk by stage: "
+        + ", ".join(f"{name} {sec:.3f} s"
+                    for name, sec in clock.seconds.items()))
+    return launches
+
+
+@contextlib.contextmanager
+def count_bodies():
+    """Counts of the decode bodies the pipelines run inside the block:
+    {"scan": _pipeline_body runs, "steady": _pipeline_steady runs}."""
+    from ac3acm_tpu_torch.parallel import pipeline as P
+    orig = {"scan": P._pipeline_body, "steady": P._pipeline_steady}
+    runs = {k: 0 for k in orig}
+
+    def wrap(key):
+        def call(*args, **kw):
+            runs[key] += 1
+            return orig[key](*args, **kw)
+        return call
+
+    P._pipeline_body, P._pipeline_steady = wrap("scan"), wrap("steady")
+    try:
+        yield runs
+    finally:
+        P._pipeline_body, P._pipeline_steady = orig["scan"], orig["steady"]
+
+
+def phase_general():
+    """The coupling/short-block stream, every chunk through the block
+    scan: both parsers in reference mode, the native one in fast mode."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    assert PD.ACCURACY == "reference"
+    streams = lane_streams(GEN_BATCH, GEN_CHUNK_FRAMES * GEN_NCHUNKS,
+                           SPEC_GOLDEN, rotate=False)
+    outs = {}
+    for mode, parser in (("reference", "native"), ("reference", "raw"),
+                         ("fast", "native")):
+        with accuracy(mode), count_bodies() as runs:
+            dec = BatchedDecoder(GEN_BATCH, FLAGS_51_TO_20, bias=0.0,
+                                 parser=parser)
+            for i, s in enumerate(streams):
+                dec.feed(i, s)
+            torch.cuda.synchronize()
+            before, chunks = IE.launches, []
+            t0 = time.perf_counter()
+            for _ in range(GEN_NCHUNKS):
+                pcm, valid = dec.decode_available(max_frames=GEN_CHUNK_FRAMES)
+                assert valid.all()
+                chunks.append(pcm)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            b1 = IE.launches - before
+            del dec
+        outs[mode, parser] = torch.cat(chunks, dim=1)
+        del chunks
+        assert runs == {"scan": GEN_NCHUNKS, "steady": 0}, runs
+        assert (b1 >= GEN_NCHUNKS) == (mode == "reference"), b1
+        rt = GEN_BATCH * GEN_NCHUNKS * GEN_CHUNK_FRAMES * 1536 / 48000.0 / dt
+        log(f"general decode {mode} parser={parser}: {GEN_BATCH} lanes x "
+            f"{GEN_NCHUNKS} chunks x {GEN_CHUNK_FRAMES} frames of "
+            f"spec_cpl51_hazard; block-scan runs {runs['scan']}, steady "
+            f"runs {runs['steady']}, B1 launches {b1}; {dt:.3f} s -> "
+            f"{rt:.0f}x realtime")
+    ref = outs["reference", "native"]
+    oracle = np.load(SPEC_GOLDEN + ".stereo_float.npy")       # 4 frames
+    lane0 = ref[0, :len(oracle)].reshape(-1, 512).cpu().numpy()
+    oerr = float(np.abs(lane0.astype(np.float64) - oracle).max())
+    raw_same = torch.equal(outs["reference", "raw"], ref)
+    fast_err = float((outs["fast", "native"] - ref).abs().max()) * 32768.0
+    log(f"general decode: lane 0 vs the reference decoder's output max "
+        f"|diff| {oerr}; raw == native {raw_same}; fast vs reference max "
+        f"{fast_err:.4f} LSB")
+    assert oerr == 0.0 and raw_same and fast_err <= 1.0
+
+
+def phase_mixed():
+    """Lanes of three formats, some switching mid-stream, in reference
+    mode: every lane equals its stream decoded in a homogeneous batch."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    assert PD.ACCURACY == "reference"
+    nfr = MIX_CHUNK_FRAMES * MIX_NCHUNKS
+
+    def cycle(fr, n):
+        return b"".join(fr[j % len(fr)] for j in range(n))
+
+    b51, st, mono = (golden_frames(p)
+                     for p in (GOLDEN, STEREO_GOLDEN, MONO_GOLDEN))
+    kinds = [cycle(b51, nfr), cycle(st, nfr), cycle(mono, nfr),
+             cycle(b51, 3) + cycle(st, nfr - 3)]       # switch at frame 3
+    kind = np.arange(MIX_BATCH) % 3
+    kind[::48] = 3                                     # some 5.1 lanes switch
+
+    def run(feeds):
+        dec = BatchedDecoder(len(feeds), FLAGS_51_TO_20, bias=0.0)
+        for i, s in enumerate(feeds):
+            dec.feed(i, s)
+        chunks = []
+        for _ in range(MIX_NCHUNKS):
+            pcm, valid = dec.decode_available(max_frames=MIX_CHUNK_FRAMES)
+            assert valid.all()
+            chunks.append(pcm)
+        return torch.cat(chunks, dim=1)
+
+    torch.cuda.synchronize()
+    before = IE.launches
+    t0 = time.perf_counter()
+    mixed = run([kinds[k] for k in kind])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    b1 = IE.launches - before
+    assert b1 >= MIX_NCHUNKS
+    same = []
+    for k, feed in enumerate(kinds):
+        want = run([feed] * 8)[0]
+        lanes = torch.from_numpy(np.flatnonzero(kind == k)).to(mixed.device)
+        same.append(bool((mixed[lanes] == want).all()))
+    rt = MIX_BATCH * nfr * 1536 / 48000.0 / dt
+    log(f"mixed formats: {MIX_BATCH} lanes (5.1 / 2.0 / 1.0 cycling, "
+        f"{int((kind == 3).sum())} lanes switching 5.1 -> 2.0 at frame 3) x "
+        f"{MIX_NCHUNKS} chunks x {MIX_CHUNK_FRAMES} frames, reference mode; "
+        f"B1 launches {b1}; each kind equal to its homogeneous batch "
+        f"{same}; {dt:.3f} s -> {rt:.0f}x realtime")
+    assert all(same)
+
+
 def main():
     phase_card()
     dev = torch.device("cuda")
@@ -882,17 +1267,29 @@ def main():
     phase_check_ragged(dev)
     phase_check_gather_edges(dev)
     phase_check_field_edges(dev)
+    b1_freq, b1_err = phase_check_b1(dev, bench_inputs)
     times = phase_times(bench_inputs)
-    del bench_inputs
+    b1_times = phase_times_b1(b1_freq)
+    del bench_inputs, b1_freq
     torch.cuda.empty_cache()
-    launches, native_plain = phase_main_path()
+    with accuracy("fast"):
+        launches, native_plain, fast_rt = phase_main_path()
+        torch.cuda.empty_cache()
+        gathers = phase_raw_gathers()
+        torch.cuda.empty_cache()
+        raw_launches = phase_raw_main(native_plain)
+        torch.cuda.empty_cache()
+        raw_launches["extract_fields_shared"] = phase_raw_coupling()
     torch.cuda.empty_cache()
-    gathers = phase_raw_gathers()
-    torch.cuda.empty_cache()
-    raw_launches = phase_raw_main(native_plain)
+    b1_launches, ref_native = phase_ref_main(native_plain, fast_rt)
     del native_plain
     torch.cuda.empty_cache()
-    raw_launches["extract_fields_shared"] = phase_raw_coupling()
+    phase_ref_raw(ref_native)
+    del ref_native
+    torch.cuda.empty_cache()
+    phase_general()
+    torch.cuda.empty_cache()
+    phase_mixed()
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
@@ -904,6 +1301,11 @@ def main():
             source="ac3acm_tpu_torch/csrc/bitgather.cu",
             replaces=f"ac3acm_tpu/ops/bitgather.py:{line}",
             launches=raw_launches[entry], **gathers[entry]))
+    kernels.append(dict(
+        name="imdct_exact (B1)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
+        replaces="ac3acm_tpu/ops/imdct_exact.py:437,466 (XLA; no pallas_call)",
+        launches=b1_launches, max_abs_err=b1_err, **b1_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

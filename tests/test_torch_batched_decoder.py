@@ -135,16 +135,26 @@ def test_dense_parser_bitwise():
 
 
 def test_unported_paths_refuse(fast):
-    """Other parsers and mixed-format batches raise instead of guessing."""
+    """The Python parsers raise instead of guessing; a mixed-format batch
+    decodes, each lane within 1 LSB of its stream decoded alone."""
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         BatchedDecoder(2, FLAGS, parser="python", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         BatchedDecoder(2, FLAGS, parser="raw_py", device="cpu")
+    streams = [_es()[:2 * FRAME], _es("stereo_192.ac3")[:2 * 768]]
     dec = BatchedDecoder(2, FLAGS, bias=384.0, emit_int16=True, device="cpu")
-    dec.feed(0, _es())
-    dec.feed(1, _es("stereo_192.ac3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        dec.decode_available(max_frames=2)
+    for i, es in enumerate(streams):
+        dec.feed(i, es)
+    pcm, valid = dec.decode_available(max_frames=2)
+    assert valid.all() and pcm.shape == (2, 12, 2, 256)
+    for i, es in enumerate(streams):
+        one = BatchedDecoder(1, FLAGS, bias=384.0, emit_int16=True,
+                             device="cpu")
+        one.feed(0, es)
+        want, _ = one.decode_available(max_frames=2)
+        assert np.abs(pcm[i].numpy().astype(np.int64)
+                      - want[0].numpy().astype(np.int64)).max() \
+            <= FS.PCM_LSB_TOL
 
 
 def test_passthrough_lanes_match_jax(fast):

@@ -224,15 +224,26 @@ def test_stream_format_and_steady_ok_agree():
 
 
 def test_exact_mode_raises(monkeypatch):
-    """The order-exact IMDCT is not ported: the default ACCURACY
-    ("reference") refuses to build a pipeline instead of running fast."""
+    """ACCURACY="reference" (the default) builds the order-exact bodies
+    instead of refusing: through the dispatcher, the steady body and the
+    block scan agree bitwise on a steady chunk and equal
+    _pipeline_steady(exact=True).  What still raises is the fused kernel
+    asked to serve reference mode (it is a fast-mode body)."""
     monkeypatch.setattr(PD, "ACCURACY", "reference")
     fmt = PD.StreamFormat(JT.A52_3F2R, JT.A52_STEREO, False, 0)
     assert PD.default_exact()
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    with pytest.raises(AssertionError, match="fast mode"):
         batched_pipeline(fmt, emit_int16=True, steady=True, long_only=True,
-                         premixed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        PD._pipeline_steady(fmt, None, {}, exact=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        batched_pipeline(fmt, exact=False)
+                         premixed=True, exact=True, fused=True)
+    rng = np.random.default_rng(4)
+    B = 3
+    blocks = {k: torch.from_numpy(v) for k, v in
+              _steady_blocks(fmt, False, False, rng, B=B, n=6).items()}
+    carry = (torch.from_numpy((rng.standard_normal((B, 6, 128)) * 0.05)
+                              .astype(np.float32)),
+             torch.tensor([True, False, True]))
+    (sd, sm), sp = batched_pipeline(fmt, steady=True)(carry, blocks)
+    (bd, bm), bp = batched_pipeline(fmt)(carry, blocks)
+    (rd, rm), rp = PD._pipeline_steady(fmt, carry, blocks, exact=True)
+    for a, b in ((sp, bp), (sd, bd), (sm, bm), (sp, rp), (sd, rd), (sm, rm)):
+        assert torch.equal(a, b)

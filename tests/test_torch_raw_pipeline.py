@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import ac3acm_tpu.tables as JT
 from ac3acm_tpu.models import decoder as JD
@@ -229,18 +230,27 @@ def test_mixed_formats_raise(fast):
 
 
 def test_unported_paths_raise(fast, monkeypatch):
-    """raw_py and python need the Python parser (A3); short blocks need
-    the block scan (A4); reference accuracy the order-exact IMDCT (A2)."""
+    """raw_py and python need the Python parser (A3) and still raise.
+    Short blocks (the block scan) decode: the raw PCM equals the native
+    parser's bitwise.  Reference accuracy (the order-exact IMDCT) decodes:
+    float output at bias 0 equals the reference decoder's bit for bit."""
     for parser in ("raw_py", "python"):
         with pytest.raises(NotImplementedError, match="ROADMAP A3"):
             BatchedDecoder(1, FLAGS51, parser=parser, device="cpu")
     es = streamgen.gen_stream(16, 3, False, nframes=2, want_blksw=True)
-    dec = BatchedDecoder(1, JT.A52_STEREO, parser="raw", device="cpu")
-    dec.feed(0, es)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        dec.decode_available(max_frames=2)
+    pcms = []
+    for parser in ("raw", "native"):
+        dec = BatchedDecoder(1, JT.A52_STEREO, parser=parser, device="cpu")
+        dec.feed(0, es)
+        pcm, valid = dec.decode_available(max_frames=2)
+        assert valid.all()
+        pcms.append(pcm)
+    assert torch.equal(pcms[0], pcms[1])
     monkeypatch.setattr(PD, "ACCURACY", "reference")
     dec = BatchedDecoder(1, FLAGS51, parser="raw", device="cpu")
     dec.feed(0, _es("bench_51_448.ac3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        dec.decode_available(max_frames=2)
+    pcm, valid = dec.decode_available(max_frames=2)
+    oracle = np.load(os.path.join(GOLDEN, "bench_51_448.ac3.stereo_float.npy"))
+    assert valid.all()
+    np.testing.assert_array_equal(pcm[0].numpy().reshape(12, 512),
+                                  oracle[:12])
