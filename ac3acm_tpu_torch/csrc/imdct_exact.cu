@@ -1,4 +1,5 @@
-// Order-exact float IMDCT (z, d) split for Hopper (sm_90a): B1.
+// Order-exact float IMDCT for Hopper (sm_90a): B1, the (z, d) split, and
+// B1F, the fused steady tail built on the same transform code.
 //
 // The function of ac3acm_tpu_torch/ops/imdct_exact.py:split_fb_exact, the
 // counterpart of ac3acm_tpu/ops/imdct_exact.py:imdct512_z / imdct256_z
@@ -25,16 +26,23 @@
 // path's chunk (786,432 rows) 2.01 GB, 0.601 ms at 3.35 TB/s, where the
 // operations take 0.05 ms at 67 TFLOP/s.
 //
-// What the design does about it: it is the simple one.  One warp a row,
-// 8 rows a CTA.  The row is staged in shared memory with coalesced
-// 16-byte loads; the IFFT runs in place on the row's 128 complex values
-// in shared memory, level by level (the leaves, ifft8 and ifft4, one per
-// lane in registers; then each ifft_pass level, one butterfly per lane),
-// with __syncwarp between levels; z and d are staged in shared memory and
-// written with 16-byte stores.  A level's butterflies are independent, so
-// this schedule computes every value with the reference's own operations.
-// Fusing the window, the OLA chain and int16 into it, as the fused steady
-// kernel does for the matmul path, is later work.
+// What the design does about it: one warp a row, 8 rows a CTA.  The row
+// is staged in shared memory from coalesced 16-byte loads; the IFFT runs
+// in place on the row's 128 complex values in shared memory, level by
+// level (the leaves, ifft8 and ifft4, one per lane in registers; then each
+// ifft_pass level, one butterfly per lane), with __syncwarp between
+// levels; z and d are written from shared memory with coalesced stores.
+// A level's butterflies are independent, so this schedule computes every
+// value with the reference's own operations.  The transform was bound by
+// shared-memory bank conflicts (about 650 wavefronts a long row: the
+// fftorder gather 8-way, the leaves and first pass levels 3- to 4-way);
+// the layouts XS, CS and DS below make every access of the schedule
+// conflict-free (about 170), which took B1 from about 1.5 to about 0.9 ms
+// at the main path's chunk on an H100 (PERF.md).
+//
+// B1 serves the block scan, whose OLA runs block by block in eager
+// PyTorch.  The steady chunks take B1F below, which fuses the window, the
+// OLA chain and int16 into the same transform code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,23 +62,45 @@ enum : int {
 // the split-radix recursion (ifft 4n = ifft 2n, ifft n, ifft n, pass n)
 // unrolled: leaf offsets (ifft8 flagged with 0x100, else ifft4) and the
 // node offsets of each ifft_pass level, for the 128-point IFFT of a long
-// row and the two 64-point IFFTs (at 0 and 64) of a short row
-__constant__ int LEAVES_LONG[21] = {
-    0x100 | 0, 0x100 | 16, 0x100 | 24, 0x100 | 32, 0x100 | 48, 0x100 | 64,
-    0x100 | 80, 0x100 | 88, 0x100 | 96, 0x100 | 112, 0x100 | 120,
-    8, 12, 40, 44, 56, 60, 72, 76, 104, 108};
-__constant__ int LEAVES_SHORT[22] = {
-    0x100 | 0, 0x100 | 16, 0x100 | 24, 0x100 | 32, 0x100 | 48, 0x100 | 64,
-    0x100 | 80, 0x100 | 88, 0x100 | 96, 0x100 | 112,
-    8, 12, 40, 44, 56, 60, 72, 76, 104, 108, 120, 124};
-__constant__ int PASS16_LONG[5] = {0, 32, 48, 64, 96};
-__constant__ int PASS32_LONG[3] = {0, 64, 96};
-__constant__ int PASS16_SHORT[6] = {0, 32, 48, 64, 96, 112};
-__constant__ int PASS_0_64[2] = {0, 64};     // 128-point pass; ifft32/64 x2
+// row and the two 64-point IFFTs (at 0 and 64) of a short row; the leaves
+// in the lane order that keeps their float4 accesses conflict-free.  Each
+// CTA copies the table to shared memory: the lanes of a warp index it at
+// different entries, which constant memory would serve one at a time.
+enum : int {
+    LEAVES_LONG = 0, LEAVES_SHORT = 21, PASS16_LONG = 43, PASS32_LONG = 48,
+    PASS16_SHORT = 51, PASS_0_64 = 57,      // 128-point pass; ifft32/64 x2
+    SCHED_SIZE = 59
+};
+__constant__ int SCHED[SCHED_SIZE] = {
+    0x100 | 0, 0x100 | 16, 0x100 | 24, 0x100 | 32, 0x100 | 64, 0x100 | 80,
+    0x100 | 88, 0x100 | 96, 0x100 | 48, 0x100 | 112, 0x100 | 120,
+    8, 12, 40, 56, 60, 44, 72, 76, 104, 108,
+    0x100 | 0, 0x100 | 16, 0x100 | 24, 0x100 | 32, 0x100 | 64, 0x100 | 80,
+    0x100 | 88, 0x100 | 96, 0x100 | 48, 0x100 | 112,
+    8, 12, 40, 44, 56, 60, 72, 76, 104, 108, 120, 124,
+    0, 32, 48, 64, 96,
+    0, 64, 96,
+    0, 32, 48, 64, 96, 112,
+    0, 64};
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// Shared-memory layouts, each a bijection chosen so that every access of
+// the schedule below takes the fewest wavefronts its width allows (one for
+// a 4-byte access of up to 32 lanes, one per 8 active lanes for a float4;
+// tests/test_torch_imdct_exact.py checks this with a model of the banks):
+//  XS  the row x [256] (coefficients in, z out): word i at i ^ (i>>5 & 7).
+//      fftorder sends the 8 lanes of a group to words 32 apart (the same
+//      bank in the natural layout: 8-way conflicts); the xor spreads them.
+//  CS  the IFFT's re/im [128]: i ^ ((i>>4 & 7) << 2), which keeps every
+//      4-aligned group contiguous (a leaf loads 4 values as one float4)
+//      and spreads the nodes of the first pass levels.
+//  DS  the delay d [128]: i ^ (i>>5 & 1), for the stride-2 writes.
+__device__ __forceinline__ int XS(int i) { return i ^ ((i >> 5) & 7); }
+__device__ __forceinline__ int CS(int i) { return i ^ (((i >> 4) & 7) << 2); }
+__device__ __forceinline__ int DS(int i) { return i ^ ((i >> 5) & 1); }
 
 // the four butterflies of imdct.c, in place on (a0, a1, a2, a3); the
 // outputs keep the inputs' slots: a0 + t, a1 + t', a0 - t, a1 - t'
@@ -146,6 +176,19 @@ __device__ __forceinline__ void ifft8(float* r, float* i, float w)
     bf_half(r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7], w);
 }
 
+// 4 consecutive values of re/im (4-aligned, so contiguous under CS)
+__device__ __forceinline__ void ld4(const float* a, int o, float* v)
+{
+    const float4 t = *reinterpret_cast<const float4*>(a + CS(o));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void st4(float* a, int o, const float* v)
+{
+    *reinterpret_cast<float4*>(a + CS(o)) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+}
+
 // the leaves of one IFFT level 0, one per lane, in registers
 __device__ __forceinline__ void leaves(float* re, float* im, const int* list,
                                        int count, float w16, int lane)
@@ -155,17 +198,15 @@ __device__ __forceinline__ void leaves(float* re, float* im, const int* list,
     const int e = list[lane], o = e & 0xff;
     float r[8], i[8];
     if (e & 0x100) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) { r[k] = re[o + k]; i[k] = im[o + k]; }
+        ld4(re, o, r); ld4(re, o + 4, r + 4);
+        ld4(im, o, i); ld4(im, o + 4, i + 4);
         ifft8(r, i, w16);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) { re[o + k] = r[k]; im[o + k] = i[k]; }
+        st4(re, o, r); st4(re, o + 4, r + 4);
+        st4(im, o, i); st4(im, o + 4, i + 4);
     } else {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) { r[k] = re[o + k]; i[k] = im[o + k]; }
+        ld4(re, o, r); ld4(im, o, i);
         ifft4(r, i);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) { re[o + k] = r[k]; im[o + k] = i[k]; }
+        st4(re, o, r); st4(im, o, i);
     }
 }
 
@@ -178,7 +219,8 @@ __device__ __forceinline__ void pass_level(float* re, float* im,
 {
     for (int t = lane; t < nodes * n; t += 32) {
         const int node = t / n, k = t - node * n;
-        const int p0 = offs[node] + k, p1 = p0 + n, p2 = p1 + n, p3 = p2 + n;
+        const int q0 = offs[node] + k, p0 = CS(q0), p1 = CS(q0 + n),
+                  p2 = CS(q0 + 2 * n), p3 = CS(q0 + 3 * n);
         float a0r = re[p0], a0i = im[p0], a1r = re[p1], a1i = im[p1];
         float a2r = re[p2], a2i = im[p2], a3r = re[p3], a3i = im[p3];
         if (k == 0)
@@ -191,71 +233,76 @@ __device__ __forceinline__ void pass_level(float* re, float* im,
     }
 }
 
-// x: the row's coefficients in, z out; re/im: the IFFT buffer; dd: d out
+// x: the row's coefficients in, z out (XS); re/im: the IFFT buffer (CS);
+// dd: d out (DS)
 __device__ void long_row(float* x, float* re, float* im, float* dd,
-                         const float* tab, const int* order, int lane)
+                         const float* tab, const int* order,
+                         const int* sched, int lane)
 {
     for (int k = lane; k < 128; k += 32) {
         const int o = order[k];
-        const float dk = x[o], dm = x[255 - o];
+        const float dk = x[XS(o)], dm = x[XS(255 - o)];
         const float tr = tab[PRE1_R + k], ti = tab[PRE1_I + k];
-        re[k] = add(mul(ti, dm), mul(tr, dk));
-        im[k] = sub(mul(tr, dm), mul(ti, dk));
+        re[CS(k)] = add(mul(ti, dm), mul(tr, dk));
+        im[CS(k)] = sub(mul(tr, dm), mul(ti, dk));
     }
     __syncwarp();
-    leaves(re, im, LEAVES_LONG, 21, tab[ROOTS16 + 1], lane);
+    leaves(re, im, sched + LEAVES_LONG, 21, tab[ROOTS16 + 1], lane);
     __syncwarp();
-    pass_level(re, im, PASS16_LONG, 5, 4, tab + ROOTS16, lane);
+    pass_level(re, im, sched + PASS16_LONG, 5, 4, tab + ROOTS16, lane);
     __syncwarp();
-    pass_level(re, im, PASS32_LONG, 3, 8, tab + ROOTS32, lane);
+    pass_level(re, im, sched + PASS32_LONG, 3, 8, tab + ROOTS32, lane);
     __syncwarp();
-    pass_level(re, im, PASS_0_64, 1, 16, tab + ROOTS64, lane);
+    pass_level(re, im, sched + PASS_0_64, 1, 16, tab + ROOTS64, lane);
     __syncwarp();
-    pass_level(re, im, PASS_0_64, 1, 32, tab + ROOTS128, lane);
+    pass_level(re, im, sched + PASS_0_64, 1, 32, tab + ROOTS128, lane);
     __syncwarp();
     for (int i = lane; i < 64; i += 32) {
         const float tr = tab[POST1_R + i], ti = tab[POST1_I + i];
-        const float fr = re[i], fi = im[i], gr = re[127 - i], gi = im[127 - i];
+        const float fr = re[CS(i)], fi = im[CS(i)];
+        const float gr = re[CS(127 - i)], gi = im[CS(127 - i)];
         const float a_r = add(mul(tr, fr), mul(ti, fi));
         const float a_i = sub(mul(ti, fr), mul(tr, fi));
         const float b_r = add(mul(ti, gr), mul(tr, gi));
         const float b_i = sub(mul(tr, gr), mul(ti, gi));
-        x[255 - 2 * i] = a_r;
-        x[2 * i] = -a_r;
-        x[2 * i + 1] = b_r;
-        x[254 - 2 * i] = -b_r;
-        dd[2 * i] = a_i;
-        dd[2 * i + 1] = b_i;
+        x[XS(255 - 2 * i)] = a_r;
+        x[XS(2 * i)] = -a_r;
+        x[XS(2 * i + 1)] = b_r;
+        x[XS(254 - 2 * i)] = -b_r;
+        dd[DS(2 * i)] = a_i;
+        dd[DS(2 * i + 1)] = b_i;
     }
 }
 
 __device__ void short_row(float* x, float* re, float* im, float* dd,
-                          const float* tab, const int* order, int lane)
+                          const float* tab, const int* order,
+                          const int* sched, int lane)
 {
     for (int c = lane; c < 64; c += 32) {
         const int k = order[c];
-        const float d1a = x[k], d1b = x[254 - k];
-        const float d2a = x[k + 1], d2b = x[255 - k];
+        const float d1a = x[XS(k)], d1b = x[XS(254 - k)];
+        const float d2a = x[XS(k + 1)], d2b = x[XS(255 - k)];
         const float tr = tab[PRE2_R + c], ti = tab[PRE2_I + c];
-        re[c] = add(mul(ti, d1b), mul(tr, d1a));
-        im[c] = sub(mul(tr, d1b), mul(ti, d1a));
-        re[64 + c] = add(mul(ti, d2b), mul(tr, d2a));
-        im[64 + c] = sub(mul(tr, d2b), mul(ti, d2a));
+        re[CS(c)] = add(mul(ti, d1b), mul(tr, d1a));
+        im[CS(c)] = sub(mul(tr, d1b), mul(ti, d1a));
+        re[CS(64 + c)] = add(mul(ti, d2b), mul(tr, d2a));
+        im[CS(64 + c)] = sub(mul(tr, d2b), mul(ti, d2a));
     }
     __syncwarp();
-    leaves(re, im, LEAVES_SHORT, 22, tab[ROOTS16 + 1], lane);
+    leaves(re, im, sched + LEAVES_SHORT, 22, tab[ROOTS16 + 1], lane);
     __syncwarp();
-    pass_level(re, im, PASS16_SHORT, 6, 4, tab + ROOTS16, lane);
+    pass_level(re, im, sched + PASS16_SHORT, 6, 4, tab + ROOTS16, lane);
     __syncwarp();
-    pass_level(re, im, PASS_0_64, 2, 8, tab + ROOTS32, lane);
+    pass_level(re, im, sched + PASS_0_64, 2, 8, tab + ROOTS32, lane);
     __syncwarp();
-    pass_level(re, im, PASS_0_64, 2, 16, tab + ROOTS64, lane);
+    pass_level(re, im, sched + PASS_0_64, 2, 16, tab + ROOTS64, lane);
     __syncwarp();
     const int i = lane;                                  // 32 outputs
     const float tr = tab[POST2_R + i], ti = tab[POST2_I + i];
-    const float b1r = re[i], b1i = im[i], g1r = re[63 - i], g1i = im[63 - i];
-    const float b2r = re[64 + i], b2i = im[64 + i];
-    const float g2r = re[127 - i], g2i = im[127 - i];
+    const float b1r = re[CS(i)], b1i = im[CS(i)];
+    const float g1r = re[CS(63 - i)], g1i = im[CS(63 - i)];
+    const float b2r = re[CS(64 + i)], b2i = im[CS(64 + i)];
+    const float g2r = re[CS(127 - i)], g2i = im[CS(127 - i)];
     const float a_r = add(mul(tr, b1r), mul(ti, b1i));
     const float a_i = sub(mul(ti, b1r), mul(tr, b1i));
     const float b_r = add(mul(ti, g1r), mul(tr, g1i));
@@ -264,18 +311,223 @@ __device__ void short_row(float* x, float* re, float* im, float* dd,
     const float c_i = sub(mul(ti, b2r), mul(tr, b2i));
     const float d_r = add(mul(ti, g2r), mul(tr, g2i));
     const float d_i = sub(mul(tr, g2r), mul(ti, g2i));
-    x[255 - 2 * i] = a_r;
-    x[2 * i] = -a_r;
-    x[128 + 2 * i] = a_i;
-    x[127 - 2 * i] = -a_i;
-    x[129 + 2 * i] = b_r;
-    x[126 - 2 * i] = -b_r;
-    x[254 - 2 * i] = b_i;
-    x[2 * i + 1] = -b_i;
-    dd[127 - 2 * i] = c_r;
-    dd[2 * i] = c_i;
-    dd[2 * i + 1] = d_r;
-    dd[126 - 2 * i] = d_i;
+    x[XS(255 - 2 * i)] = a_r;
+    x[XS(2 * i)] = -a_r;
+    x[XS(128 + 2 * i)] = a_i;
+    x[XS(127 - 2 * i)] = -a_i;
+    x[XS(129 + 2 * i)] = b_r;
+    x[XS(126 - 2 * i)] = -b_r;
+    x[XS(254 - 2 * i)] = b_i;
+    x[XS(2 * i + 1)] = -b_i;
+    dd[DS(127 - 2 * i)] = c_r;
+    dd[DS(2 * i)] = c_i;
+    dd[DS(2 * i + 1)] = d_r;
+    dd[DS(126 - 2 * i)] = d_i;
+}
+
+
+// ---------------------------------------------------------------------------
+// B1F: the fused order-exact steady tail.  Per (lane b, plane p) chain of
+// n blocks, with (z_i, d_i) = the row transform above:
+//
+//   dprev_i    = d0[b, p] if i == 0 else d_{i-1}
+//   out_i      = ((z_i * win) + (fold(dprev_i) * win_r)) + bias[b, i]
+//   pcm[b,i,p] = int16 clamp(rint((out_i - 384) * 32768)), or out_i (f32)
+//   dlast[b,p] = d_{n-1}                       fold(d) = d ++ reversed(d)
+//
+// bit for bit what _pipeline_steady(exact=True) and convert_to_int16 give
+// (ops/fused_steady_exact.py:fused_steady_exact_ref), which has no
+// pallas_call counterpart: the JAX package runs it as XLA
+// (ac3acm_tpu/ops/imdct_exact.py:437,466 and the steady body's OLA).
+//
+// Bound on the card: bytes.  A row reads its 1 KB of coefficients and
+// writes 512 B of int16 (1 KB of f32); each chain reads d0 and writes
+// dlast once.  At the main path's chunk (786,432 rows, 8,192 chains)
+// that is 1,217,921,024 B, 0.364 ms at 3.35 TB/s; the ~6,700 FP32
+// operations a row take 0.08 ms at 67 TFLOP/s.  B1 followed by the eager
+// chain, OLA and int16 passes moved about 18 GB a chunk.
+//
+// What the design does about it:
+//  * nothing but the coefficients, d0 and bias comes in and nothing but
+//    the PCM and dlast goes out: z, d and the OLA stay on chip;
+//  * one warp walks one segment of a chain in block order, keeping the
+//    previous block's d in registers, already folded (the 8 entries its
+//    8 outputs need), so block i's OLA needs no second pass.  A chain is
+//    cut into segments of equal length so that every warp of the grid gets
+//    about the same number of rows (B1F_ITEMS segments a resident warp,
+//    at least 8 rows each: the main path's 8,192 chains alone are a wave
+//    and a fraction; the 256-lane float check has 512 chains); a segment
+//    that does not start its chain first transforms the row before it for
+//    its d (its z is not used), +1 row a segment (+2% at the main chunk);
+//  * the next row, its flag and its bias are in flight while this row is
+//    transformed: two row buffers a warp in shared memory, filled by
+//    cp.async (4-byte copies, since XS permutes single words; each warp
+//    instruction still reads 128 contiguous bytes);
+//  * persistent CTAs: the grid holds every warp at once; each CTA stages
+//    the packed twiddles, fftorder and the IFFT schedule once, then loops;
+//  * the epilogue stays in registers: a lane owns outputs lane + 32k
+//    (conflict-free reads of z and d), holds its 16 window entries in
+//    registers, applies the OLA with __fmul_rn/__fadd_rn in the eager
+//    order and stores coalesced int16 or floats.
+// The transform itself is B1's, shared code, so the two kernels compute
+// every value with the same operations.  Not done (tried on the card, no
+// change within the 5% spread between runs): fewer registers for more
+// resident warps (forcing 64 to 80 registers left the time as it was, or
+// spilled), the window in shared memory, fewer or more segments.  Two
+// rows in flight a warp, to fill the levels that keep 16 to 24 lanes
+// busy, is the open design step (PERF.md).
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem)
+{
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit()
+{
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait()
+{
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one row (256 floats) into a shared buffer in the XS layout, 8 x 4 B a
+// lane (the layout permutes single words, so 16-byte copies cannot place
+// them); each warp instruction still reads 128 contiguous bytes
+__device__ __forceinline__ void fetch_row(float* x, const float* src,
+                                          int lane)
+{
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        cp_async4(x + XS(lane + 32 * k), src + lane + 32 * k);
+    cp_async_commit();
+}
+
+// int16 of one output, as convert_to_int16: (out - 384) * 32768, rounded
+// half to even, clamped
+__device__ __forceinline__ unsigned to_i16(float out)
+{
+    float v = rintf(mul(sub(out, 384.0f), 32768.0f));
+    v = fminf(fmaxf(v, -32768.0f), 32767.0f);
+    return (unsigned)(unsigned short)(short)__float2int_rn(v);
+}
+
+// work items (chain segments) per resident warp that B1F's launch aims at
+constexpr int B1F_ITEMS = 4;
+
+template <bool I16>
+__global__ void __launch_bounds__(WARPS * 32)
+fused_steady_exact_kernel(const float* __restrict__ freq,
+                          const uint8_t* __restrict__ blksw,
+                          const float* __restrict__ d0,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ tab_g,
+                          const int* __restrict__ order_g,
+                          const float* __restrict__ win_g,
+                          void* __restrict__ pcm, float* __restrict__ dlast,
+                          int n, int P, int seg_len, int nseg,
+                          long long items)
+{
+    __shared__ float tab[TAB_SIZE];
+    __shared__ int order[128], sched[SCHED_SIZE];
+    __shared__ __align__(16) float xbuf[WARPS][2][256];
+    __shared__ __align__(16) float rebuf[WARPS][128], imbuf[WARPS][128];
+    __shared__ __align__(16) float dbuf[WARPS][128];
+    for (int t = threadIdx.x; t < TAB_SIZE; t += blockDim.x)
+        tab[t] = tab_g[t];
+    for (int t = threadIdx.x; t < 128; t += blockDim.x)
+        order[t] = order_g[t];
+    for (int t = threadIdx.x; t < SCHED_SIZE; t += blockDim.x)
+        sched[t] = SCHED[t];
+    __syncthreads();
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // this lane's outputs are j = lane + 32k, k < 8; output j folds in
+    // d[j] (j < 128) or d[255 - j]: fold index f_k = FOLD(k)
+#define FOLD(k) ((k) < 4 ? lane + 32 * (k) : 255 - lane - 32 * (k))
+    float w[8], wr[8];                        // win[j], win_r[j]
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        w[k] = win_g[lane + 32 * k];
+        wr[k] = win_g[255 - lane - 32 * k];
+    }
+    float* re = rebuf[warp];
+    float* im = imbuf[warp];
+    float* dd = dbuf[warp];
+    const long long stride = (long long)gridDim.x * WARPS;
+    for (long long it = (long long)blockIdx.x * WARPS + warp; it < items;
+         it += stride) {
+        const long long chain = it / nseg;
+        const int seg = (int)(it - chain * nseg);
+        const long long b = chain / P;
+        const int i0 = seg * seg_len;
+        const int i1 = min(n, i0 + seg_len);
+        const int first = i0 > 0 ? i0 - 1 : 0;  // a halo row for d
+        // row of block i: (b * n + i) * P + p
+        const long long row0 = b * n * P + (chain - b * P);
+        float dp[8];                              // folded d of block i-1
+        if (i0 == 0) {
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+                dp[k] = d0[chain * 128 + FOLD(k)];
+        }
+        fetch_row(xbuf[warp][first & 1],
+                  freq + (row0 + (long long)first * P) * 256, lane);
+        // this row's flag and bias; the next row's are loaded a row ahead
+        bool sh = blksw != nullptr && blksw[row0 + (long long)first * P];
+        float bv = bias[b * n + first];
+        for (int i = first; i < i1; ++i) {
+            const long long row = row0 + (long long)i * P;
+            float* x = xbuf[warp][i & 1];
+            bool sh_next = false;
+            float bv_next = 0.0f;
+            if (i + 1 < i1) {
+                fetch_row(xbuf[warp][(i + 1) & 1], freq + (row + P) * 256,
+                          lane);
+                sh_next = blksw != nullptr && blksw[row + P];
+                bv_next = bias[b * n + i + 1];
+                cp_async_wait<1>();
+            } else {
+                cp_async_wait<0>();
+            }
+            __syncwarp();
+            if (sh)
+                short_row(x, re, im, dd, tab, order, sched, lane);
+            else
+                long_row(x, re, im, dd, tab, order, sched, lane);
+            __syncwarp();
+            if (i >= i0) {
+#pragma unroll
+                for (int k = 0; k < 8; ++k) {
+                    const int j = lane + 32 * k;
+                    const float o = add(add(mul(x[XS(j)], w[k]),
+                                            mul(dp[k], wr[k])), bv);
+                    if (I16)
+                        static_cast<short*>(pcm)[row * 256 + j] =
+                            (short)to_i16(o);
+                    else
+                        static_cast<float*>(pcm)[row * 256 + j] = o;
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < 8; ++k)
+                dp[k] = dd[DS(FOLD(k))];
+            sh = sh_next;
+            bv = bv_next;
+            __syncwarp();
+        }
+        if (i1 == n) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                dlast[chain * 128 + lane + 32 * k] = dp[k];
+        }
+    }
+#undef FOLD
 }
 
 __global__ void __launch_bounds__(WARPS * 32)
@@ -286,14 +538,16 @@ imdct_exact_kernel(const float* __restrict__ coeffs,
                    float* __restrict__ d, long long rows)
 {
     __shared__ float tab[TAB_SIZE];
-    __shared__ int order[128];
+    __shared__ int order[128], sched[SCHED_SIZE];
     __shared__ __align__(16) float xbuf[WARPS][256];
-    __shared__ float rebuf[WARPS][128], imbuf[WARPS][128];
+    __shared__ __align__(16) float rebuf[WARPS][128], imbuf[WARPS][128];
     __shared__ __align__(16) float dbuf[WARPS][128];
     for (int t = threadIdx.x; t < TAB_SIZE; t += blockDim.x)
         tab[t] = tab_g[t];
     for (int t = threadIdx.x; t < 128; t += blockDim.x)
         order[t] = order_g[t];
+    for (int t = threadIdx.x; t < SCHED_SIZE; t += blockDim.x)
+        sched[t] = SCHED[t];
     __syncthreads();
 
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -301,21 +555,28 @@ imdct_exact_kernel(const float* __restrict__ coeffs,
     if (row >= rows)
         return;
     float* x = xbuf[warp];
-    float4* x4 = reinterpret_cast<float4*>(x);
     const float4* src = reinterpret_cast<const float4*>(coeffs + row * 256);
-    x4[lane] = src[lane];
-    x4[lane + 32] = src[lane + 32];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const float4 v = src[lane + 32 * h];
+        const int w = 4 * lane + 128 * h;
+        x[XS(w)] = v.x; x[XS(w + 1)] = v.y; x[XS(w + 2)] = v.z;
+        x[XS(w + 3)] = v.w;
+    }
     __syncwarp();
     if (blksw != nullptr && blksw[row])
-        short_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, lane);
+        short_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, sched,
+                  lane);
     else
-        long_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, lane);
+        long_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, sched,
+                 lane);
     __syncwarp();
-    float4* zo = reinterpret_cast<float4*>(z + row * 256);
-    zo[lane] = x4[lane];
-    zo[lane + 32] = x4[lane + 32];
-    reinterpret_cast<float4*>(d + row * 128)[lane] =
-        reinterpret_cast<const float4*>(dbuf[warp])[lane];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+        z[row * 256 + lane + 32 * k] = x[XS(lane + 32 * k)];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+        d[row * 128 + lane + 32 * k] = dbuf[warp][DS(lane + 32 * k)];
 }
 
 }  // namespace
@@ -333,6 +594,51 @@ extern "C" int imdct_exact_launch(const void* coeffs, const void* blksw,
                          (cudaStream_t)stream>>>(
         (const float*)coeffs, (const uint8_t*)blksw, (const float*)tab,
         (const int*)order, (float*)z, (float*)d, rows);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fused_steady_exact_launch(const void* freq, const void* blksw,
+                                         const void* d0, const void* bias,
+                                         const void* tab, const void* order,
+                                         const void* win, void* pcm,
+                                         void* dlast, int B, int n, int P,
+                                         int emit_int16, void* stream)
+{
+    const long long chains = (long long)B * P;
+    if (chains <= 0 || n <= 0)
+        return 0;
+    // resident warps of the whole card: the grid holds them all at once
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    auto kernel = emit_int16 ? fused_steady_exact_kernel<true>
+                             : fused_steady_exact_kernel<false>;
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          WARPS * 32, 0);
+    if (e != cudaSuccess)
+        return (int)e;
+    const long long resident =
+        (long long)sms * (per_sm > 0 ? per_sm : 1) * WARPS;
+    // segments: about 4 a resident warp over the chunk, of at least 8 rows
+    // (the halo row costs 1/seg_len), of equal length within a chain
+    const long long rows = chains * n;
+    const long long per = B1F_ITEMS * resident;
+    long long target = (rows + per - 1) / per;
+    if (target < 8)
+        target = 8;
+    const int nseg = (int)((n + target - 1) / target);
+    const int seg_len = (n + nseg - 1) / nseg;
+    const long long items = chains * nseg;
+    const long long per_warp = (items + resident - 1) / resident;
+    const long long warps = (items + per_warp - 1) / per_warp;
+    const long long blocks = (warps + WARPS - 1) / WARPS;
+    cudaStream_t s = (cudaStream_t)stream;
+    kernel<<<(unsigned)blocks, WARPS * 32, 0, s>>>(
+        (const float*)freq, (const uint8_t*)blksw, (const float*)d0,
+        (const float*)bias, (const float*)tab, (const int*)order,
+        (const float*)win, pcm, (float*)dlast, n, P, seg_len, nseg, items);
     return (int)cudaGetLastError();
 }
 

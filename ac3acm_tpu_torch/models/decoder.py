@@ -353,6 +353,28 @@ def premix_blocks(fmt: StreamFormat, blocks) -> dict:
     return out
 
 
+def premix_blocks_device(fmt: StreamFormat, blocks) -> dict:
+    """Tensor twin of premix_blocks for the raw-H2D path: the planes
+    already live on the device after ops.unpack_device, so rematrixing and
+    the mixer sums run there as the same elementwise expressions
+    (ops.downmix, the same IEEE f32 evaluation order): planes bitwise equal
+    to the host premix.  blocks: freq [B, n, 6, 256] (+ remat for stereo);
+    -> the same dict without remat, freq [B, n, nf_out(+LFE), 256] with
+    the LFE plane last."""
+    assert fmt.nf_out < fmt.nfchans or fmt.identity_mix, \
+        "premix requires the freq (reduces) path or an identity mix"
+    planes = _remat(fmt, blocks).movedim(-2, 0)         # [6, B, n, 256]
+    zero = torch.zeros((), dtype=planes.dtype, device=planes.device)
+    mixed = downmix(planes[:5], fmt.acmod, fmt.output, zero,
+                    slev_zero=fmt.slev_zero)
+    keep = [mixed[i] for i in range(fmt.nf_out)]
+    if fmt.lfe_out:
+        keep.append(planes[5])
+    out = {k: v for k, v in blocks.items() if k != "remat"}
+    out["freq"] = torch.stack(keep, dim=-2)             # [B, n, P, 256]
+    return out
+
+
 def steady_ok(fmt: StreamFormat, blocks) -> bool:
     """Host-side eligibility check for _pipeline_steady (numpy blocks,
     arbitrary leading batch axes)."""

@@ -52,15 +52,20 @@ CARRY_ATOL = 1.0 / 32768
 launches = 0
 
 
-def steady_epilogue(zd, d0, bias):
+def steady_epilogue(zd, d0, bias, out_dtype=torch.int16):
     """The part after the product: zd [B, n, P, 384] (z ++ d), d0
-    [B, P, 128], bias [B, n] -> (pcm int16 [B, n, P, 256], dlast)."""
+    [B, P, 128], bias [B, n] -> (pcm [B, n, P, 256], dlast): the delay
+    chain and the eager OLA, then int16 (or the float32 output when
+    out_dtype is torch.float32).  Also the plain epilogue of the fused
+    order-exact tail (ops.fused_steady_exact)."""
     _, _, win, win_r = mats_on(zd.device)
     z, d = zd[..., :256], zd[..., 256:]
     dchain = torch.cat([d0[:, None], d[:, :-1]], dim=1)
     dfold = torch.cat([dchain, dchain.flip(-1)], dim=-1)
     out = z * win + dfold * win_r + bias[:, :, None, None]
-    return convert_to_int16(out), d[:, -1]
+    if out_dtype == torch.int16:
+        out = convert_to_int16(out)
+    return out, d[:, -1]
 
 
 def fused_steady_ref(freq, d0, bias):

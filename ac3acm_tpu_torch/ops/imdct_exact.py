@@ -256,9 +256,14 @@ def split_fb_exact_ref(coeffs, blksw=None):
 
 
 def _bind(lib):
-    p = C.c_void_p
+    """argtypes of csrc/imdct_exact.cu's entries: B1 and B1F (the fused
+    steady tail of ops.fused_steady_exact) share the library."""
+    p, i = C.c_void_p, C.c_int
     lib.imdct_exact_launch.restype = C.c_int
     lib.imdct_exact_launch.argtypes = [p, p, p, p, p, p, C.c_longlong, p]
+    lib.fused_steady_exact_launch.restype = C.c_int
+    lib.fused_steady_exact_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, p]
     lib.imdct_exact_error_string.restype = C.c_char_p
     lib.imdct_exact_error_string.argtypes = [C.c_int]
 

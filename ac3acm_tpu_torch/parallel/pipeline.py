@@ -4,18 +4,27 @@ N streams of a common format are a leading lane axis through the decode
 pipeline.  Per-lane carried state (OLA delay planes + downmixed flag) is
 the checkpoint/resume unit: a plain tuple of tensors (utils.state).
 
-Dispatch (``batched_pipeline``): in fast mode a steady, long-only,
-premixed chunk that is converted to int16 goes through the fused steady
-kernel (ops.fused_steady); any other steady chunk through
-``_pipeline_steady``, and a chunk that is not steady through the block
-scan ``_pipeline_body``.  In reference mode (the default) both bodies take
-the order-exact IMDCT (ops.imdct_exact).  ``BatchedDecoder`` buckets a
-mixed-format batch by format (``_decode_heterogeneous``).
+Dispatch (``batched_pipeline``): a steady premixed chunk goes through a
+fused kernel: in reference mode (the default) any such chunk, int16 or
+float, long or with short blocks, through the fused order-exact tail
+(ops.fused_steady_exact, kernel B1F); in fast mode a long-only one
+converted to int16 through the fused steady kernel (ops.fused_steady,
+K1).  Any other steady chunk goes through ``_pipeline_steady``, and a
+chunk that is not steady through the block scan ``_pipeline_body``, whose
+transforms in reference mode are the order-exact IMDCT (ops.imdct_exact,
+kernel B1).  ``BatchedDecoder`` buckets a mixed-format batch by format
+(``_decode_heterogeneous``).
 
 The raw-H2D path (``raw_batched_pipeline``, ``BatchedDecoder(parser=
 "raw")``) ships the coded frame bytes plus side info instead and unpacks,
 allocates and dequantizes on the device (ops.unpack_device, with the
-bitfield kernels of ops.bitgather) before the same decode bodies.
+bitfield kernels of ops.bitgather) before the same decode bodies; in
+reference mode a steady chunk of a premixable format is premixed on the
+device (models.decoder.premix_blocks_device) and takes B1F.
+
+The JAX package's ``mesh`` argument keeps its position in every entry
+point's signature; only ``mesh=None`` is served (multi-GPU is ROADMAP
+A12).
 """
 from __future__ import annotations
 
@@ -30,10 +39,11 @@ from ..host.native import DenseBatchParser, SideinfoBatchParser
 from ..host.parse import downmix_init, syncinfo
 from ..models.decoder import (StreamFormat, _lanes_first, _pipeline_body,
                               _pipeline_steady, default_exact, premix_blocks,
-                              steady_ok)
+                              premix_blocks_device, steady_ok)
 from ..ops.downmix import downmix
 from ..ops.filterbank import convert_to_int16
 from ..ops.fused_steady import fused_steady
+from ..ops.fused_steady_exact import fused_steady_exact
 from ..ops.unpack_device import (init_unpack_carry, prune_raw_meta,
                                  static_alloc_pts, static_cpl_fc,
                                  static_emax, static_exp_pts, unpack_blocks)
@@ -56,16 +66,36 @@ def _expand_compact(blocks):
     return out
 
 
-def _fused_run(fmt: StreamFormat):
-    """Fused body for the (steady, long_only, premixed, int16) dispatch:
-    matmul + OLA + int16 conversion in one kernel (ops.fused_steady), with
-    the same entry fixups and carry layout as _pipeline_steady.
+def _no_mesh(mesh):
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the port runs on one card; multi-GPU sharding is not "
+            "ported yet (ROADMAP A12)")
+
+
+def _fused_run(fmt: StreamFormat, exact: bool = False,
+               emit_int16: bool = True, long_only: bool = True):
+    """Fused body for a steady premixed chunk, with the same entry fixups
+    and carry layout as _pipeline_steady: exact=False the fused steady
+    kernel (ops.fused_steady: matmul + OLA + int16, long-only chunks, int16
+    out), exact=True the fused order-exact tail (ops.fused_steady_exact:
+    any blksw, int16 or float out).
 
     Serves both premixed layouts: reducing mixes (freq path) and identity-
     mix passthrough (time path, fmt.identity_mix -- e.g. stereo->stereo),
-    which differ only in the entry/exit delay fixups."""
+    which differ only in the entry/exit delay fixups and in the blksw each
+    plane takes (the freq path's planes share the first channel's, the
+    passthrough planes keep their own; LFE is always long)."""
     nfo = fmt.nf_out
     passthrough = not (nfo < fmt.nfchans)         # identity premix
+    out_dtype = torch.int16 if emit_int16 else torch.float32
+
+    def plane_blksw(blksw):                       # [B, n, 5] -> [B, n, P]
+        blk = blksw[:, :, :nfo] if passthrough else \
+            blksw[:, :, :1].expand(-1, -1, nfo)
+        if fmt.lfe_out:
+            blk = torch.cat([blk, torch.zeros_like(blk[:, :, :1])], dim=2)
+        return blk.contiguous()
 
     def run(carry, blocks):
         delay, downmixed = carry                  # [B,6,128], [B]
@@ -86,7 +116,11 @@ def _fused_run(fmt: StreamFormat):
         if fmt.lfe_out:
             parts.append(delay[:, 5:6])
         d0 = torch.cat(parts, dim=1).contiguous()
-        pcm, dlast = fused_steady(freq, d0, bias)
+        if exact:
+            blk = None if long_only else plane_blksw(blocks["blksw"])
+            pcm, dlast = fused_steady_exact(freq, blk, d0, bias, out_dtype)
+        else:
+            pcm, dlast = fused_steady(freq, d0, bias)
         if fmt.lfe_out:                           # pipeline emits LFE first
             pcm = torch.cat([pcm[:, :, nfo:], pcm[:, :, :nfo]], dim=2)
         new_delay = delay.clone()
@@ -106,7 +140,7 @@ def _fused_run(fmt: StreamFormat):
     return run
 
 
-def batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
+def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
                      steady: bool = False, long_only: bool = False,
                      premixed: bool = False, exact: bool | None = None,
                      fused: bool | None = None):
@@ -126,20 +160,27 @@ def batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
     is a fast-mode request) selects the order-exact filterbank,
     bit-identical to the reference float build.
 
-    fused=None (default) sends every eligible chunk (steady + long_only +
-    premixed + int16, fast mode) through the fused steady kernel;
-    fused=False forces the plain steady body (A/B comparisons),
-    fused=True asserts eligibility.
+    fused=None (default) sends every eligible chunk through a fused
+    kernel: in reference mode every steady premixed chunk through the
+    fused order-exact tail (B1F), in fast mode every steady + long_only +
+    premixed + int16 chunk through the fused steady kernel (K1).
+    fused=False forces the plain steady body (A/B comparisons); fused=True
+    asks for K1 and asserts its eligibility (so it implies fast mode).
+
+    mesh: the JAX package's slot, kept in its position; only None is
+    served (ROADMAP A12).
     """
+    _no_mesh(mesh)
     if exact is None:
         exact = False if fused else default_exact()
     eligible = steady and long_only and premixed and emit_int16 and not exact
-    if fused is None:
-        fused = eligible
     if fused:
         assert eligible, "the fused kernel requires steady+long_only+" \
                          "premixed+int16 in fast mode"
         return _fused_run(fmt)
+    if fused is None and (eligible or (exact and steady and premixed)):
+        return _fused_run(fmt, exact=exact, emit_int16=emit_int16,
+                          long_only=long_only)
     assert steady or not premixed, "the block scan takes full planes"
 
     def run(carry, blocks):
@@ -157,11 +198,11 @@ def batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
     return run
 
 
-def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
-                         steady: bool = False, long_only: bool = False,
-                         cpl_fc: int = -1, exp_pts: int = 6,
-                         alloc_pts: int = 6, emax: int = 256,
-                         exact: bool | None = None):
+def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
+                         emit_int16: bool = False, steady: bool = False,
+                         long_only: bool = False, cpl_fc: int = -1,
+                         exp_pts: int = 6, alloc_pts: int = 6,
+                         emax: int = 256, exact: bool | None = None):
     """Raw-H2D decode: fn (carry, frames_u8, meta, bias) -> (carry, pcm).
 
     The host ships raw AC-3 frame bytes [B, F, MB] plus per-block side
@@ -173,9 +214,20 @@ def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
 
     cpl_fc / exp_pts / alloc_pts / emax select the unpack's RowPlan (see
     ops.unpack_device); exact (default: the package ACCURACY policy)
-    selects the order-exact filterbank."""
+    selects the order-exact filterbank.
+
+    In reference mode a steady chunk of a premixable format (a reducing or
+    an identity mix) is premixed on the device (premix_blocks_device) and
+    decoded by the fused order-exact tail (B1F), as the JAX package's raw
+    pallas=True body does with its fused kernel.  Fast mode keeps the
+    plain steady body.  mesh: as for batched_pipeline."""
+    _no_mesh(mesh)
     if exact is None:
         exact = default_exact()
+    tail = None
+    if exact and steady and (fmt.nf_out < fmt.nfchans or fmt.identity_mix):
+        tail = _fused_run(fmt, exact=True, emit_int16=emit_int16,
+                          long_only=long_only)
 
     def run(carry, frames_u8, meta, bias, clock=None):
         ucarry, dcarry = carry
@@ -186,13 +238,18 @@ def raw_batched_pipeline(fmt: StreamFormat, emit_int16: bool = False,
         if clock is not None:
             clock.mark("device unpack")
             clock.kept["blocks"] = blocks
-        if steady:
-            dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
-                                           long_only=long_only, exact=exact)
+        if tail is not None:
+            dcarry, pcm = tail(dcarry, premix_blocks_device(fmt, blocks))
         else:
-            dcarry, pcm = _pipeline_body(fmt, dcarry, blocks, exact=exact)
-        if emit_int16:
-            pcm = convert_to_int16(pcm)
+            if steady:
+                dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
+                                               long_only=long_only,
+                                               exact=exact)
+            else:
+                dcarry, pcm = _pipeline_body(fmt, dcarry, blocks,
+                                             exact=exact)
+            if emit_int16:
+                pcm = convert_to_int16(pcm)
         if clock is not None:
             clock.mark(("steady tail" if steady else "block scan")
                        + " + int16")
@@ -270,14 +327,21 @@ class BatchedDecoder:
     instead of failing the batch (a52dec.c:271-306).
 
     device: None -> the CUDA card (raises without one); "cpu" runs the
-    plain PyTorch versions of every kernel.  fused: see batched_pipeline.
+    plain PyTorch versions of every kernel.  fused: see batched_pipeline
+    (parser="native" only).
+
+    The positional order is the JAX package's, mesh included (only None is
+    served, ROADMAP A12).  The default parser is "native", where the JAX
+    package's is "python": the two parsers emit the same planes, and the
+    Python parser is not ported yet (ROADMAP A3).
     """
 
     def __init__(self, batch: int, flags: int, level: float = 1.0,
-                 bias: float = 0.0, emit_int16: bool = False,
+                 bias: float = 0.0, mesh=None, emit_int16: bool = False,
                  parser: str = "native", nthreads=None,
                  compact_h2d: bool = False, device=None,
                  fused: bool | None = None):
+        _no_mesh(mesh)
         if parser not in ("native", "raw"):
             raise NotImplementedError(
                 f"parser={parser!r} needs the Python A52Parser, which is not "
@@ -433,7 +497,7 @@ class BatchedDecoder:
         # smaller lattice and no coupling/dither stages, and the dropped
         # arrays never cross the host link
         meta = prune_raw_meta(meta)
-        fn = raw_batched_pipeline(fmt, self.emit_int16,
+        fn = raw_batched_pipeline(fmt, emit_int16=self.emit_int16,
                                   **self._raw_plan(fmt, meta))
         L, nf = fu8.shape[:2]
         bias = np.full((L, T.NB_BLOCKS * nf), self.bias, np.float32)
@@ -535,16 +599,17 @@ class BatchedDecoder:
                 host = {"freq": freq_pre}
             host.update(blksw=blksw, bias=bias)
             lo = not blksw.any()
-            fn = batched_pipeline(fmt, self.emit_int16, steady=True,
-                                  long_only=lo, premixed=True,
+            fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                                  steady=True, long_only=lo, premixed=True,
                                   fused=self.fused)
         else:
             host = {"freq": freq_full, "blksw": blksw, "coeff": coeff,
                     "remat": np.asarray(remat).astype(bool), "bias": bias}
             steady = steady_ok(fmt, host)
             lo = steady and not blksw.any()
-            fn = batched_pipeline(fmt, self.emit_int16, steady=steady,
-                                  long_only=lo, fused=self.fused)
+            fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                                  steady=steady, long_only=lo,
+                                  fused=self.fused)
         blocks = {k: self._to_device(v) for k, v in host.items()}
         self._fmt = fmt
         self._carry, pcm = fn(self._carry, blocks)
@@ -737,18 +802,18 @@ class BatchedDecoder:
                           for k in rows[0]}
                 lo = not blocks["blksw"].any()
                 if premixed:
-                    fn = batched_pipeline(fmt, self.emit_int16, steady=True,
-                                          long_only=lo, premixed=True,
-                                          fused=self.fused)
+                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                                          steady=True, long_only=lo,
+                                          premixed=True, fused=self.fused)
                 elif steady_ok(fmt, blocks):
                     pre = fmt.nf_out < fmt.nfchans or fmt.identity_mix
                     if pre:
                         blocks = premix_blocks(fmt, blocks)
-                    fn = batched_pipeline(fmt, self.emit_int16, steady=True,
-                                          long_only=lo, premixed=pre,
-                                          fused=self.fused)
+                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                                          steady=True, long_only=lo,
+                                          premixed=pre, fused=self.fused)
                 else:
-                    fn = batched_pipeline(fmt, self.emit_int16,
+                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
                                           fused=self.fused)
                 idx = torch.tensor(sel, device=self.device)
                 dg, mg = d_all[idx], m_all[idx]

@@ -8,8 +8,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
   1. card      nvidia-smi name and power limit, torch / CUDA versions
   2. build     the native host library (g++) and every CUDA kernel (nvcc),
                started together, each build timed; no kernel spills, and
-               the order-exact IMDCT kernel's SASS (cuobjdump) holds no
-               FFMA (every product rounds on its own)
+               the SASS (cuobjdump) of the order-exact kernels B1 and B1F
+               holds no FFMA (every product rounds on its own)
   3. check     the fused steady kernel (K1) against its plain PyTorch
                version on the card: at the bench shape (4096 lanes x 64
                frames of the golden 5.1 stream, premixed to 2 planes);
@@ -26,14 +26,21 @@ Phases, each fatal on failure (nothing is caught and passed over):
                version BY VALUE on long, short and mixed rows, ragged row
                counts, rows with +-0, subnormals and near-full-scale
                values, and the main path's first chunk of real premixed
-               planes (786,432 rows)
+               planes (786,432 rows).  The fused order-exact steady tail
+               (B1F) equal to its plain version (int16 bitwise, f32 and
+               the carry-out by value) on that chunk, long and with 30%
+               short rows, and on ragged shapes (B 1/3/257 x n 1/2/7/97 x
+               P 1/2/3, edge-case and clipping rows, LFE long, bias 0 /
+               384 / varying), each case launched twice, bitwise equal
   4. times     kernel, plain version and library call at the bench shape
                (CUDA events, median after warm-up) beside the function's
                bound (bytes, or one pass of tensor operations) and, labelled
                apart, the design bounds (three TF32 or bf16 passes, the
                FP32 pipes); B1 at the main path's chunk beside its byte
                bound, its plain version and the fast mode's matmul of the
-               same rows (not the same function bitwise)
+               same rows (not the same function bitwise); B1F there (int16,
+               f32, 30% short) beside B1 + the eager epilogue it replaces,
+               the eager epilogue alone, its plain version and its bound
   5. main path BatchedDecoder(parser="native") in fast mode on 4096 lanes
                of distinct golden byte streams, f32 and compact H2D: the
                kernel's launch count must rise on every chunk, the PCM must
@@ -58,18 +65,21 @@ Phases, each fatal on failure (nothing is caught and passed over):
                every chunk, lane 0 within 1 LSB of its oracle; peak memory;
                one step broken into stages
   9. reference the package default ACCURACY="reference" (no set_accuracy
-               call) on the main path: B1 launches on every chunk and the
-               fused kernel never; every lane within 1 LSB of the fast
+               call) on the main path: B1F launches on every chunk, B1 and
+               K1 never; every lane within 1 LSB of the fast
                mode's PCM; 256 lanes of float output at bias 0 whose lanes
                start at frame 0 equal the reference decoder's output at
-               max |diff| 0.0; x-realtime beside the fast path's
- 10. ref raw   the same lanes through parser="raw": int16 PCM equal to the
-               reference native path's; peak memory; stages (StageClock)
+               max |diff| 0.0 (through B1F's float form); x-realtime
+               beside the fast path's
+ 10. ref raw   the same lanes through parser="raw" (device premix, B1F on
+               every chunk, B1 never): int16 PCM equal to the reference
+               native path's; peak memory; stages (StageClock)
  11. general   4096 lanes of the coupling/short-block stream whose every
                chunk needs the block scan, in chunks of 4 frames, through
                both parsers in reference mode and the native one in fast
                mode: the scan runs on every chunk and the steady body
-               never; lane 0 equals its golden at 0.0; raw equals native;
+               never, B1 on every reference chunk and B1F never; lane 0
+               equals its golden at 0.0; raw equals native;
                fast within 1 LSB of reference
  12. mixed     4096 lanes cycling 5.1 / 2.0 / 1.0 streams, some switching
                5.1 -> 2.0 mid-stream, in reference mode: every lane equals
@@ -208,18 +218,31 @@ def phase_build():
         spills = [int(x) for ln in info.splitlines() if "spill" in ln
                   for x in re.findall(r"(\d+) bytes spill", ln)]
         assert spills and not any(spills), f"{name}: register spills"
-    # B1 is exact only if no product was contracted into an add
+    # B1 and B1F are exact only if no product was contracted into an add
     cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", _cuda.build("imdct_exact")],
                           check=True, capture_output=True, text=True).stdout
-    funcs = [f for f in sass.split("Function : ")[1:]
-             if "imdct_exact" in f.split("\n", 1)[0]]
-    assert funcs, "no imdct_exact function in the SASS"
-    ops = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
-           for op in ("FFMA", "FMUL", "FADD")}
-    log(f"sass imdct_exact ({len(funcs)} function(s)): " + ", ".join(
-        f"{op} {n}" for op, n in ops.items()))
-    assert ops["FFMA"] == 0 and ops["FMUL"] > 0, ops
+    for kernel in ("imdct_exact_kernel", "fused_steady_exact_kernel"):
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if kernel in f.split("\n", 1)[0]]
+        assert funcs, f"no {kernel} function in the SASS"
+        ops = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
+               for op in ("FFMA", "FMUL", "FADD")}
+        # the static instruction mix of the first function, by class
+        ins = [i.split(".")[0] for i in re.findall(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+            funcs[0])]
+        mix = {c: sum(i in names for i in ins) for c, names in (
+            ("float", ("FADD", "FMUL", "FMNMX", "FRND", "F2I")),
+            ("integer", ("IMAD", "LOP3", "LEA", "IADD3", "SHF", "VIADD",
+                         "ISETP", "SEL", "MOV")),
+            ("shared", ("LDS", "STS", "LDGSTS")),
+            ("global", ("LDG", "STG")))}
+        log(f"sass {kernel} ({len(funcs)} function(s)): " + ", ".join(
+            f"{op} {n}" for op, n in ops.items()) + f"; static mix of one: "
+            f"{len(ins)} instructions, " + ", ".join(
+                f"{c} {n}" for c, n in mix.items()))
+        assert ops["FFMA"] == 0 and ops["FMUL"] > 0, (kernel, ops)
 
 
 def golden_planes(dev):
@@ -543,6 +566,156 @@ def phase_times_b1(freq):
         f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s); 30% short rows "
         f"{ms_mixed:.3f} ms; {per_call:g} launch per call")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def b1f_case(rng, B, n, P, dev, short=0.0, scale=0.05):
+    """Inputs of B1F: rows of b1_rows (+-0, subnormals, near-full-scale),
+    every third block loud enough to clip at both int16 ends, blksw short
+    with probability `short` per row (LFE, the last of 3 planes, long), a
+    non-zero d0."""
+    freq = b1_rows(rng, B * n * P).reshape(B, n, P, 256) * np.float32(
+        scale / 0.05)
+    freq[:, 1::3] *= np.float32(40.0)
+    blk = rng.random((B, n, P)) < short
+    if P == 3:
+        blk[:, :, 2] = False
+    d0 = (rng.standard_normal((B, P, 128)) * 0.05).astype(np.float32)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return to(freq), (to(blk) if short else None), to(d0)
+
+
+def phase_check_b1f(dev, bench_inputs, freq):
+    """B1F against its plain version on the card: int16 PCM bitwise, f32 PCM
+    and dlast by value (torch.equal).  The main path's first chunk (real
+    premixed planes), all long and with 30% short (lane, block) flags
+    uniform across its planes; ragged shapes B in {1, 3, 257} x n in {1, 2,
+    7, 97} x P in {1, 2, 3} with the edge-case rows of b1_rows, rows that
+    clip, a non-zero d0, short rows and LFE long; bias 0, 384 and one that
+    varies per block; each case launched twice, bitwise equal.
+    -> (max |kernel - plain| over the cases, the chunk's inputs)."""
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
+    rng = np.random.default_rng(17)
+    cases, worst = 0, 0.0
+
+    def same(freq, blk, d0, bias, what):
+        nonlocal cases, worst
+        for dtype in (torch.int16, torch.float32):
+            pcm, dl = FE.fused_steady_exact(freq, blk, d0, bias, dtype)
+            pcm2, dl2 = FE.fused_steady_exact(freq, blk, d0, bias, dtype)
+            pr, dr = FE.fused_steady_exact_ref(freq, blk, d0, bias, dtype)
+            torch.cuda.synchronize()
+            err = max(float((pcm.float() - pr.float()).abs().max()),
+                      float((dl - dr).abs().max()))
+            worst = max(worst, err)
+            assert torch.equal(pcm, pr) and torch.equal(dl, dr), \
+                (what, dtype, err)
+            assert torch.equal(pcm.view(torch.int16 if dtype == torch.int16
+                                        else torch.int32),
+                               pcm2.view(torch.int16 if dtype == torch.int16
+                                         else torch.int32)) \
+                and torch.equal(dl.view(torch.int32), dl2.view(torch.int32)), \
+                (what, dtype, "two launches differ")
+            del pcm, pr, pcm2
+            cases += 1
+
+    B, n = freq.shape[:2]
+    d0 = bench_inputs[1]
+    bias = bench_inputs[2][:, :n].contiguous()
+    vary = (384.0 + (torch.rand((B, n), device=dev) - 0.5) * 0.02)
+    same(freq, None, d0, bias, "main-path chunk, long")
+    blk = (torch.rand((B, n, 1), device=dev) < 0.3).expand(
+        -1, -1, freq.shape[2]).contiguous()
+    same(freq, blk, d0, vary, "main-path chunk, 30% short, varying bias")
+    torch.cuda.empty_cache()
+    for Bs in (1, 3, 257):
+        for n_ in (1, 2, 7, 97):
+            for P in (1, 2, 3):
+                f, b, d = b1f_case(rng, Bs, n_, P, dev,
+                                   short=0.3 if (Bs + n_ + P) % 2 else 0.0)
+                for bias_kind in ("0", "384", "varying"):
+                    bv = {"0": torch.zeros((Bs, n_), device=dev),
+                          "384": torch.full((Bs, n_), 384.0, device=dev),
+                          "varying": 384.0 + torch.from_numpy(
+                              rng.standard_normal((Bs, n_)).astype(
+                                  np.float32)).to(dev)}[bias_kind]
+                    same(f, b, d, bv, (Bs, n_, P, bias_kind))
+    log(f"check fused_steady_exact: {cases} cases (the main path's first "
+        f"chunk {tuple(freq.shape)}, long and 30% short; B 1/3/257 x n "
+        f"1/2/7/97 x P 1/2/3 with +-0, subnormals, clipping rows, short "
+        f"rows, LFE long; bias 0/384/varying; int16 and f32) equal to the "
+        f"plain version, PCM and dlast, max |diff| {worst}; every case "
+        f"launched twice, bitwise equal")
+    return worst, (freq, d0, bias)
+
+
+def phase_times_b1f(inputs, b1_times):
+    """B1F at the main path's chunk beside B1 + the eager epilogue it
+    replaces, the eager epilogue alone, its plain version and the fast
+    mode's matmul of the same rows, and its byte bound."""
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops.filterbank import convert_to_int16, mats_on
+    freq, d0, bias = inputs
+    B, n, P, _ = freq.shape
+    R, chains = B * n * P, B * P
+    dev = freq.device
+    _, _, win, win_r = mats_on(dev)
+    blk = (torch.rand((B, n, 1), device=dev) < 0.3).expand(-1, -1, P) \
+        .contiguous()
+
+    def eager(z, d):
+        # the steady body's chain, OLA and int16, as _pipeline_steady runs
+        # them after B1
+        dchain = torch.cat([d0[:, None], d[:, :-1]], dim=1)
+        dfold = torch.cat([dchain, dchain.flip(-1)], dim=-1)
+        return convert_to_int16(z * win + dfold * win_r
+                                + bias[:, :, None, None]), d[:, -1]
+
+    before = FE.launches
+    ms = cuda_ms(lambda: FE.fused_steady_exact(freq, None, d0, bias))
+    per_call = (FE.launches - before) / 9
+    ms_f32 = cuda_ms(lambda: FE.fused_steady_exact(freq, None, d0, bias,
+                                                   torch.float32))
+    ms_short = cuda_ms(lambda: FE.fused_steady_exact(freq, blk, d0, bias))
+    ms_b1 = cuda_ms(lambda: IE.split_fb_exact(freq))
+    z, d = IE.split_fb_exact(freq)
+    ms_eager = cuda_ms(lambda: eager(z, d))
+    del z, d
+    ms_b1_eager = cuda_ms(lambda: eager(*IE.split_fb_exact(freq)))
+    plain_ms = cuda_ms(lambda: FE.fused_steady_exact_ref(freq, None, d0,
+                                                         bias),
+                       warmup=1, reps=3)
+    # least work of the function: each coefficient read once, the PCM
+    # written once, d0 read and dlast written once a chain, the bias once;
+    # the transform's FP32 operations and 9 a sample for the OLA and int16
+    def bytes_of(out_bytes):
+        return R * 256 * (4 + out_bytes) + chains * 128 * 4 * 2 + B * n * 4
+
+    nbytes, nbytes_f32 = bytes_of(2), bytes_of(4)
+    flop = R * (B1_LONG_ROW_FLOP + 9 * 256)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flop / PEAK_FP32 * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    t_f32 = max(nbytes_f32 / PEAK_BYTES * 1e3, t_ops)
+    log(f"time fused_steady_exact [{B}x{n}x{P} = {R} long rows, {chains} "
+        f"chains]: kernel_ms int16 {ms:.3f} | f32 {ms_f32:.3f} | int16 with "
+        f"30% short rows {ms_short:.3f}; B1 alone {ms_b1:.3f} (the B1 timing "
+        f"phase: {b1_times['ms']:.3f}); the eager epilogue alone (chain, "
+        f"OLA, int16 after B1) {ms_eager:.3f}; B1 + eager epilogue "
+        f"{ms_b1_eager:.3f}; plain_ms {plain_ms:.3f}; library_ms "
+        f"(torch.matmul of the same rows, the fast mode's product: NOT the "
+        f"same function bitwise) {b1_times['library_ms']:.3f}; bounds: bytes "
+        f"{R} x 256 x (4 + 2) + {chains} x 1024 + {B * n} x 4 = {nbytes} B / "
+        f"3.35e12 B/s = {t_bytes:.3f} ms | FP32 operations {flop:.4e} / "
+        f"67e12 FLOP/s = {t_ops:.3f} ms; bound_ms {bound_ms:.3f} -> "
+        f"{bound_by} ({bound_ms / ms:.0%} of the kernel's time, "
+        f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s); f32 bound {t_f32:.3f} ms "
+        f"({nbytes_f32} B; {t_f32 / ms_f32:.0%}); B1F / (B1 + eager) "
+        f"{ms / ms_b1_eager:.3f}; {per_call:g} launch per call")
+    assert ms < ms_b1_eager, "B1F is not faster than B1 + eager epilogue"
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=b1_times["library_ms"],
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1041,9 +1214,10 @@ def max_lsb(a, b):
 
 def phase_ref_main(fast_plain, fast_rt):
     """The native main path with the package default ACCURACY="reference";
-    -> (B1 launches over its run, its int16 chunks of the f32 run)."""
+    -> (B1F launches over its run, its int16 chunks of the f32 run)."""
     from ac3acm_tpu_torch.models import decoder as PD
     from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
     assert PD.ACCURACY == "reference" and PD.default_exact()
@@ -1051,13 +1225,15 @@ def phase_ref_main(fast_plain, fast_rt):
     blocks = MAIN_BATCH * CHUNK_FRAMES * NCHUNKS * 6
     launches, ref_f32 = 0, None
     for compact in (False, True):
-        FS.launches = IE.launches = 0         # the reference path's own run
+        # the reference path's own run
+        FS.launches = IE.launches = FE.launches = 0
         chunks, counts, dt = decode(streams, compact, fused=None,
-                                    counter=lambda: IE.launches)
+                                    counter=lambda: FE.launches)
         assert FS.launches == 0, "the fused kernel ran in reference mode"
+        assert IE.launches == 0, "B1 ran on a steady premixed chunk"
         assert all(c >= 1 for c in counts), \
-            f"B1 skipped a chunk: launches per chunk {counts}"
-        launches += IE.launches
+            f"B1F skipped a chunk: launches per chunk {counts}"
+        launches += FE.launches
         err = max(max_lsb(a, b) for a, b in zip(chunks, fast_plain))
         assert err <= 1, f"reference vs fast mode: {err} LSB"
         # the compact wire quantizes the planes to 16-bit block-float
@@ -1068,8 +1244,8 @@ def phase_ref_main(fast_plain, fast_rt):
             ref_f32 = chunks
         rt = blocks * 256 / 48000.0 / dt
         log(f"reference main path compact_h2d={compact}: {MAIN_BATCH} lanes "
-            f"x {NCHUNKS} chunks x {CHUNK_FRAMES} frames; B1 launches per "
-            f"chunk {counts}, fused kernel 0; vs fast-mode PCM max {err} "
+            f"x {NCHUNKS} chunks x {CHUNK_FRAMES} frames; B1F launches per "
+            f"chunk {counts}, B1 0, K1 0; vs fast-mode PCM max {err} "
             f"LSB{vs_f32}; {dt:.3f} s -> {rt:.0f}x realtime (fast mode "
             f"{fast_rt[compact]:.0f}x in this run)")
     # float output at bias 0: every lane that starts at frame 0 against the
@@ -1078,21 +1254,25 @@ def phase_ref_main(fast_plain, fast_rt):
     dec = BatchedDecoder(256, FLAGS_51_TO_20, bias=0.0)
     for i, s in enumerate(lane_streams(256, 8)):
         dec.feed(i, s)
+    before = FE.launches, IE.launches
     pcm, valid = dec.decode_available(max_frames=8)
-    assert valid.all()
+    assert valid.all() and pcm.dtype == torch.float32
+    assert (FE.launches - before[0], IE.launches - before[1]) == (1, 0), \
+        "the float run did not go through B1F alone"
     lanes = pcm[::8].reshape(32, 48, 512).cpu().numpy()       # frame-0 lanes
     oerr = float(np.abs(lanes.astype(np.float64) - oracle).max())
     log(f"reference main path, 256 lanes x 8 frames, float at bias 0: the "
         f"32 lanes that start at frame 0 vs the reference decoder's output "
-        f"max |diff| {oerr}")
+        f"max |diff| {oerr} (one B1F launch, f32 out)")
     assert oerr == 0.0
     return launches, ref_f32
 
 
 def phase_ref_raw(ref_native):
     """parser="raw" on the main path's lanes in reference mode: int16 PCM
-    equal to the reference native path's; -> B1 launches over its run."""
+    equal to the reference native path's; -> B1F launches over its run."""
     from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.parallel.pipeline import StageClock
     assert PD.ACCURACY == "reference"
@@ -1101,25 +1281,27 @@ def phase_ref_raw(ref_native):
     dec = raw_decoder(streams)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    IE.launches = 0                           # the raw reference run's own
+    IE.launches = FE.launches = 0             # the raw reference run's own
     chunks, counts = [], []
     t0 = time.perf_counter()
     for _ in range(NCHUNKS):
-        before = IE.launches
+        before = FE.launches
         pcm, valid = dec.decode_available(max_frames=RAW_CHUNK_FRAMES)
         assert valid.all()
-        counts.append(IE.launches - before)
+        counts.append(FE.launches - before)
         chunks.append(pcm)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = IE.launches
-    assert all(c >= 1 for c in counts), f"B1 skipped a chunk: {counts}"
+    launches = FE.launches
+    assert all(c >= 1 for c in counts), f"B1F skipped a chunk: {counts}"
+    assert IE.launches == 0, "B1 ran on a steady raw chunk"
     err = max(max_lsb(a, b) for a, b in zip(chunks, ref_native))
     del chunks, dec
     rt = MAIN_BATCH * nframes * 1536 / 48000.0 / dt
     log(f"reference raw path: {MAIN_BATCH} lanes x {NCHUNKS} chunks x "
-        f"{RAW_CHUNK_FRAMES} frames; B1 launches per chunk {counts}; PCM vs "
+        f"{RAW_CHUNK_FRAMES} frames; B1F launches per chunk {counts}, B1 0; "
+        f"PCM vs "
         f"the reference native path max {err} LSB; {dt:.3f} s -> {rt:.0f}x "
         f"realtime; peak device memory {peak / 1e9:.2f} GB")
     assert err == 0, f"raw vs native reference PCM: {err} LSB"
@@ -1158,14 +1340,18 @@ def count_bodies():
 
 def phase_general():
     """The coupling/short-block stream, every chunk through the block
-    scan: both parsers in reference mode, the native one in fast mode."""
+    scan: both parsers in reference mode, the native one in fast mode;
+    -> B1's launches over the reference runs (B1 on every chunk, B1F on
+    none)."""
     from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
     assert PD.ACCURACY == "reference"
     streams = lane_streams(GEN_BATCH, GEN_CHUNK_FRAMES * GEN_NCHUNKS,
                            SPEC_GOLDEN, rotate=False)
-    outs = {}
+    outs, b1_launches = {}, 0
+    IE.launches = FE.launches = 0             # the block scan's own runs
     for mode, parser in (("reference", "native"), ("reference", "raw"),
                          ("fast", "native")):
         with accuracy(mode), count_bodies() as runs:
@@ -1174,25 +1360,32 @@ def phase_general():
             for i, s in enumerate(streams):
                 dec.feed(i, s)
             torch.cuda.synchronize()
-            before, chunks = IE.launches, []
+            chunks, b1 = [], []
             t0 = time.perf_counter()
             for _ in range(GEN_NCHUNKS):
+                before = IE.launches
                 pcm, valid = dec.decode_available(max_frames=GEN_CHUNK_FRAMES)
                 assert valid.all()
+                b1.append(IE.launches - before)
                 chunks.append(pcm)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            b1 = IE.launches - before
             del dec
         outs[mode, parser] = torch.cat(chunks, dim=1)
         del chunks
         assert runs == {"scan": GEN_NCHUNKS, "steady": 0}, runs
-        assert (b1 >= GEN_NCHUNKS) == (mode == "reference"), b1
+        if mode == "reference":
+            assert all(c >= 1 for c in b1), f"B1 skipped a chunk: {b1}"
+            b1_launches += sum(b1)
+        else:
+            assert sum(b1) == 0, b1
+        assert FE.launches == 0, "B1F ran on a block-scan chunk"
         rt = GEN_BATCH * GEN_NCHUNKS * GEN_CHUNK_FRAMES * 1536 / 48000.0 / dt
         log(f"general decode {mode} parser={parser}: {GEN_BATCH} lanes x "
             f"{GEN_NCHUNKS} chunks x {GEN_CHUNK_FRAMES} frames of "
             f"spec_cpl51_hazard; block-scan runs {runs['scan']}, steady "
-            f"runs {runs['steady']}, B1 launches {b1}; {dt:.3f} s -> "
+            f"runs {runs['steady']}, B1 launches per chunk {b1}, B1F 0; "
+            f"{dt:.3f} s -> "
             f"{rt:.0f}x realtime")
     ref = outs["reference", "native"]
     oracle = np.load(SPEC_GOLDEN + ".stereo_float.npy")       # 4 frames
@@ -1204,12 +1397,14 @@ def phase_general():
         f"|diff| {oerr}; raw == native {raw_same}; fast vs reference max "
         f"{fast_err:.4f} LSB")
     assert oerr == 0.0 and raw_same and fast_err <= 1.0
+    return b1_launches
 
 
 def phase_mixed():
     """Lanes of three formats, some switching mid-stream, in reference
     mode: every lane equals its stream decoded in a homogeneous batch."""
     from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
     assert PD.ACCURACY == "reference"
@@ -1237,13 +1432,15 @@ def phase_mixed():
         return torch.cat(chunks, dim=1)
 
     torch.cuda.synchronize()
-    before = IE.launches
+    before = IE.launches, FE.launches
     t0 = time.perf_counter()
     mixed = run([kinds[k] for k in kind])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    b1 = IE.launches - before
-    assert b1 >= MIX_NCHUNKS
+    b1, b1f = IE.launches - before[0], FE.launches - before[1]
+    # 5.1 -> 2.0 and 2.0 buckets are premixed (B1F); mono -> 2.0 is an
+    # upmix, whose steady body runs B1
+    assert b1 >= MIX_NCHUNKS and b1f >= MIX_NCHUNKS, (b1, b1f)
     same = []
     for k, feed in enumerate(kinds):
         want = run([feed] * 8)[0]
@@ -1253,7 +1450,8 @@ def phase_mixed():
     log(f"mixed formats: {MIX_BATCH} lanes (5.1 / 2.0 / 1.0 cycling, "
         f"{int((kind == 3).sum())} lanes switching 5.1 -> 2.0 at frame 3) x "
         f"{MIX_NCHUNKS} chunks x {MIX_CHUNK_FRAMES} frames, reference mode; "
-        f"B1 launches {b1}; each kind equal to its homogeneous batch "
+        f"B1 launches {b1}, B1F {b1f}; each kind equal to its homogeneous "
+        f"batch "
         f"{same}; {dt:.3f} s -> {rt:.0f}x realtime")
     assert all(same)
 
@@ -1268,9 +1466,11 @@ def main():
     phase_check_gather_edges(dev)
     phase_check_field_edges(dev)
     b1_freq, b1_err = phase_check_b1(dev, bench_inputs)
+    b1f_err, b1f_inputs = phase_check_b1f(dev, bench_inputs, b1_freq)
     times = phase_times(bench_inputs)
     b1_times = phase_times_b1(b1_freq)
-    del bench_inputs, b1_freq
+    b1f_times = phase_times_b1f(b1f_inputs, b1_times)
+    del bench_inputs, b1_freq, b1f_inputs
     torch.cuda.empty_cache()
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
@@ -1281,13 +1481,13 @@ def main():
         torch.cuda.empty_cache()
         raw_launches["extract_fields_shared"] = phase_raw_coupling()
     torch.cuda.empty_cache()
-    b1_launches, ref_native = phase_ref_main(native_plain, fast_rt)
+    b1f_launches, ref_native = phase_ref_main(native_plain, fast_rt)
     del native_plain
     torch.cuda.empty_cache()
     phase_ref_raw(ref_native)
     del ref_native
     torch.cuda.empty_cache()
-    phase_general()
+    b1_launches = phase_general()
     torch.cuda.empty_cache()
     phase_mixed()
     kernels = [dict(
@@ -1306,6 +1506,12 @@ def main():
         source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
         replaces="ac3acm_tpu/ops/imdct_exact.py:437,466 (XLA; no pallas_call)",
         launches=b1_launches, max_abs_err=b1_err, **b1_times))
+    kernels.append(dict(
+        name="fused_steady_exact (B1F)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
+        replaces="ac3acm_tpu/ops/imdct_exact.py:437,466 + the steady OLA "
+                 "and int16 (XLA; no pallas_call)",
+        launches=b1f_launches, max_abs_err=b1f_err, **b1f_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,3 +196,37 @@ def test_parse_threads_do_not_race():
     for p in procs:
         _, err = p.communicate(timeout=120)
         assert p.returncode == 0, err.decode()[-2000:]
+
+
+def test_positional_order_keeps_the_mesh_slot():
+    """The JAX package's positional order (batch, flags, level, bias, mesh,
+    emit_int16, ...) binds mesh to mesh: the positional call decodes the
+    same int16 PCM as the keyword call, and a mesh other than None raises
+    in every entry point (multi-GPU is not ported)."""
+    from ac3acm_tpu_torch.parallel.pipeline import (batched_pipeline,
+                                                    raw_batched_pipeline)
+    es = _es()[:4 * FRAME]
+    outs = []
+    for make in (lambda: BatchedDecoder(2, FLAGS, 1.0, 384.0, None, True,
+                                        device="cpu"),
+                 lambda: BatchedDecoder(2, FLAGS, level=1.0, bias=384.0,
+                                        mesh=None, emit_int16=True,
+                                        device="cpu")):
+        dec = make()
+        for i in range(2):
+            dec.feed(i, es)
+        pcm, valid = dec.decode_available(max_frames=4)
+        assert valid.all() and pcm.dtype == torch.int16
+        outs.append(pcm)
+    assert torch.equal(outs[0], outs[1])
+    fmt = PD.StreamFormat(JT.A52_3F2R, JT.A52_STEREO, False, 0)
+    for call in (lambda: BatchedDecoder(2, FLAGS, mesh=object(),
+                                        device="cpu"),
+                 lambda: BatchedDecoder(2, FLAGS, 1.0, 0.0, object(),
+                                        device="cpu"),
+                 lambda: batched_pipeline(fmt, object()),
+                 lambda: batched_pipeline(fmt, mesh=object()),
+                 lambda: raw_batched_pipeline(fmt, object()),
+                 lambda: raw_batched_pipeline(fmt, mesh=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            call()

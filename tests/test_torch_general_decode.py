@@ -24,6 +24,7 @@ import torch
 import ac3acm_tpu.tables as JT
 from ac3acm_tpu.models import decoder as JD
 from ac3acm_tpu_torch.models import decoder as PD
+from ac3acm_tpu_torch.ops import fused_steady_exact as FE
 from ac3acm_tpu_torch.ops import imdct_exact as PE
 from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
 from tests.test_torch_imdct_exact import (  # noqa: F401  (fixtures)
@@ -118,20 +119,24 @@ def _golden(name):
     return np.load(os.path.join(GOLDEN, name + ".stereo_float.npy"))
 
 
+GOLDENS = sorted(f for f in os.listdir(GOLDEN) if f.endswith(".ac3"))
+
+
 @pytest.mark.parametrize("name,parser", [
-    ("bench_51_448.ac3", "native"), ("blksw20_hazard.ac3", "native"),
-    ("mono_96.ac3", "native"), ("spec_cpl51_hazard.ac3", "native"),
-    ("spec_cpl51_hazard.ac3", "raw")])
+    (name, parser) for name in GOLDENS for parser in ("native", "raw")])
 def test_reference_decode_equals_golden(name, parser):
-    """Two lanes of the stream from frame 0, chunks of 3 frames (the
-    carries cross chunk boundaries), no set_accuracy call: both lanes
-    equal the reference decoder's output at max |diff| 0.0, and the
-    order-exact kernel's plain version did the transforms."""
+    """Every committed golden through both parsers: two lanes of the
+    stream from frame 0, chunks of 3 frames (the carries cross chunk
+    boundaries), no set_accuracy call: both lanes equal the reference
+    decoder's output at max |diff| 0.0, and the order-exact kernels' plain
+    versions did the transforms (the fused order-exact tail's on steady
+    chunks, the split's in the block scan)."""
     assert PD.ACCURACY == "reference"
-    before = PE.launches
+    before = PE.launches, FE.launches
     es = _frames(name)
     pcm = _decode([es, es], parser)
-    assert PE.launches == before, "CPU tensors must not launch the kernel"
+    assert (PE.launches, FE.launches) == before, \
+        "CPU tensors must not launch the kernels"
     want = _golden(name)
     assert pcm.shape[1] == len(want)
     for lane in pcm:

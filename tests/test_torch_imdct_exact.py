@@ -19,6 +19,7 @@ import torch
 
 from ac3acm_tpu.models import decoder as JD
 from ac3acm_tpu.ops import imdct_exact as JE
+import ac3acm_tpu_torch.tables as PT
 from ac3acm_tpu_torch.models import decoder as PD
 from ac3acm_tpu_torch.ops import imdct_exact as PE
 from tests.test_torch_decoder import BRANCHES, _steady_blocks
@@ -190,3 +191,89 @@ def test_pipeline_steady_exact_matches_jax(jax_exact_callback, branch,
     _same(mp.numpy(), jp, "pcm")
     _same(md.numpy(), jd, "delay")
     np.testing.assert_array_equal(mm.numpy(), np.asarray(jm))
+
+
+# the shared-memory layouts of csrc/imdct_exact.cu (B1 and B1F), as its
+# source writes them
+LAYOUTS = {
+    "XS": ("i ^ ((i >> 5) & 7)", lambda i: i ^ ((i >> 5) & 7), 256),
+    "CS": ("i ^ (((i >> 4) & 7) << 2)", lambda i: i ^ (((i >> 4) & 7) << 2),
+           128),
+    "DS": ("i ^ ((i >> 5) & 1)", lambda i: i ^ ((i >> 5) & 1), 128),
+}
+
+
+def _wavefronts(words, width=1):
+    """Shared-memory wavefronts of one warp instruction: words[lane] is the
+    first 4-byte word a lane touches (None: inactive), width its words;
+    a 4/8/16-byte access is served in groups of 32/16/8 lanes, each group
+    taking as many wavefronts as the most distinct words in one bank."""
+    group = {1: 32, 2: 16, 4: 8}[width]
+    total = 0
+    for g in range(0, 32, group):
+        banks = {}
+        for w in words[g:g + group]:
+            for k in range(width if w is not None else 0):
+                banks.setdefault((w + k) % 32, set()).add(w + k)
+        total += max(map(len, banks.values()), default=0)
+    return total
+
+
+def test_shared_layouts_are_conflict_free():
+    """The kernel's three layouts are bijections, and every warp
+    instruction of the transform's schedule that they serve takes the
+    fewest wavefronts its width allows: the fftorder gathers of the
+    pre-twiddles, the leaves' float4 loads, each pass level's butterfly
+    loads, the post-twiddles' z and d writes and B1F's epilogue reads."""
+    src = open(PE.__file__.replace("ops/imdct_exact.py",
+                                   "csrc/imdct_exact.cu")).read()
+    for name, (expr, f, size) in LAYOUTS.items():
+        assert f"{name}(int i) {{ return {expr}; }}" in src, name
+        assert sorted(map(f, range(size))) == list(range(size)), name
+    XS, CS, DS = (LAYOUTS[k][1] for k in ("XS", "CS", "DS"))
+    order = np.asarray(PT.imdct_twiddles()["fftorder"], int)
+    lanes = np.arange(32)
+    one = lambda idx, f: _wavefronts([f(int(i)) for i in idx]) == 1
+    for it in range(4):                                     # long pre-twiddle
+        o = order[32 * it + lanes]
+        assert one(o, XS) and one(255 - o, XS)
+        assert one(32 * it + lanes, CS)
+    for it in range(2):                                     # short
+        k = order[32 * it + lanes]
+        for idx in (k, 254 - k, k + 1, 255 - k):
+            assert one(idx, XS)
+        assert one(32 * it + lanes, CS) and one(64 + 32 * it + lanes, CS)
+    sched = src[src.index("int SCHED[SCHED_SIZE] = {"):]
+    sched = [eval(v.strip()) for v in
+             sched[sched.index("{") + 1:sched.index("}")].split(",")]
+    assert len(sched) == 59
+    for leaves in (sched[:21], sched[21:43]):        # long, short; by lane
+        for kind, steps in ((0x100, (0, 4)), (0, (0,))):
+            offs = [e & 0xff if e & 0x100 == kind else None for e in leaves]
+            active = [o for o in offs if o is not None]
+            for step in steps:
+                assert all(CS(o + step) + j == CS(o + step + j)
+                           for o in active for j in range(4))
+                words = [None if o is None else CS(o + step) for o in offs]
+                groups = {lane // 8 for lane, o in enumerate(offs)
+                          if o is not None}
+                assert _wavefronts(words + [None] * (32 - len(words)),
+                                   4) == len(groups), (kind, step)
+    for nodes, n in (([0, 32, 48, 64, 96], 4), ([0, 64, 96], 8), ([0], 16),
+                     ([0], 32), ([0, 32, 48, 64, 96, 112], 4), ([0, 64], 8),
+                     ([0, 64], 16)):
+        slots = [(a, k) for a in nodes for k in range(n)]
+        for q in range(4):
+            assert one([a + k + q * n for a, k in slots], CS), (nodes, n, q)
+    for fn in (lambda i: 255 - 2 * i, lambda i: 2 * i, lambda i: 2 * i + 1,
+               lambda i: 254 - 2 * i, lambda i: 128 + 2 * i,
+               lambda i: 127 - 2 * i, lambda i: 129 + 2 * i,
+               lambda i: 126 - 2 * i):
+        for it in range(2):
+            assert one(fn(32 * it + lanes), XS)
+    for fn in (lambda i: 2 * i, lambda i: 2 * i + 1, lambda i: 127 - 2 * i,
+               lambda i: 126 - 2 * i):
+        assert one(fn(lanes), DS)
+    for k in range(8):                                      # B1F epilogue
+        assert one(lanes + 32 * k, XS)
+        assert one(lanes + 32 * k if k < 4 else 255 - lanes - 32 * k, DS)
