@@ -1,18 +1,25 @@
 """ac3acm_tpu_torch: the AC-3 (ATSC A/52) decode path in PyTorch and CUDA.
 
 The port of ``ac3acm_tpu`` to one NVIDIA H100.  It holds the batched
-decode in both accuracy modes:
+decode in both accuracy modes, the Python parser and the single-stream
+decode:
 
-  host.native          native C++ dense and side-info parsers (own copy of
-                       the runtime)
+  host.native          native C++ parsers (dense, side-info, one stream)
+                       and the native CPU decoder (own copy of the runtime)
+  host.parse           the Python parser A52Parser (+ host.alloc,
+                       host.bitio), syncinfo, downmix negotiation
   models.decoder       the steady and block-scan decode bodies,
-                       StreamFormat, accuracy policy
+                       StreamFormat, accuracy policy, the single-stream
+                       Decoder
   ops.imdct_exact      the order-exact IMDCT kernel (CUDA, csrc/) + plain twin
   ops.fused_steady     the fused steady kernel (CUDA, csrc/) + plain twin
   ops.unpack_device    the raw-H2D bitstream unpack (gathers: ops.bitgather)
   parallel.pipeline    batched_pipeline, raw_batched_pipeline,
-                       BatchedDecoder(parser="native" | "raw")
-  utils.state          carry checkpoint / resume
+                       BatchedDecoder(parser="native" | "raw" | "python"
+                       | "raw_py")
+  io.stream            the ACM-shell format model and Ac3ToPcmStream
+  a52                  the a52_* decode API (on the native CPU decoder)
+  utils.state          carry and parser-state checkpoint / resume
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 Kernels build at first use, never at import.
@@ -32,4 +39,4 @@ def set_accuracy(mode: str):
     _set(mode)
 
 
-__all__ = ["tables", "set_accuracy"]
+__all__ = ["tables", "a52", "set_accuracy"]

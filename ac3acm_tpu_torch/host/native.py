@@ -6,7 +6,11 @@ from this package's ``tables`` module, and exposes the two multi-lane
 parse pools that feed ``parallel.pipeline.BatchedDecoder``: the dense
 parser (``parser="native"``) and the side-info parser (``parser="raw"``).  ctypes
 releases the GIL during calls, and the C++ side fans lanes out over its
-own threads.
+own threads.  For one stream it has the per-stream parser
+(``NativeParser``, the same ``decode_frame`` planes as host.parse.A52Parser)
+and the full native CPU decoder (``NativeDecoder``: parse, the bit-exact
+filterbank and the mixer, float for float the reference decoder), which
+the a52 API decodes through.
 """
 from __future__ import annotations
 
@@ -32,6 +36,28 @@ _lib = None
 # block-float scale groups per premixed plane (16 bins each); must match
 # native/ac3host.cpp PRE_GROUPS
 PRE_GROUPS = 16
+
+# a52_dynrng user-callback signature: float fn(float range, void* data)
+DYNRNG_CB = C.CFUNCTYPE(C.c_float, C.c_float, C.c_void_p)
+
+
+class FrameOut(C.Structure):
+    """native/ac3host.cpp FrameOut: one parsed frame's dense block arrays."""
+    _fields_ = [
+        ("q", C.c_float * 256 * 6 * 6),
+        ("a", C.c_float * 256 * 6 * 6),
+        ("b", C.c_float * 256 * 6 * 6),
+        ("blksw", C.c_uint8 * 5 * 6),
+        ("coeff", C.c_float * 5 * 6),
+        ("remat", C.c_uint8 * 256 * 6),
+        ("chanbias", C.c_int32),
+        ("acmod", C.c_int32),
+        ("lfeon", C.c_int32),
+        ("output", C.c_int32),
+        ("nfchans", C.c_int32),
+        ("slev", C.c_float),
+        ("bias", C.c_float),
+    ]
 
 
 def _build_dir() -> str:
@@ -102,10 +128,152 @@ def get_lib():
         lib.ac3h_init.restype = None
         lib.ac3h_init.argtypes = [C.c_void_p] * len(args)
         lib.ac3h_init(*[a.ctypes.data for a in args])
+        _bind_single(lib)
         _bind_dense(lib)
         _bind_sideinfo(lib)
         _lib = lib
         return lib
+
+
+# ---------------------------------------------------------------------------
+# One stream: the native parser and the native CPU decoder
+# ---------------------------------------------------------------------------
+
+def _bind_single(lib):
+    lib.ac3h_set_drc.restype = None
+    lib.ac3h_set_drc.argtypes = [C.c_void_p, C.c_int]
+    lib.ac3h_frames.restype = C.c_int
+    lib.ac3h_frames.argtypes = [C.c_void_p, C.c_char_p, C.c_int64, C.c_int,
+                                C.c_int, C.c_float, C.c_float,
+                                C.POINTER(FrameOut), C.POINTER(C.c_int32)]
+    lib.ac3h_dec_new.restype = C.c_void_p
+    lib.ac3h_dec_free.restype = None
+    lib.ac3h_dec_free.argtypes = [C.c_void_p]
+    lib.ac3h_dec_set_drc.restype = None
+    lib.ac3h_dec_set_drc.argtypes = [C.c_void_p, C.c_int]
+    lib.ac3h_dec_set_dynrng_call.restype = None
+    lib.ac3h_dec_set_dynrng_call.argtypes = [C.c_void_p, DYNRNG_CB,
+                                             C.c_void_p]
+    lib.ac3h_dec_frame.restype = C.c_int
+    lib.ac3h_dec_frame.argtypes = [C.c_void_p, C.c_char_p, C.c_int,
+                                   C.c_float, C.c_float,
+                                   C.POINTER(C.c_float),
+                                   C.POINTER(C.c_int32)]
+
+
+class NativeParser:
+    """Per-stream native parser: the same planes as host.parse.A52Parser's
+    decode_frame (the two are held equal in the tests)."""
+
+    def __init__(self):
+        self.lib = get_lib()
+        self._p = self.lib.ac3h_new()
+
+    def __del__(self):
+        if getattr(self, "_p", None):
+            self.lib.ac3h_free(self._p)
+            self._p = None
+
+    def set_drc_enabled(self, enabled: bool):
+        self.lib.ac3h_set_drc(self._p, int(enabled))
+
+    def decode_frames_raw(self, buf: bytes, nframes: int, flags: int,
+                          level: float = 1.0, bias: float = 0.0):
+        """Parse up to nframes from buf.  Returns (n, FrameOut array)."""
+        outs = (FrameOut * nframes)()
+        sizes = (C.c_int32 * nframes)()
+        n = self.lib.ac3h_frames(self._p, buf, len(buf), nframes, flags,
+                                 level, bias, outs, sizes)
+        return n, outs
+
+    def decode_frames(self, buf: bytes, nframes: int, flags: int,
+                      level: float = 1.0, bias: float = 0.0):
+        """Parse and return stacked block arrays.
+
+        Returns (blocks dict with [nblk, ...] arrays, meta dict of the last
+        frame's format) or None when no frame parsed."""
+        n, outs = self.decode_frames_raw(buf, nframes, flags, level, bias)
+        if n == 0:
+            return None
+        view = np.ctypeslib.as_array(outs)[:n]      # structured array view
+        # dequantized on the host: (q*a)*b in f32, the device's own product
+        q = view["q"].reshape(n * 6, 6, 256)
+        a = view["a"].reshape(n * 6, 6, 256)
+        b = view["b"].reshape(n * 6, 6, 256)
+        blocks = {
+            "freq": (q * a) * b,
+            "blksw": view["blksw"].reshape(n * 6, 5).astype(bool),
+            "coeff": view["coeff"].reshape(n * 6, 5).copy(),
+            "remat": view["remat"].reshape(n * 6, 256).astype(bool),
+            "bias": np.repeat(view["bias"], 6).astype(np.float32),
+        }
+        meta = {
+            "acmod": int(view["acmod"][-1]),
+            "lfeon": int(view["lfeon"][-1]),
+            "output": int(view["output"][-1]),
+            "nfchans": int(view["nfchans"][-1]),
+            "slev": float(view["slev"][-1]),
+            "chanbias": int(view["chanbias"][-1]),
+        }
+        return blocks, meta
+
+
+class NativeDecoder:
+    """The full native CPU decode: parse, the bit-exact filterbank and the
+    mixer, float for float the reference decoder (built with
+    -ffp-contract=off, so every f32 product rounds as there).  The a52 API
+    decodes through it, and the tests and chip_smoke.py hold the device
+    decode to it."""
+
+    def __init__(self):
+        self.lib = get_lib()
+        self._d = self.lib.ac3h_dec_new()
+        self._dyncb = None
+
+    def __del__(self):
+        if getattr(self, "_d", None):
+            self.lib.ac3h_dec_free(self._d)
+            self._d = None
+
+    def set_drc_enabled(self, enabled: bool):
+        self.lib.ac3h_dec_set_drc(self._d, int(enabled))
+
+    def set_dynrng_call(self, fn):
+        """a52_dynrng callback (liba52 parse.c:207-216): fn(range) -> new
+        range, applied before the level scale; None clears it.  The ctypes
+        callback is kept on the object while the native side may call it."""
+        if fn is None:
+            self._dyncb = DYNRNG_CB()          # NULL function pointer
+        else:
+            self._dyncb = DYNRNG_CB(lambda r, _data: float(fn(r)))
+        self.lib.ac3h_dec_set_dynrng_call(self._d, self._dyncb, None)
+
+    def decode_stream(self, es: bytes, flags: int, level: float = 1.0,
+                      bias: float = 0.0):
+        """Returns float32 [nblk, nch_out, 256] planar PCM."""
+        from .parse import syncinfo
+        out_blocks = []
+        pcm = np.zeros((6, 6, 256), np.float32)
+        nch = C.c_int32(0)
+        pos = 0
+        while pos + 7 <= len(es):
+            size = syncinfo(es[pos:pos + 7])[0]
+            if size == 0:
+                pos += 1
+                continue
+            if pos + size > len(es):
+                break
+            r = self.lib.ac3h_dec_frame(
+                self._d, es[pos:pos + size], flags, level, bias,
+                pcm.ctypes.data_as(C.POINTER(C.c_float)), C.byref(nch))
+            if r == 0:
+                n = int(nch.value)
+                out_blocks.append(
+                    pcm.reshape(-1)[: 6 * n * 256].reshape(6, n, 256).copy())
+            pos += size
+        if not out_blocks:
+            return np.zeros((0, 0, 256), np.float32)
+        return np.concatenate(out_blocks, axis=0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Batched AC-3 decode math on tensors: the steady and block-scan bodies.
+"""AC-3 decode math on tensors: the steady and block-scan bodies, and the
+single-stream decoder.
 
 The host pre-pass (native parser) emits dense per-block frequency planes;
 this module turns a chunk of them into PCM, reproducing a52_block's math:
@@ -10,9 +11,12 @@ the same strategy (checked on the host by ``steady_ok``) without a
 sequential loop; ``_pipeline_body`` serves any chunk, one block step at a
 time after the hoisted transforms.
 
-Every function takes the lane axis explicitly: tensors are
+The batched bodies take the lane axis explicitly: tensors are
 [B, n, ...] (lanes, blocks), the carry is (delay [B, 6, 128] f32,
-downmixed [B] bool).
+downmixed [B] bool).  One stream (``block_pipeline``, ``Decoder``) runs
+the block scan with a lane axis of 1; ``_block_step`` is one block of it,
+written out (the form the scan is checked against, and the one the
+fixed-point decode, ROADMAP A8, will reuse with its own filterbank).
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import numpy as np
 import torch
 
 from .. import tables as T
+from ..host import parse as P
 from ..ops.downmix import downmix, upmix
-from ..ops.filterbank import mats_on
+from ..ops.filterbank import filterbank, mats_on
 from ..ops.imdct_exact import split_fb_exact
+from ..utils.device import resolve_device
 
 # ---------------------------------------------------------------------------
 # Package-wide decode accuracy policy (same names and default as the JAX
@@ -87,6 +93,74 @@ class StreamFormat:
             return False
         return out == self.acmod or (self.acmod == T.A52_STEREO
                                      and out == T.A52_DOLBY)
+
+
+def _block_step(fmt: StreamFormat, carry, blk, filterbank=filterbank):
+    """One a52_block worth of device math for one stream.
+
+    carry = (delay [6, 128] f32, downmixed 0-d bool); blk: freq [6, 256]
+    (host dequant), blksw [5] bool, coeff [5], remat [256] bool, bias 0-d
+    -> (carry, pcm [nch_out, 256], LFE first).  `filterbank` may be
+    swapped for the order-exact ops.imdct_exact.filterbank_exact, which
+    reproduces the reference's float output bit for bit."""
+    delay, downmixed = carry
+    nf = fmt.nfchans
+    bias = blk["bias"]
+    freq = blk["freq"]
+    zero = torch.zeros((), dtype=freq.dtype, device=freq.device)
+    mix = dict(acmod=fmt.acmod, output=fmt.output)
+
+    if fmt.acmod == T.A52_STEREO:
+        s0, s1 = freq[0], freq[1]
+        m = blk["remat"]
+        freq = torch.cat([torch.where(m, s0 + s1, s0)[None],
+                          torch.where(m, s0 - s1, s1)[None], freq[2:]])
+
+    # LFE: always a long block, always the stream's bias
+    lfe_time = None
+    new_delay = delay.clone()
+    if fmt.lfe_out:
+        lfe_time, new_delay[5] = filterbank(
+            freq[5], delay[5], torch.zeros((), dtype=torch.bool,
+                                           device=freq.device), bias)
+
+    fbw = freq[:5]
+    blksw = blk["blksw"]
+    coeff = blk["coeff"]
+
+    # TIME path: IMDCT of the coded channels, then the time-domain mix
+    delay_t = torch.where(downmixed, upmix(delay[:5], **mix), delay[:5])
+    bias_mask = torch.tensor([bool((fmt.chanbias >> i) & 1)
+                              for i in range(5)], device=freq.device)
+    t_out, t_dnew = filterbank(fbw, delay_t, blksw,
+                               torch.where(bias_mask, zero, bias))
+    zero_ch = (coeff == 0.0)[:, None]
+    t_out = torch.where(zero_ch, bias, t_out)
+    t_dnew = torch.where(zero_ch, delay_t, t_dnew)
+    t_mixed = downmix(t_out, bias=bias, slev_zero=fmt.slev_zero, **mix)
+
+    if fmt.nf_out >= nf:
+        # the reference always takes the time path here (parse.c:881-886)
+        out = t_mixed
+        new_delay[:5] = t_dnew
+        carry = (new_delay, torch.zeros_like(downmixed))
+    else:
+        # FREQ path: the mix in the frequency domain, IMDCT of the outputs
+        f_freq = downmix(fbw, bias=zero, slev_zero=fmt.slev_zero, **mix)
+        delay_f = torch.where(downmixed, delay[:5],
+                              downmix(delay[:5], bias=zero,
+                                      slev_zero=fmt.slev_zero, **mix))
+        f_out, f_dnew = filterbank(f_freq, delay_f, blksw[0].expand(5),
+                                   bias.expand(5))
+        uniform = (blksw[:nf] == blksw[0]).all()
+        out = torch.where(uniform, f_out, t_mixed)
+        new_delay[:5] = torch.where(uniform, f_dnew, t_dnew)
+        carry = (new_delay, uniform)
+
+    planes = [out[i] for i in range(fmt.nf_out)]
+    if fmt.lfe_out:
+        planes = [lfe_time] + planes
+    return carry, torch.stack(planes)
 
 
 def _lanes_first(fn, planes, *args, **kw):
@@ -383,3 +457,129 @@ def steady_ok(fmt: StreamFormat, blocks) -> bool:
     if fmt.nf_out < fmt.nfchans:
         return bool((blksw[..., :nf] == blksw[..., :1]).all())
     return bool((np.asarray(blocks["coeff"])[..., :nf] != 0.0).all())
+
+
+def block_pipeline(fmt: StreamFormat, exact: bool | None = None):
+    """(carry, blocks) -> (carry, pcm [nblk, nch_out, 256]) for one stream.
+
+    carry = (delay [6, 128] f32, downmixed 0-d bool) tensors; blocks: the
+    _stack_blocks dict with a leading nblk axis (numpy arrays or tensors;
+    they go to the carry's device).  The block scan ``_pipeline_body``
+    with a lane axis of 1, in place of the JAX package's jit; the Decoder
+    calls it once a frame.  exact (default: the package ACCURACY policy)
+    selects the order-exact transform (B1 on the card)."""
+    if exact is None:
+        exact = default_exact()
+
+    def run(carry, blocks):
+        delay, downmixed = carry
+        lanes = {k: torch.as_tensor(v, device=delay.device)[None]
+                 for k, v in blocks.items()}
+        (delay, downmixed), pcm = _pipeline_body(
+            fmt, (delay[None], downmixed[None]), lanes, exact=bool(exact))
+        return (delay[0], downmixed[0]), pcm[0]
+
+    return run
+
+
+def init_carry(batch_shape=(), device=None):
+    """Zero OLA delay and downmixed=True, on `device` (None: the CUDA
+    card; raises without one)."""
+    device = resolve_device(device)
+    return (torch.zeros(tuple(batch_shape) + (6, 128), dtype=torch.float32,
+                        device=device),
+            torch.ones(tuple(batch_shape), dtype=torch.bool, device=device))
+
+
+def _stack_blocks(frames) -> dict:
+    """Stack host FrameData blocks into numpy arrays [nblk, ...]."""
+    blocks = [b for f in frames for b in f.blocks]
+    bias = np.float32(frames[0].bias)
+    return {
+        # host-side dequant: the same IEEE f32 multiplies as the device's
+        "freq": np.stack([(b.q * b.a) * b.b for b in blocks]),
+        "blksw": np.stack([b.blksw for b in blocks]),
+        "coeff": np.stack([b.coeff for b in blocks]),
+        "remat": np.stack([b.remat_mask for b in blocks]),
+        "bias": np.full(len(blocks), bias, np.float32),
+    }
+
+
+def frame_format(f) -> StreamFormat:
+    """StreamFormat of a host.parse.FrameData (chanbias depends on the
+    (acmod, output) pair alone, so any block's will do)."""
+    return StreamFormat(acmod=f.acmod, output=f.output,
+                        slev_zero=bool(f.slev == 0.0),
+                        chanbias=int(f.blocks[0].chanbias))
+
+
+class Decoder:
+    """Single-stream decoder with the a52_* API shape: the Python parser
+    (host.parse.A52Parser) on the host, the block scan on the device.
+
+    >>> dec = Decoder()
+    >>> pcm, fmt = dec.decode_stream(es_bytes,
+    ...                              flags=T.A52_STEREO | T.A52_ADJUST_LEVEL)
+    >>> pcm.shape                                 # float32 [nblk, nch, 256]
+
+    exact (None: the package ACCURACY policy, default "reference", bit for
+    bit the compiled float liba52); exact=False takes the matmul
+    filterbank (the fast-mode contract).  device: None -> the CUDA card
+    (raises without one); "cpu" runs the plain PyTorch versions.
+
+    The format may change from frame to frame (acmod, output mode, slev);
+    the carry (OLA delay and downmixed flag) persists across the change,
+    as the reference's single a52_state_t does.  Each frame is one
+    block_pipeline call, as in the JAX package."""
+
+    def __init__(self, exact: bool | None = None, device=None):
+        self.device = resolve_device(device)
+        self.parser = P.A52Parser()
+        self._carry = None
+        self._fmt = None
+        self._exact = default_exact() if exact is None else exact
+
+    def syncinfo(self, buf: bytes):
+        return P.syncinfo(buf)
+
+    def dynrng(self, callback=None):
+        """a52_dynrng (parse.c:207-216): None disables DRC; a callable
+        re-enables it with fn(range) -> range remapping."""
+        self.parser.s.dynrnge = callable(callback)
+        if callable(callback):
+            self.parser.s.dynrng_call = callback
+
+    def set_drc_enabled(self, enabled: bool):
+        self.parser.s.dynrnge = enabled
+
+    def decode_frames(self, frames_bytes, flags, level=1.0, bias=0.0):
+        """Decode a list of raw frames -> (float32 [nblk, nch_out, 256]
+        numpy, the last frame's StreamFormat)."""
+        frames = [self.parser.decode_frame(fb, flags, level, bias)
+                  for fb in frames_bytes]
+        if self._carry is None:
+            self._carry = init_carry(device=self.device)
+        outs = []
+        for f in frames:
+            self._fmt = frame_format(f)
+            self._carry, pcm = block_pipeline(self._fmt, exact=self._exact)(
+                self._carry, _stack_blocks([f]))
+            outs.append(pcm)
+        return torch.cat(outs).cpu().numpy(), self._fmt
+
+    def decode_stream(self, es: bytes, flags, level=1.0, bias=0.0):
+        """Frame-sync state machine over an elementary stream."""
+        frames = []
+        pos = 0
+        while pos + 7 <= len(es):
+            size = P.syncinfo(es[pos:pos + 7])[0]
+            if size == 0:
+                pos += 1
+                continue
+            if pos + size > len(es):
+                break
+            frames.append(es[pos:pos + size])
+            pos += size
+        if not frames:
+            return np.zeros((0, 0, 256), np.float32), None
+        return self.decode_frames(frames, flags, level, bias)

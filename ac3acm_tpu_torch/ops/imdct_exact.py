@@ -26,9 +26,11 @@ Exactness in eager PyTorch needs no guard: every elementwise op is its
 own kernel and rounds its result, so no multiply is ever contracted into
 the add that follows it (the JAX package needs an f64 round trip or an
 optimization barrier for that, and {0, +-1} matmuls for the
-permutations; here they are index_select, flip and interleaving).  Only
-the float variant is ported; the fixed-point one waits for the
-single-stream slice.
+permutations; here they are index_select, flip and interleaving).
+
+``filterbank_exact`` wraps the split with that overlap-add for one block
+step at a time (models.decoder._block_step).  Only the float variant is
+ported; the fixed-point one is ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -253,6 +255,26 @@ def split_fb_exact_ref(coeffs, blksw=None):
     z_s, d_s = imdct256_z(coeffs)
     blk = blksw[..., None]
     return torch.where(blk, z_s, z_l), torch.where(blk, d_s, d_l)
+
+
+def filterbank_exact(coeffs, delay, blksw, bias):
+    """Drop-in for ops.filterbank.filterbank with the reference's operation
+    order: coeffs [..., 256], delay [..., 128], blksw (broadcast to the
+    rows; True = short block), bias (broadcast to the rows) -> (out
+    [..., 256], new delay [..., 128]).
+
+    The transform is split_fb_exact (B1 on a CUDA tensor); the windowed
+    overlap-add z*win + fold(delay)*win_r + bias runs as separate eager
+    ops, each rounding its own result, which with z's folded signs is
+    the reference's per-sample formula bit for bit.  (Never addcmul or
+    torch.compile here: both fuse the multiply into the add.)"""
+    from .filterbank import mats_on
+    _, _, win, win_r = mats_on(coeffs.device)
+    blksw = torch.as_tensor(blksw, dtype=torch.bool, device=coeffs.device)
+    z, dnew = split_fb_exact(coeffs.contiguous(),
+                             blksw.expand(coeffs.shape[:-1]).contiguous())
+    dfold = torch.cat([delay, delay.flip(-1)], dim=-1)
+    return z * win + dfold * win_r + bias[..., None], dnew
 
 
 def _bind(lib):

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import tables as T
+from ..host.native import RAW_REC_DTYPE
 from ..utils.device import resolve_device
 from . import alloc as A
 from . import bitgather as BG
@@ -242,6 +243,49 @@ def prune_raw_meta(meta: dict) -> dict:
         for k in _LFE_KEYS:
             meta.pop(k, None)
     return meta
+
+
+# ---------------------------------------------------------------------------
+# meta stacking for the Python side-info parser (host side, numpy)
+# ---------------------------------------------------------------------------
+
+def null_raw_rec() -> dict:
+    """A benign per-block record for invalid lane-frames: no exponent or
+    coupling fields, csnroffst 0 with all bai clear -> the zero-SNR
+    shortcut zeroes every bap, so the device emits silence for the block
+    (the lane's valid mask flags it downstream)."""
+    return {
+        "exp_off": np.full(7, -1, np.int32), "expstr": np.zeros(7, np.int32),
+        "ngrps": np.zeros(7, np.int32),
+        "cplco_off": np.full(5, -1, np.int32), "phs_off": -1, "man_off": 0,
+        "endmant": np.zeros(5, np.int32), "chincpl": 0, "phsflginu": 0,
+        "cplstrt": 37, "cplend": 37, "cplbndstrc": 0, "ncplbnd": 0,
+        "cplstrtbnd": 0, "bai": 0, "csnroffst": 0, "cplbai": 0,
+        "babai": np.zeros(5, np.int32), "lfebai": 0, "cplfleak": 0,
+        "cplsleak": 0, "dith": np.zeros(5, np.int32),
+        "blksw": np.zeros(5, np.int32), "coeff": np.zeros(5, np.float32),
+        "chanbias": 0, "rematflg": 0, "lfe_scale": np.float32(0.0),
+        "lfeon": 0, "lfe_out": 0, "fscod": 0, "halfrate": 0,
+        "deltba": np.zeros((7, 50), np.int8), "raw_ok": False,
+    }
+
+
+def stack_raw_meta(recs: list) -> dict:
+    """Stack host.parse.A52Parser raw records (one per block) into [S, ...]
+    arrays, each key in the wire dtype the native side-info parser gives
+    it (host.native.RAW_REC_DTYPE), so that parser="raw_py" ships the same
+    meta as parser="raw"; plus "raw_ok" [S] bool.  The -1 offset sentinels
+    survive: every integer wire dtype is signed."""
+    out = {}
+    for k in RAW_REC_DTYPE.names:
+        vals = [r[k] for r in recs]
+        dt = RAW_REC_DTYPE[k].base
+        if isinstance(vals[0], np.ndarray):
+            out[k] = np.stack(vals).astype(dt)
+        else:
+            out[k] = np.asarray(vals, dt)
+    out["raw_ok"] = np.asarray([bool(r["raw_ok"]) for r in recs], bool)
+    return out
 
 
 def widen_meta(meta: dict) -> dict:

@@ -16,11 +16,12 @@ kernel B1).  ``BatchedDecoder`` buckets a mixed-format batch by format
 (``_decode_heterogeneous``).
 
 The raw-H2D path (``raw_batched_pipeline``, ``BatchedDecoder(parser=
-"raw")``) ships the coded frame bytes plus side info instead and unpacks,
-allocates and dequantizes on the device (ops.unpack_device, with the
-bitfield kernels of ops.bitgather) before the same decode bodies; in
-reference mode a steady chunk of a premixable format is premixed on the
-device (models.decoder.premix_blocks_device) and takes B1F.
+"raw" | "raw_py")``) ships the coded frame bytes plus side info instead
+and unpacks, allocates and dequantizes on the device (ops.unpack_device,
+with the bitfield kernels of ops.bitgather) before the same decode
+bodies; in reference mode a steady chunk of a premixable format is
+premixed on the device (models.decoder.premix_blocks_device) and takes
+B1F.
 
 The JAX package's ``mesh`` argument keeps its position in every entry
 point's signature; only ``mesh=None`` is served (multi-GPU is ROADMAP
@@ -36,18 +37,22 @@ import torch
 
 from .. import tables as T
 from ..host.native import DenseBatchParser, SideinfoBatchParser
-from ..host.parse import downmix_init, syncinfo
+from ..host.parse import (A52Parser, BlockData, FrameData, downmix_coeff,
+                          downmix_init, syncinfo)
 from ..models.decoder import (StreamFormat, _lanes_first, _pipeline_body,
-                              _pipeline_steady, default_exact, premix_blocks,
+                              _pipeline_steady, _stack_blocks, default_exact,
+                              frame_format, premix_blocks,
                               premix_blocks_device, steady_ok)
 from ..ops.downmix import downmix
 from ..ops.filterbank import convert_to_int16
 from ..ops.fused_steady import fused_steady
 from ..ops.fused_steady_exact import fused_steady_exact
-from ..ops.unpack_device import (init_unpack_carry, prune_raw_meta,
+from ..ops.unpack_device import (init_unpack_carry, null_raw_rec,
+                                 prune_raw_meta, stack_raw_meta,
                                  static_alloc_pts, static_cpl_fc,
                                  static_emax, static_exp_pts, unpack_blocks)
 from ..utils.device import resolve_device
+from ..utils.trace import log
 
 
 def _expand_compact(blocks):
@@ -294,17 +299,21 @@ def init_batched_carry(batch: int, device=None):
 
 
 # ---------------------------------------------------------------------------
-# Host-side pool: N native parsers feeding the batched device pipeline
+# Host side: N stream parsers feeding the batched device pipeline
 # ---------------------------------------------------------------------------
 
 @dataclass
 class StreamLane:
     buf: bytes = b""
     pos: int = 0
-    # parser="native": parsed-but-not-yet-emitted frames (uneven lane
-    # feeds leave a remainder here; the next decode_available resumes
-    # with it).  parser="raw" keeps its remainder as arrays (_raw_chunk)
+    # parsed-but-not-yet-emitted frames (uneven lane feeds leave a
+    # remainder here; the next decode_available resumes with it):
+    # parser="native" frame slices, "python" FrameData (None: a bad
+    # frame), "raw_py" (bytes, recs, fmt) triples.  parser="raw" keeps its
+    # remainder as arrays (_raw_chunk)
     pending: list = field(default_factory=list)
+    # parser="python" | "raw_py": the lane's host.parse.A52Parser
+    parser: A52Parser | None = None
 
 
 class BatchedDecoder:
@@ -320,6 +329,12 @@ class BatchedDecoder:
     to the device, which unpacks and dequantizes them itself
     (raw_batched_pipeline).  The lanes must share one format.
 
+    parser="python" and "raw_py": the same two host halves with the Python
+    parser (host.parse.A52Parser, one per lane; "raw_py" in its
+    sideinfo_only form), frame by frame: the same planes and side info as
+    the native parsers, so the same PCM, at the cost of Python per
+    coefficient ("python") or per block ("raw_py") on the host.
+
     Either way the host arrays go to the device with
     torch.from_numpy(...).to(device); PCM comes back as a device tensor.
 
@@ -333,7 +348,7 @@ class BatchedDecoder:
     The positional order is the JAX package's, mesh included (only None is
     served, ROADMAP A12).  The default parser is "native", where the JAX
     package's is "python": the two parsers emit the same planes, and the
-    Python parser is not ported yet (ROADMAP A3).
+    native one is the throughput path.
     """
 
     def __init__(self, batch: int, flags: int, level: float = 1.0,
@@ -342,12 +357,12 @@ class BatchedDecoder:
                  compact_h2d: bool = False, device=None,
                  fused: bool | None = None):
         _no_mesh(mesh)
-        if parser not in ("native", "raw"):
-            raise NotImplementedError(
-                f"parser={parser!r} needs the Python A52Parser, which is not "
-                "ported yet: ROADMAP A3; use parser='native' or 'raw'")
+        if parser not in ("native", "raw", "python", "raw_py"):
+            raise ValueError(f"parser={parser!r}: expected 'native', 'raw', "
+                             "'python' or 'raw_py'")
         self.device = resolve_device(device)
         self.lanes = [StreamLane() for _ in range(batch)]
+        self._parser_kind = parser
         self.flags = flags
         self.level = level
         self.bias = bias
@@ -362,12 +377,16 @@ class BatchedDecoder:
         self._dense = self._sdense = None
         if parser == "native":
             self._dense = DenseBatchParser(batch, nthreads)
-        else:
+        elif parser == "raw":
             self._sdense = SideinfoBatchParser(batch, nthreads)
-            self._raw_carry = init_unpack_carry(batch, self.device)
             # parsed-but-not-yet-emitted frames, per lane (see _raw_chunk)
             self._raw_pending = None
             self._raw_npend = np.zeros(batch, np.int64)
+        else:
+            for lane in self.lanes:
+                lane.parser = A52Parser(sideinfo_only=parser == "raw_py")
+        if parser in ("raw", "raw_py"):
+            self._raw_carry = init_unpack_carry(batch, self.device)
 
     def feed(self, lane: int, data: bytes):
         ln = self.lanes[lane]
@@ -383,14 +402,155 @@ class BatchedDecoder:
         Returns (pcm [B, nblk, nch, 256] device tensor, valid [B, nframes]
         bool numpy) or None if no lane had a complete frame.
 
-        clock (parser="raw" only): a StageClock that breaks the step into
-        its stages.
+        clock (parser="raw" | "raw_py" only): a StageClock that breaks the
+        step into its stages.
         """
         if self._sdense is not None:
             return self._decode_available_raw_native(max_frames, clock)
+        if self._parser_kind == "raw_py":
+            return self._decode_available_raw_py(max_frames, clock)
         if clock is not None:
             raise ValueError("StageClock breaks down the raw-H2D step only")
-        return self._decode_available_native(max_frames)
+        if self._dense is not None:
+            return self._decode_available_native(max_frames)
+        return self._decode_available_python(max_frames)
+
+    # -- Python parser paths --------------------------------------------------
+
+    def _next_frame(self, lane: StreamLane):
+        """The lane's next whole frame (resyncing byte by byte past junk),
+        or None when its buffer holds no complete frame yet."""
+        buf, pos = lane.buf, lane.pos
+        while pos + 7 <= len(buf):
+            size = syncinfo(buf[pos:pos + 7])[0]
+            if size == 0:
+                pos += 1
+                continue
+            if pos + size > len(buf):
+                break
+            lane.pos = pos + size
+            return buf[pos:pos + size]
+        lane.pos = pos
+        return None
+
+    def _take_pending(self, max_frames: int, parse):
+        """Fill each lane's pending list up to max_frames with parse(lane,
+        frame) and take the frames every lane has -> per_lane lists, or
+        None when some lane has none."""
+        for lane in self.lanes:
+            while len(lane.pending) < max_frames:
+                fb = self._next_frame(lane)
+                if fb is None:
+                    break
+                lane.pending.append(parse(lane, fb))
+        nf = min((len(l.pending) for l in self.lanes), default=0)
+        if nf == 0:
+            return None
+        per_lane = [lane.pending[:nf] for lane in self.lanes]
+        for lane in self.lanes:
+            del lane.pending[:nf]
+        return per_lane
+
+    def parser_decode(self, lane: StreamLane, frame: bytes):
+        return lane.parser.decode_frame(frame, self.flags, self.level,
+                                        self.bias)
+
+    def _parse_python(self, lane: StreamLane, frame: bytes):
+        """decode_frame of one lane's frame, or None for a frame the parser
+        rejects: the lane-frame is masked (a52dec.c:271-306), the batch
+        goes on."""
+        try:
+            return self.parser_decode(lane, frame)
+        except Exception:               # any malformed frame: mask, go on
+            log.debug("python parser rejected a frame", exc_info=True)
+            return None
+
+    def _empty_frame(self):
+        """Silent stand-in for a rejected frame in a homogeneous chunk."""
+        z = np.zeros((6, 256), np.float32)
+        blk = BlockData(q=z, a=z, b=z, blksw=np.zeros(5, bool),
+                        coeff=np.zeros(5, np.float32), chanbias=0,
+                        remat_mask=np.zeros(256, bool),
+                        lfe_scale=np.float32(0))
+        s = self.lanes[0].parser.s
+        return FrameData(acmod=s.acmod, lfeon=s.lfeon, output=s.output,
+                         nfchans=int(T.NFCHANS[s.acmod]),
+                         bias=np.float32(self.bias), slev=s.slev,
+                         blocks=[blk] * 6)
+
+    def _decode_available_python(self, max_frames: int):
+        per_lane = self._take_pending(max_frames, self._parse_python)
+        if per_lane is None:
+            return None
+        valid = np.array([[f is not None for f in row] for row in per_lane])
+        if self._fmt is None and not valid.any():
+            # no frame to take a format from yet: the parser state's
+            s = self.lanes[0].parser.s
+            self._fmt = StreamFormat(
+                acmod=s.acmod, output=s.output,
+                slev_zero=bool(s.slev == 0.0),
+                chanbias=int(downmix_coeff(s.acmod, s.output, 1.0, s.clev,
+                                           s.slev)[1]))
+        # one format is one bucket; the bucket's padding lanes change no
+        # other lane's PCM (every decode body works row by row), so a
+        # python chunk equals the native parser's unpadded one bitwise
+        return self._decode_heterogeneous(per_lane, valid)
+
+    def _parse_raw(self, lane: StreamLane, frame: bytes):
+        """Side-info-only parse of one frame -> (bytes, recs[6], fmt), or
+        None for a malformed frame (masked lane-frame)."""
+        p = lane.parser
+        p.rec.clear()
+        try:
+            br, _ = p.frame(frame, self.flags, self.level, self.bias)
+            for _ in range(T.NB_BLOCKS):
+                p._block(br)
+            recs = list(p.rec)
+        except Exception:               # any malformed frame: mask, go on
+            log.debug("python side-info parser rejected a frame",
+                      exc_info=True)
+            return None
+        finally:
+            p.rec.clear()
+        r0 = recs[0]
+        fmt = StreamFormat(acmod=int(r0["acmod"]), output=int(r0["output"]),
+                           slev_zero=bool(r0["slev_zero"]),
+                           chanbias=int(r0["chanbias"]))
+        return frame, recs, fmt
+
+    def _decode_available_raw_py(self, max_frames: int, clock=None):
+        """Raw-H2D decode step with the Python side-info parser: the same
+        frame bytes and meta as parser="raw" assembles, the same device
+        half."""
+        per_lane = self._take_pending(max_frames, self._parse_raw)
+        if clock is not None:
+            clock.mark("host side-info parse")
+        if per_lane is None:
+            return None
+        L, nf = len(self.lanes), len(per_lane[0])
+        valid = np.array([[f is not None for f in row] for row in per_lane])
+        fmt = self._raw_pick_fmt({f[2] for row in per_lane for f in row
+                                  if f is not None})
+        mb = max((len(f[0]) for row in per_lane for f in row
+                  if f is not None), default=128)
+        mb = max(-(-mb // 128) * 128, 128)
+        fu8 = np.zeros((L, nf, mb), np.uint8)
+        null6 = [null_raw_rec()] * T.NB_BLOCKS
+        metas = []
+        for li, row in enumerate(per_lane):
+            recs = []
+            for fi, f in enumerate(row):
+                if f is None:
+                    recs.extend(null6)
+                else:
+                    fu8[li, fi, :len(f[0])] = np.frombuffer(f[0], np.uint8)
+                    recs.extend(f[1])
+            metas.append(stack_raw_meta(recs))
+        meta = {k: np.stack([m[k] for m in metas]) for k in metas[0]
+                if k != "raw_ok"}
+        if clock is not None:
+            clock.mark("chunk assembly")
+        return self._raw_dispatch(fmt, fu8, meta, valid, clock)
 
     # -- raw-H2D path (device bitstream unpack) -----------------------------
 
@@ -398,7 +558,7 @@ class BatchedDecoder:
         if len(fmts) > 1:
             raise ValueError(
                 "raw-H2D mode requires a format-homogeneous batch; use "
-                "parser='native' for mixed-format lanes")
+                "parser='native' or 'python' for mixed-format lanes")
         if fmts:
             return fmts.pop()
         if self._fmt is not None:
@@ -491,7 +651,12 @@ class BatchedDecoder:
         chunk = self._raw_chunk(max_frames, clock)
         if chunk is None:
             return None
-        fmt, fu8, meta, valid = chunk
+        return self._raw_dispatch(*chunk, clock)
+
+    def _raw_dispatch(self, fmt, fu8, meta, valid, clock=None):
+        """The device half of a raw-H2D step, from the host's chunk: frame
+        bytes fu8 [L, F, MB] uint8 and meta {key: [L, 6F, ...]} (numpy, in
+        the wire dtypes)."""
         # drop meta for features absent from the whole chunk (delta bit
         # allocation, coupling, dither, LFE): the plan gets fewer rows, a
         # smaller lattice and no coupling/dither stages, and the dropped
@@ -579,7 +744,12 @@ class BatchedDecoder:
 
     @staticmethod
     def _fmt_of(obj):
-        """StreamFormat of a pending native frame slice (None if invalid)."""
+        """StreamFormat of a pending frame: a native frame slice or a
+        Python FrameData; None for an invalid frame."""
+        if obj is None:
+            return None
+        if isinstance(obj, FrameData):
+            return frame_format(obj)
         m = obj["meta"]
         if m is None:
             return None
@@ -699,19 +869,40 @@ class BatchedDecoder:
 
     # -- mixed-format batches ------------------------------------------------
 
-    @staticmethod
-    def _generic_blocks(obj):
-        """Full-plane [6, ...] block arrays of one native frame slice."""
+    def _blank(self, nplanes: int, premixed: bool) -> dict:
+        """Silent long blocks of one frame: a pad lane's (its coefficients
+        count as coded: a zero coeff would fail steady_ok and send the
+        whole bucket to the block scan), or a rejected frame's premixed
+        planes."""
+        blank = {"freq": np.zeros((6, nplanes, 256), np.float32),
+                 "blksw": np.zeros((6, 5), bool),
+                 "bias": np.full((6,), np.float32(self.bias))}
+        if not premixed:
+            blank.update(coeff=np.ones((6, 5), np.float32),
+                         remat=np.zeros((6, 256), bool))
+        return blank
+
+    def _generic_blocks(self, obj):
+        """Full-plane [6, ...] block arrays of one frame: a native frame
+        slice, a Python FrameData, or None (a rejected frame: silence with
+        zero coefficients, what the native parser writes for one)."""
+        if obj is None:
+            obj = self._empty_frame()
+        if isinstance(obj, FrameData):
+            return _stack_blocks([obj])
         return {"freq": obj["freq_full"], "blksw": obj["blksw"].astype(bool),
                 "coeff": obj["coeff"], "remat": obj["remat"].astype(bool),
                 "bias": obj["bias"]}
 
-    @staticmethod
-    def _premixed_frame(obj, fmt):
-        """Premixed [6, nch_out, 256] block arrays of one native frame
-        slice, or None when the frame carries no premix for `fmt`
-        (ineligible frame, or a plane count from another format)."""
-        if not obj.get("premix_ok"):
+    def _premixed_frame(self, obj, fmt):
+        """Premixed [6, nch_out, 256] block arrays of one frame, or None
+        when the frame carries no premix for `fmt`: a Python FrameData
+        (premixed per bucket, if steady, by premix_blocks), an ineligible
+        native frame, or a plane count from another format.  A rejected
+        frame (None) takes silent planes."""
+        if obj is None:
+            return self._blank(fmt.nch_out, premixed=True)
+        if isinstance(obj, FrameData) or not obj.get("premix_ok"):
             return None
         fp = obj.get("freq_pre")
         if fp is None or fp.shape[-2] != fmt.nch_out:
@@ -758,14 +949,6 @@ class BatchedDecoder:
         dtype = torch.int16 if self.emit_int16 else torch.float32
         out = torch.zeros((B, nf * 6, nch_max, 256), dtype=dtype,
                           device=self.device)
-        bias = np.full((6,), np.float32(self.bias))
-        # a pad lane: silent long blocks whose coefficients count as coded
-        # (a zero coeff would fail steady_ok and send the whole bucket to
-        # the block scan)
-        empty = {"freq": np.zeros((6, 6, 256), np.float32),
-                 "blksw": np.zeros((6, 5), bool),
-                 "coeff": np.ones((6, 5), np.float32),
-                 "remat": np.zeros((6, 256), bool), "bias": bias}
         d_all, m_all = (t.clone() for t in self._carry)
         catframes = lambda frames: {k: np.concatenate([f[k] for f in frames])
                                     for k in frames[0]}
@@ -788,13 +971,10 @@ class BatchedDecoder:
                          for fi in frames] for li in sel]
                 premixed = ((fmt.nf_out < fmt.nfchans or fmt.identity_mix)
                             and all(p is not None for r2 in pres for p in r2))
+                blank = self._blank(fmt.nch_out if premixed else 6, premixed)
                 if premixed:
-                    blank = {"freq": np.zeros((6, fmt.nch_out, 256),
-                                              np.float32),
-                             "blksw": np.zeros((6, 5), bool), "bias": bias}
                     rows = [catframes(r2) for r2 in pres]
                 else:
-                    blank = empty
                     rows = [catframes([self._generic_blocks(per_lane[li][fi])
                                        for fi in frames]) for li in sel]
                 rows += [catframes([blank] * len(frames))] * pad
@@ -809,6 +989,8 @@ class BatchedDecoder:
                     pre = fmt.nf_out < fmt.nfchans or fmt.identity_mix
                     if pre:
                         blocks = premix_blocks(fmt, blocks)
+                        blocks = {k: blocks[k]
+                                  for k in ("freq", "blksw", "bias")}
                     fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
                                           steady=True, long_only=lo,
                                           premixed=pre, fused=self.fused)

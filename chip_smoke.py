@@ -84,7 +84,32 @@ Phases, each fatal on failure (nothing is caught and passed over):
  12. mixed     4096 lanes cycling 5.1 / 2.0 / 1.0 streams, some switching
                5.1 -> 2.0 mid-stream, in reference mode: every lane equals
                its stream decoded in a format-homogeneous batch
- 13. report    one JSON line listing every kernel, then the device line
+ 13. single    the single-stream Decoder() in the default reference mode
+               (the Python parser on the host, the block scan on the card):
+               512 frames of the golden 5.1 stream (16 s of audio), its
+               first 8 frames equal to the reference decoder's output at
+               0.0 and the whole stream to the native C++ decoder's by
+               value; streams that switch 5.1 -> 2.0 mid-stream with DRC
+               off and with a DRC callback, equal to the native decoder's;
+               B1 on every run, B1F and K1 never; B1 held to its plain
+               version on the Decoder's own shapes; x-realtime and the
+               host parse's share; the 16 s stream timed in two forms, one
+               block_pipeline call a frame and one for the whole run
+ 14. stream    Ac3ToPcmStream (exact and fast) fed in pieces of 7 B,
+               1,000 B and the rest equal to one call; exact int16 equal
+               to the native decoder's through the same conversion; the
+               a52 API (on the native decoder) equal to it
+ 15. python    BatchedDecoder(parser="python") on 64 lanes x 2 chunks x 4
+               frames equal to parser="native" (reference int16 and float
+               with B1F on every chunk, fast int16 with K1 on every
+               chunk), and a mixed-format batch of 48 lanes (B1F or B1 on
+               every chunk, K1 never); every B1F, K1 and B1 call of the
+               python runs held to its plain version
+ 16. raw_py    BatchedDecoder(parser="raw_py") equal to parser="raw" in
+               meta, frame bytes and int16, K2 and K4 on every chunk (64
+               lanes), K3 on coupled lanes (4 lanes); every gather and
+               B1F call of the raw_py runs held to its plain version
+ 17. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -980,6 +1005,28 @@ def field_table_i16(table):
     return ((pairs[:, 0] << 8) | pairs[:, 1]).to(torch.int16)
 
 
+def check_gather_calls(calls, tag, errs, wires):
+    """Each recorded gather call (record_gathers) launched again and held
+    to its plain version bitwise; the worst |diff| of each entry goes into
+    errs, the wire dtypes into wires."""
+    from ac3acm_tpu_torch.ops import bitgather as BG
+    for i, (entry, args, kw) in enumerate(calls):
+        got = getattr(BG, entry)(*args, **kw)
+        want = getattr(BG, entry + "_ref")(*args, **kw)
+        torch.cuda.synchronize()
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        mism, err = int((diff != 0).sum()), int(diff.max())
+        errs[entry] = max(errs.get(entry, 0), err)
+        wire = "/".join(str(a.dtype).replace("torch.", "")
+                        for a in args[1:] if a is not None)
+        wires.setdefault(entry, set()).add(wire)
+        log(f"check {entry} {tag} call {i} offsets "
+            f"{tuple(args[1].shape)} ({wire}{kw or ''}): {mism} "
+            f"mismatches vs plain")
+        assert mism == 0, (entry, tag, i, mism)
+        del got, want, diff
+
+
 def phase_raw_gathers():
     """Every gather of the raw unpack against its plain version, bitwise,
     at the raw paths' shapes; times of the K2 mantissa, K3 and K4 calls."""
@@ -997,21 +1044,7 @@ def phase_raw_gathers():
         calls = record_gathers(
             lambda: dec.decode_available(max_frames=nframes))
         del dec
-        for i, (entry, args, kw) in enumerate(calls):
-            got = getattr(BG, entry)(*args, **kw)
-            want = plain[entry](*args, **kw)
-            torch.cuda.synchronize()
-            diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
-            mism, err = int((diff != 0).sum()), int(diff.max())
-            errs[entry] = max(errs[entry], err)
-            wire = "/".join(str(a.dtype).replace("torch.", "")
-                            for a in args[1:] if a is not None)
-            wires.setdefault(entry, set()).add(wire)
-            log(f"check {entry} {tag} call {i} offsets "
-                f"{tuple(args[1].shape)} ({wire}{kw or ''}): {mism} "
-                f"mismatches vs plain")
-            assert mism == 0, (entry, tag, i, mism)
-            del got, want, diff
+        check_gather_calls(calls, tag, errs, wires)
         # time the largest call of each entry on its path
         for entry in {e for e, _, _ in calls}:
             args, kw = max(((a, k) for e, a, k in calls if e == entry),
@@ -1456,6 +1489,468 @@ def phase_mixed():
     assert all(same)
 
 
+# ---------------------------------------------------------------------------
+# The Python parser and the single-stream decode.  The Python parser walks
+# every coefficient in Python on the host (tens of ms a frame; its
+# side-info-only form a few), so these phases are sized by host time:
+# one stream of SINGLE_FRAMES frames (16 s of audio), format-switch
+# streams of 2 x SWITCH_FRAMES frames, PY_BATCH lanes of the python
+# parsers, PY_MIX_BATCH lanes of mixed formats, PY_CPL_BATCH coupled lanes.
+# ---------------------------------------------------------------------------
+
+SINGLE_FRAMES, SWITCH_FRAMES, STREAM_FRAMES = 512, 24, 32
+PY_BATCH, PY_NCHUNKS, PY_CHUNK_FRAMES = 64, 2, 4
+PY_MIX_BATCH, PY_CPL_BATCH = 48, 4
+
+
+def cycle(frames, n):
+    return b"".join(frames[j % len(frames)] for j in range(n))
+
+
+@contextlib.contextmanager
+def record_b1():
+    """The arguments of every split_fb_exact call the decode bodies make
+    (each call still launches B1, once), cloned on the card."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    orig = PD.split_fb_exact
+    calls = []
+
+    def call(coeffs, blksw=None):
+        calls.append((coeffs.clone(),
+                      None if blksw is None else blksw.clone()))
+        return orig(coeffs, blksw)
+
+    PD.split_fb_exact = call
+    try:
+        yield calls
+    finally:
+        PD.split_fb_exact = orig
+
+
+def check_b1_calls(calls):
+    """B1 against its plain version on recorded arguments, by value;
+    -> (shapes, max |diff|)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    shapes, worst = set(), 0.0
+    for x, blk in calls:
+        z, d = IE.split_fb_exact(x, blk)
+        zr, dr = IE.split_fb_exact_ref(x, blk)
+        torch.cuda.synchronize()
+        worst = max(worst, float((z - zr).abs().max()),
+                    float((d - dr).abs().max()))
+        assert torch.equal(z, zr) and torch.equal(d, dr), tuple(x.shape)
+        shapes.add(tuple(x.shape[:-1]) + ("short" if blk is not None
+                                          and bool(blk.any()) else "long",))
+    return sorted(shapes), worst
+
+
+@contextlib.contextmanager
+def record_steady():
+    """The arguments of every fused steady call batched_pipeline makes,
+    B1F (fused_steady_exact) and K1 (fused_steady), cloned on the card
+    (each call still launches its kernel, once) -> [(kernel, args)]."""
+    from ac3acm_tpu_torch.parallel import pipeline as PL
+    orig = {"B1F": PL.fused_steady_exact, "K1": PL.fused_steady}
+    names = {"B1F": "fused_steady_exact", "K1": "fused_steady"}
+    calls = []
+
+    def wrap(kernel):
+        def call(*args):
+            calls.append((kernel, tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args)))
+            return orig[kernel](*args)
+        return call
+
+    for k, name in names.items():
+        setattr(PL, name, wrap(k))
+    try:
+        yield calls
+    finally:
+        for k, name in names.items():
+            setattr(PL, name, orig[k])
+
+
+def check_steady_calls(calls, tag):
+    """Recorded B1F and K1 calls launched again and held to their plain
+    versions: B1F int16 bitwise, f32 PCM and the carry by value; K1's PCM
+    within PCM_LSB_TOL and its carry within CARRY_ATOL.  -> {kernel: max
+    |kernel - plain| of the PCM (K1 in LSB)}."""
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
+    worst, shapes = {}, set()
+    for kernel, args in calls:
+        if kernel == "B1F":
+            pcm, dl = FE.fused_steady_exact(*args)
+            pr, dr = FE.fused_steady_exact_ref(*args)
+        else:
+            pcm, dl = FS.fused_steady(*args)
+            pr, dr = FS.fused_steady_ref(*args)
+        torch.cuda.synchronize()
+        err = float((pcm.double() - pr.double()).abs().max())
+        cerr = float((dl - dr).abs().max())
+        if kernel == "B1F":
+            ok = torch.equal(pcm, pr) and torch.equal(dl, dr)
+            err = max(err, cerr)
+        else:
+            ok = err <= FS.PCM_LSB_TOL and cerr <= FS.CARRY_ATOL
+        assert ok, (tag, kernel, tuple(args[0].shape), err, cerr)
+        worst[kernel] = max(worst.get(kernel, 0.0), err)
+        shapes.add((kernel, tuple(args[0].shape), str(pcm.dtype)[6:]))
+    log(f"check {tag}: {len(calls)} recorded fused steady calls "
+        f"{sorted(shapes)} against their plain versions (B1F int16 "
+        f"bitwise, f32 and carry by value; K1 within {FS.PCM_LSB_TOL} LSB): "
+        f"max |diff| {worst}")
+    return worst
+
+
+def kernel_counts():
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
+            **{k: v for k, v in gather_counts().items()}}
+
+
+def zero_kernel_counts():
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops import fused_steady_exact as FE
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    IE.launches = FE.launches = FS.launches = 0
+    zero_gather_counts()
+
+
+def single_stream(es, flags=FLAGS_51_TO_20, bias=0.0, drc=None):
+    """One Decoder() run (the package default, reference mode) over es,
+    its counts set to 0 just before; -> (pcm, NativeDecoder's pcm of the
+    same stream, seconds, kernel counts, B1 calls recorded)."""
+    from ac3acm_tpu_torch.host.native import NativeDecoder
+    from ac3acm_tpu_torch.models.decoder import Decoder
+    dec, nat = Decoder(), NativeDecoder()
+    if drc == "off":
+        dec.set_drc_enabled(False)
+        nat.set_drc_enabled(False)
+    elif drc is not None:
+        dec.dynrng(drc)
+        nat.set_dynrng_call(drc)
+    torch.cuda.synchronize()
+    with record_b1() as calls:
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        pcm, _ = dec.decode_stream(es, flags, 1.0, bias)   # numpy: synced
+        dt = time.perf_counter() - t0
+        counts = kernel_counts()
+    want = nat.decode_stream(es, flags, 1.0, bias)
+    return pcm, want, dt, counts, calls
+
+
+def decode_form(form, frames_bytes):
+    """The Decoder's work over a one-format stream, in one of two forms:
+    "per frame" (one block_pipeline call a frame, the JAX package's
+    Decoder) or "grouped" (one call for the whole run of frames).  -> (PCM,
+    host parse seconds, the rest in seconds: stacking, copies, device)."""
+    from ac3acm_tpu_torch.host.parse import A52Parser
+    from ac3acm_tpu_torch.models import decoder as PD
+    parser, carry = A52Parser(), PD.init_carry()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = [parser.decode_frame(fb, FLAGS_51_TO_20, 1.0, 0.0)
+              for fb in frames_bytes]
+    t1 = time.perf_counter()
+    fmt = PD.frame_format(frames[0])
+    assert all(PD.frame_format(f) == fmt for f in frames)
+    if form == "grouped":
+        carry, pcm = PD.block_pipeline(fmt)(carry, PD._stack_blocks(frames))
+    else:
+        outs = []
+        for f in frames:
+            carry, out = PD.block_pipeline(fmt)(carry, PD._stack_blocks([f]))
+            outs.append(out)
+        pcm = torch.cat(outs)
+    pcm = pcm.cpu().numpy()
+    return pcm, t1 - t0, time.perf_counter() - t1
+
+
+def two_forms(b51, want):
+    """The 16 s stream decoded per frame and grouped, in the order grouped,
+    per frame, per frame, grouped, each equal to the Decoder's PCM; logs
+    each run's x-realtime and its split."""
+    audio_s = SINGLE_FRAMES * 1536 / 48000.0
+    es = [b51[j % len(b51)] for j in range(SINGLE_FRAMES)]
+    for form in ("grouped", "per frame", "per frame", "grouped"):
+        pcm, parse_s, rest_s = decode_form(form, es)
+        assert np.array_equal(pcm, want), form
+        log(f"single stream, {form}: {SINGLE_FRAMES} frames "
+            f"{parse_s + rest_s:.3f} s -> "
+            f"{audio_s / (parse_s + rest_s):.2f}x realtime; host parse "
+            f"{parse_s:.3f} s, the rest (stacking, copies, device) "
+            f"{rest_s:.3f} s; == the Decoder's PCM True")
+
+
+def phase_single():
+    """Decoder() in the package default reference mode on the card (one
+    block_pipeline call a frame, B1 on every frame): a 16 s stream of the
+    5.1 golden frames, then streams that switch 5.1 -> 2.0 mid-stream with
+    DRC off and with a DRC callback; then the 16 s stream timed per frame
+    against one call for the whole run.  -> (B1 launches
+    over the runs, max |B1 - plain| on the Decoder's own shapes)."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    assert PD.ACCURACY == "reference"
+    b51, st, cpl = (golden_frames(p) for p in (GOLDEN, STEREO_GOLDEN,
+                                                 CPL_GOLDEN))
+    es = cycle(b51, SINGLE_FRAMES)
+    pcm, want, dt, counts, calls = single_stream(es)
+    pcm_16s = pcm
+    oracle = np.load(GOLDEN + ".stereo_float.npy")             # 8 frames
+    oerr = float(np.abs(pcm[:48].reshape(48, 512).astype(np.float64)
+                        - oracle).max())
+    same = pcm.shape == want.shape and np.array_equal(pcm, want)
+    audio_s = SINGLE_FRAMES * 1536 / 48000.0
+    log(f"single stream: Decoder() reference mode, {SINGLE_FRAMES} frames "
+        f"of bench_51_448 ({audio_s:.3f} s of audio): {dt:.3f} s -> "
+        f"{audio_s / dt:.2f}x realtime; launches B1 {counts['B1']}, B1F "
+        f"{counts['B1F']}, K1 {counts['K1']}; first 8 frames vs the "
+        f"reference decoder's output max |diff| {oerr}; whole stream == "
+        f"NativeDecoder {same}")
+    assert oerr == 0.0 and same
+    assert counts["B1"] >= SINGLE_FRAMES, counts        # every frame
+    assert counts["B1F"] == counts["K1"] == 0, counts
+    b1 = counts["B1"]
+    b1_calls = calls
+    switch = cycle(b51, SWITCH_FRAMES) + cycle(st, SWITCH_FRAMES)
+    for tag, stream, drc in (
+            ("DRC off", switch, "off"),
+            ("DRC callback", b"".join(cpl) + switch,
+             lambda r: r * np.float32(0.5) + np.float32(0.125))):
+        pcm, want, dt, counts, calls = single_stream(stream, drc=drc)
+        same = pcm.shape == want.shape and np.array_equal(pcm, want)
+        nfr = len(pcm) // 6
+        log(f"single stream, 5.1 -> 2.0 mid-stream, {tag}: {nfr} frames, "
+            f"{dt:.3f} s -> {nfr * 1536 / 48000.0 / dt:.1f}x realtime; "
+            f"launches B1 {counts['B1']}, B1F {counts['B1F']}, K1 "
+            f"{counts['K1']}; == NativeDecoder {same}")
+        assert same, tag
+        assert counts["B1"] >= nfr, counts
+        assert counts["B1F"] == counts["K1"] == 0, counts
+        b1 += counts["B1"]
+        b1_calls += calls
+    shapes, worst = check_b1_calls(b1_calls)
+    log(f"single stream: B1 on the Decoder's {len(b1_calls)} calls (rows "
+        f"{shapes}) equal to its plain version, max |diff| {worst}")
+    two_forms(b51, pcm_16s)
+    return b1, worst
+
+
+def phase_stream_layer():
+    """Ac3ToPcmStream (exact and fast) fed in uneven pieces against the
+    one-shot call, exact int16 against NativeDecoder through the same
+    conversion; the a52 API against NativeDecoder.  -> B1 launches of the
+    exact runs."""
+    from ac3acm_tpu_torch import a52
+    from ac3acm_tpu_torch.host.native import NativeDecoder
+    from ac3acm_tpu_torch.io.stream import Ac3ToPcmStream
+    b51, st = golden_frames(GOLDEN), golden_frames(STEREO_GOLDEN)
+    es = cycle(b51, STREAM_FRAMES) + cycle(st, STREAM_FRAMES)
+    nat = NativeDecoder().decode_stream(es, FLAGS_51_TO_20, 1.0, 384.0)
+    nat_i16 = np.clip(np.round((nat.astype(np.float64) - 384.0) * 32768.0),
+                      -32768, 32767).astype(np.int16)
+    nat_i16 = nat_i16.transpose(0, 2, 1).reshape(-1, 2)
+    b1 = 0
+    for exact in (True, False):
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        whole = Ac3ToPcmStream(2, exact=exact).convert(es)
+        dt = time.perf_counter() - t0
+        counts = kernel_counts()
+        dec = Ac3ToPcmStream(2, exact=exact)
+        parts = np.concatenate([dec.convert(es[:7]), dec.convert(es[7:1007]),
+                                dec.convert(es[1007:])])
+        same = np.array_equal(parts, whole)
+        vs_native = np.array_equal(whole, nat_i16) if exact else \
+            int(np.abs(whole.astype(np.int32) - nat_i16).max())
+        log(f"stream layer Ac3ToPcmStream(exact={exact}): {2 * STREAM_FRAMES}"
+            f" frames (5.1 then 2.0) {dt:.3f} s -> "
+            f"{2 * STREAM_FRAMES * 1536 / 48000.0 / dt:.1f}x realtime; "
+            f"pieces of 7 B, 1,000 B and the rest == one shot {same}; "
+            + (f"int16 == NativeDecoder's through the same conversion "
+               f"{vs_native}" if exact else
+               f"vs NativeDecoder max {vs_native} LSB")
+            + f"; launches B1 {counts['B1']}, B1F {counts['B1F']}, "
+            f"K1 {counts['K1']}")
+        assert same and whole.shape == nat_i16.shape
+        if exact:
+            assert vs_native is True and counts["B1"] >= 2, counts
+            b1 += counts["B1"]
+        else:
+            assert vs_native <= 1 and counts["B1"] == 0, counts
+        assert counts["B1F"] == counts["K1"] == 0, counts
+    st_ = a52.a52_init(0)
+    blocks, pos = [], 0
+    while pos + 7 <= len(es):
+        size = a52.a52_syncinfo(es[pos:pos + 7])[0]
+        assert a52.a52_frame(st_, es[pos:pos + size], FLAGS_51_TO_20, 1.0,
+                             384.0) == 0
+        for _ in range(6):
+            assert a52.a52_block(st_) == 0
+            blocks.append(a52.a52_samples(st_).copy())
+        pos += size
+    a52.a52_free(st_)
+    same = np.array_equal(np.stack(blocks), nat)
+    log(f"stream layer a52_frame/a52_block/a52_samples over the stream == "
+        f"NativeDecoder {same}")
+    assert same
+    return b1
+
+
+def batched_run(parser, streams, flags=FLAGS_51_TO_20, bias=384.0,
+                emit_int16=True, nchunks=PY_NCHUNKS,
+                chunk_frames=PY_CHUNK_FRAMES, spy=None):
+    """One BatchedDecoder run, its kernel counts set to 0 just before;
+    -> (PCM of every chunk [L, blocks, nch, 256], launches per chunk,
+    seconds)."""
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    dec = BatchedDecoder(len(streams), flags, bias=bias,
+                         emit_int16=emit_int16, parser=parser)
+    if spy is not None:
+        orig = dec._raw_dispatch
+        dec._raw_dispatch = lambda *a: spy(parser, *a) or orig(*a)
+    for i, s in enumerate(streams):
+        dec.feed(i, s)
+    torch.cuda.synchronize()
+    zero_kernel_counts()
+    chunks, counts = [], []
+    t0 = time.perf_counter()
+    for _ in range(nchunks):
+        before = kernel_counts()
+        pcm, valid = dec.decode_available(max_frames=chunk_frames)
+        assert valid.all(), parser
+        counts.append({k: v - before[k] for k, v in kernel_counts().items()})
+        chunks.append(pcm)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return torch.cat(chunks, dim=1), counts, dt
+
+
+def phase_python():
+    """BatchedDecoder(parser="python") against parser="native" on the same
+    lanes: reference int16 and float (B1F on every chunk), fast int16 (K1
+    on every chunk), and a mixed-format batch (B1F or B1 on every chunk);
+    every B1F, K1 and B1 call of the python runs held to its plain version.
+    -> {kernel: max |kernel - plain|}."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    nfr = PY_NCHUNKS * PY_CHUNK_FRAMES
+    streams = lane_streams(PY_BATCH, nfr)
+    audio_s = PY_BATCH * nfr * 1536 / 48000.0
+    worst = {"B1F": 0.0, "K1": 0.0, "B1": 0.0}
+    for mode, emit, kernel in (("reference", True, "B1F"),
+                               ("reference", False, "B1F"),
+                               ("fast", True, "K1")):
+        with accuracy(mode):
+            with record_steady() as calls:
+                py, counts, dt = batched_run("python", streams,
+                                             emit_int16=emit)
+            nat, _, dt_n = batched_run("native", streams, emit_int16=emit)
+        same = torch.equal(py, nat)
+        per = [c[kernel] for c in counts]
+        log(f"python parser, {mode} {'int16' if emit else 'float'}: "
+            f"{PY_BATCH} lanes x {PY_NCHUNKS} chunks x {PY_CHUNK_FRAMES} "
+            f"frames {dt:.3f} s -> {audio_s / dt:.1f}x realtime (native "
+            f"{audio_s / dt_n:.0f}x); {kernel} launches per chunk {per}; "
+            f"== parser='native' {same}")
+        assert same and all(c >= 1 for c in per), (mode, emit, per)
+        if mode == "reference":
+            assert all(c["K1"] == 0 and c["B1"] == 0 for c in counts)
+        else:
+            assert all(c["B1F"] == 0 and c["B1"] == 0 for c in counts)
+        assert len(calls) == sum(per), (len(calls), per)
+        for k, v in check_steady_calls(
+                calls, f"python parser {mode} "
+                f"{'int16' if emit else 'float'}").items():
+            worst[k] = max(worst[k], v)
+        del calls
+    assert PD.ACCURACY == "reference"
+    b51, st, mono = (golden_frames(p)
+                     for p in (GOLDEN, STEREO_GOLDEN, MONO_GOLDEN))
+    kinds = [cycle(b51, nfr), cycle(st, nfr), cycle(mono, nfr),
+             cycle(b51, 3) + cycle(st, nfr - 3)]
+    kind = np.arange(PY_MIX_BATCH) % 3
+    kind[::12] = 3
+    feeds = [kinds[k] for k in kind]
+    with record_steady() as calls, record_b1() as b1_calls:
+        py, counts, dt = batched_run("python", feeds, bias=0.0,
+                                     emit_int16=False)
+    nat, _, _ = batched_run("native", feeds, bias=0.0, emit_int16=False)
+    same = torch.equal(py, nat)
+    log(f"python parser, mixed formats: {PY_MIX_BATCH} lanes (5.1 / 2.0 / "
+        f"1.0, {int((kind == 3).sum())} switching 5.1 -> 2.0 at frame 3) x "
+        f"{PY_NCHUNKS} chunks x {PY_CHUNK_FRAMES} frames, reference float; "
+        f"launches per chunk B1 {[c['B1'] for c in counts]}, B1F "
+        f"{[c['B1F'] for c in counts]}, K1 {[c['K1'] for c in counts]}; "
+        f"== parser='native' {same}; {dt:.3f} s")
+    assert same
+    assert all(c["B1F"] + c["B1"] >= 1 and c["K1"] == 0 for c in counts), \
+        counts
+    assert len(calls) == sum(c["B1F"] for c in counts)
+    worst["B1F"] = max(worst["B1F"],
+                       check_steady_calls(calls, "python parser mixed")
+                       .get("B1F", 0.0))
+    shapes, err = check_b1_calls(b1_calls)
+    worst["B1"] = max(worst["B1"], err)
+    log(f"python parser, mixed formats: B1 on its {len(b1_calls)} calls "
+        f"(rows {shapes}) equal to its plain version, max |diff| {err}")
+    return worst
+
+
+def phase_raw_py():
+    """BatchedDecoder(parser="raw_py") against parser="raw": meta, frame
+    bytes and int16 bitwise, K2 and K4 on every chunk; then coupled lanes
+    (K3); every gather and B1F call of the raw_py runs held to its plain
+    version.  -> {kernel or gather entry: max |kernel - plain|}."""
+    seen = {}
+
+    def spy(parser, fmt, fu8, meta, valid, clock=None):
+        seen.setdefault(parser, []).append((fmt, fu8, meta))
+
+    nfr = PY_NCHUNKS * PY_CHUNK_FRAMES
+    errs, wires = {}, {}
+    for tag, streams, want in (
+            ("main", lane_streams(PY_BATCH, nfr),
+             ("extract_fields", "extract_i16_table")),
+            ("coupling", lane_streams(PY_CPL_BATCH, nfr, CPL_GOLDEN,
+                                      rotate=False),
+             ("extract_fields", "extract_fields_shared"))):
+        seen.clear()
+        out = {}
+        with record_steady() as steady:
+            gathers = record_gathers(lambda: out.update(
+                run=batched_run("raw_py", streams, spy=spy)))
+        py, counts, dt = out["run"]
+        raw, _, dt_r = batched_run("raw", streams, spy=spy)
+        same_pcm = torch.equal(py, raw)
+        same_meta = len(seen["raw"]) == len(seen["raw_py"]) == PY_NCHUNKS
+        for (f1, u1, m1), (f2, u2, m2) in zip(seen["raw"], seen["raw_py"]):
+            same_meta &= f1 == f2 and np.array_equal(u1, u2) \
+                and m1.keys() == m2.keys() and all(
+                    m1[k].dtype == m2[k].dtype and np.array_equal(m1[k], m2[k])
+                    for k in m1)
+        per = {k: [c[k] for c in counts] for k in want}
+        audio_s = len(streams) * nfr * 1536 / 48000.0
+        log(f"raw_py, {tag}: {len(streams)} lanes x {PY_NCHUNKS} chunks x "
+            f"{PY_CHUNK_FRAMES} frames {dt:.3f} s -> {audio_s / dt:.1f}x "
+            f"realtime (raw {audio_s / dt_r:.0f}x); launches per chunk "
+            f"{per}; meta and frame bytes == parser='raw' {same_meta}; "
+            f"int16 == parser='raw' {same_pcm}")
+        assert same_pcm and same_meta
+        assert all(c >= 1 for v in per.values() for c in v), per
+        assert len(gathers) == sum(sum(c[k] for c in counts)
+                                   for k, _, _ in GATHER_KERNELS)
+        check_gather_calls(gathers, f"raw_py {tag}", errs, wires)
+        for k, v in check_steady_calls(steady, f"raw_py {tag}").items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        del gathers, steady
+    return errs
+
+
 def main():
     phase_card()
     dev = torch.device("cuda")
@@ -1490,28 +1985,39 @@ def main():
     b1_launches = phase_general()
     torch.cuda.empty_cache()
     phase_mixed()
+    torch.cuda.empty_cache()
+    single_b1, single_err = phase_single()
+    b1_launches += single_b1 + phase_stream_layer()
+    py_errs = phase_python()
+    py_errs.update({k: max(v, py_errs.get(k, 0.0))
+                    for k, v in phase_raw_py().items()})
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
         replaces="ac3acm_tpu/ops/pallas_steady.py:210",
-        launches=launches, max_abs_err=err, **times)]
+        launches=launches, max_abs_err=max(err, py_errs["K1"]), **times)]
     for entry, kname, line in GATHER_KERNELS:
         kernels.append(dict(
             name=kname, route="cuda",
             source="ac3acm_tpu_torch/csrc/bitgather.cu",
             replaces=f"ac3acm_tpu/ops/bitgather.py:{line}",
-            launches=raw_launches[entry], **gathers[entry]))
+            launches=raw_launches[entry], **dict(
+                gathers[entry], max_abs_err=max(gathers[entry]["max_abs_err"],
+                                                py_errs.get(entry, 0)))))
     kernels.append(dict(
         name="imdct_exact (B1)", route="cuda",
         source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
         replaces="ac3acm_tpu/ops/imdct_exact.py:437,466 (XLA; no pallas_call)",
-        launches=b1_launches, max_abs_err=b1_err, **b1_times))
+        launches=b1_launches,
+        max_abs_err=max(b1_err, single_err, py_errs["B1"]),
+        **b1_times))
     kernels.append(dict(
         name="fused_steady_exact (B1F)", route="cuda",
         source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
         replaces="ac3acm_tpu/ops/imdct_exact.py:437,466 + the steady OLA "
                  "and int16 (XLA; no pallas_call)",
-        launches=b1f_launches, max_abs_err=b1f_err, **b1f_times))
+        launches=b1f_launches, max_abs_err=max(b1f_err, py_errs["B1F"]),
+        **b1f_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,8 @@ from ac3acm_tpu.parallel.pipeline import BatchedDecoder as JaxDecoder
 from ac3acm_tpu_torch.models import decoder as PD
 from ac3acm_tpu_torch.ops import fused_steady as FS
 from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+from tests.test_torch_imdct_exact import (  # noqa: F401  (fixtures)
+    jax_exact_callback, jax_split)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 FLAGS = JT.A52_STEREO | JT.A52_ADJUST_LEVEL
@@ -135,12 +137,17 @@ def test_dense_parser_bitwise():
 
 
 def test_unported_paths_refuse(fast):
-    """The Python parsers raise instead of guessing; a mixed-format batch
-    decodes, each lane within 1 LSB of its stream decoded alone."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        BatchedDecoder(2, FLAGS, parser="python", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        BatchedDecoder(2, FLAGS, parser="raw_py", device="cpu")
+    """What is still not ported raises instead of guessing: a mesh
+    (multi-GPU, ROADMAP A12) with every parser."""
+    for parser in ("native", "raw", "python", "raw_py"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            BatchedDecoder(2, FLAGS, mesh=object(), parser=parser,
+                           device="cpu")
+
+
+def test_mixed_format_batch_matches_lanes_alone(fast):
+    """A mixed-format batch decodes, each lane within 1 LSB of its stream
+    decoded alone."""
     streams = [_es()[:2 * FRAME], _es("stereo_192.ac3")[:2 * 768]]
     dec = BatchedDecoder(2, FLAGS, bias=384.0, emit_int16=True, device="cpu")
     for i, es in enumerate(streams):
@@ -155,6 +162,146 @@ def test_unported_paths_refuse(fast):
         assert np.abs(pcm[i].numpy().astype(np.int64)
                       - want[0].numpy().astype(np.int64)).max() \
             <= FS.PCM_LSB_TOL
+
+
+def _drain(parser, feeds, refeeds=(), max_frames=3, bias=384.0,
+           emit_int16=True, flags=FLAGS):
+    """Every chunk of one port BatchedDecoder over the lane feeds (refeeds
+    arrive after the first chunk) -> (PCM [L, blocks, nch, 256], valid,
+    the decoder)."""
+    dec = BatchedDecoder(len(feeds), flags, bias=bias, emit_int16=emit_int16,
+                         parser=parser, device="cpu")
+    for i, data in enumerate(feeds):
+        dec.feed(i, data)
+    chunks, valids = [], []
+    while True:
+        r = dec.decode_available(max_frames=max_frames)
+        if r is None:
+            break
+        chunks.append(r[0])
+        valids.append(r[1])
+        for i, data in refeeds:
+            dec.feed(i, data)
+        refeeds = ()
+    return torch.cat(chunks, dim=1), np.concatenate(valids, axis=1), dec
+
+
+@pytest.mark.parametrize("mode", ["reference", "fast"])
+@pytest.mark.parametrize("emit_int16", [True, False])
+def test_python_parser_equals_native(monkeypatch, mode, emit_int16):
+    """parser="python" (A52Parser per lane) gives the native parser's PCM
+    and carry bit for bit: rotated lanes, an uneven feed (the pending
+    frames), in both accuracy modes, int16 and float."""
+    monkeypatch.setattr(PD, "ACCURACY", mode)
+    es = _es()
+    feeds = [es[:2 * FRAME]] + [es[i * FRAME:] + es[:i * FRAME]
+                                for i in range(1, 3)]
+    refeeds = [(0, es[2 * FRAME:])]
+    (pn, vn, dn), (pp, vp, dp) = (
+        _drain(p, feeds, refeeds, emit_int16=emit_int16)
+        for p in ("native", "python"))
+    assert pn.shape == pp.shape == (3, 48, 2, 256)
+    assert vn.all() and vp.all()
+    assert pp.dtype == (torch.int16 if emit_int16 else torch.float32)
+    assert torch.equal(pn, pp)
+    assert torch.equal(dn._carry[0], dp._carry[0])
+    assert torch.equal(dn._carry[1], dp._carry[1])
+
+
+@pytest.mark.parametrize("mode", ["reference", "fast"])
+def test_raw_py_equals_raw(monkeypatch, mode):
+    """parser="raw_py" (the side-info-only A52Parser) ships the native
+    side-info parser's meta and frame bytes bitwise and decodes the same
+    int16 PCM, on the main stream and on the coupling stream."""
+    monkeypatch.setattr(PD, "ACCURACY", mode)
+    from ac3acm_tpu_torch.parallel import pipeline as PL
+    seen = {}
+    orig = PL.BatchedDecoder._raw_dispatch
+
+    def spy(self, fmt, fu8, meta, valid, clock=None):
+        seen.setdefault(self._parser_kind, []).append((fmt, fu8, meta))
+        return orig(self, fmt, fu8, meta, valid, clock)
+
+    monkeypatch.setattr(PL.BatchedDecoder, "_raw_dispatch", spy)
+    es = _es()
+    cpl = _es("cpl51_hazard.ac3")
+    for feeds in ([es[i * FRAME:] + es[:i * FRAME] for i in range(3)],
+                  [cpl, cpl]):
+        seen.clear()
+        (pr, vr, _), (pp, vp, _) = (_drain(p, feeds, max_frames=4)
+                                    for p in ("raw", "raw_py"))
+        assert vr.all() and vp.all()
+        assert torch.equal(pr, pp)
+        assert len(seen["raw"]) == len(seen["raw_py"]) >= 2
+        for (f1, u1, m1), (f2, u2, m2) in zip(seen["raw"], seen["raw_py"]):
+            assert f1 == f2
+            np.testing.assert_array_equal(u1, u2)
+            assert m1.keys() == m2.keys()
+            for k in m1:
+                assert m1[k].dtype == m2[k].dtype, k
+                np.testing.assert_array_equal(m1[k], m2[k], err_msg=k)
+
+
+def test_python_mixed_formats_equal_native(monkeypatch):
+    """A mixed-format batch with a mid-stream 5.1 -> 2.0 switch through
+    the python parser (FrameData buckets, premixed per bucket) equals the
+    native parser's, in reference and fast mode; a mixed raw_py batch
+    refuses as raw does."""
+    b51, st = _es()[:3 * FRAME], _es("stereo_192.ac3")[:3 * 768]
+    mono = _es("mono_96.ac3")
+    feeds = [b51, st, mono[:len(mono) // 2], b51[:FRAME] + st[:2 * 768]]
+    for mode in ("reference", "fast"):
+        monkeypatch.setattr(PD, "ACCURACY", mode)
+        (pn, _, _), (pp, _, _) = (_drain(p, feeds, max_frames=3)
+                                  for p in ("native", "python"))
+        assert pn.shape == pp.shape
+        assert torch.equal(pn, pp)
+    dec = BatchedDecoder(2, FLAGS, parser="raw_py", device="cpu")
+    dec.feed(0, b51)
+    dec.feed(1, st)
+    with pytest.raises(ValueError, match="format-homogeneous"):
+        dec.decode_available(max_frames=2)
+
+
+def _damaged(es, frame, seed=5):
+    """es with six bytes of one frame's side info flipped: the parsers
+    reject that frame and go on with the next."""
+    rng = np.random.default_rng(seed)
+    bad = bytearray(es)
+    for k in rng.integers(8, 64, 6):
+        bad[frame * FRAME + int(k)] ^= int(rng.integers(1, 256))
+    return bytes(bad)
+
+
+def test_python_parsers_mask_rejected_frames_as_native():
+    """A frame with damaged side info is masked at the same place by all
+    four parsers (valid False), and the PCM around it is the same bit for
+    bit: python == native, raw_py == raw, in a homogeneous batch and in a
+    mixed-format one."""
+    es = _es()
+    feeds = [es, _damaged(es, 2), es[FRAME:] + es[:FRAME]]
+    pcm, valid = {}, {}
+    for parser in ("native", "python", "raw", "raw_py"):
+        pcm[parser], valid[parser], _ = _drain(parser, feeds, max_frames=8)
+    want = np.ones((3, 8), bool)
+    want[1, 2] = False
+    for parser in pcm:
+        np.testing.assert_array_equal(valid[parser], want, err_msg=parser)
+    assert torch.equal(pcm["native"], pcm["python"])
+    assert torch.equal(pcm["raw"], pcm["raw_py"])
+    mixed = [es[:6 * FRAME], _damaged(es, 2)[:6 * FRAME],
+             _es("stereo_192.ac3")]
+    (pn, vn, _), (pp, vp, _) = (
+        _drain(p, mixed, max_frames=6, bias=0.0, emit_int16=False)
+        for p in ("native", "python"))
+    np.testing.assert_array_equal(vn, vp)
+    assert not vn[1, 2] and vn.sum() == 17
+    assert torch.equal(pn, pp)
+
+
+def test_unknown_parser_raises():
+    with pytest.raises(ValueError, match="parser="):
+        BatchedDecoder(2, FLAGS, parser="fortran", device="cpu")
 
 
 def test_passthrough_lanes_match_jax(fast):
@@ -230,3 +377,32 @@ def test_positional_order_keeps_the_mesh_slot():
                  lambda: raw_batched_pipeline(fmt, mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             call()
+
+
+# ROADMAP A4's guard on other output modes: (stream, flags) pairs whose
+# outputs are not the stereo downmix of the goldens
+# and the stream's frame size
+OUTPUT_MODES = [("bench_51_448.ac3", JT.A52_3F2R | JT.A52_LFE, FRAME),
+                ("bench_51_448.ac3", JT.A52_MONO | JT.A52_ADJUST_LEVEL, FRAME),
+                ("stereo_192.ac3", JT.A52_DOLBY, 768)]
+
+
+@pytest.mark.parametrize("name,flags,size", OUTPUT_MODES)
+def test_output_modes_match_jax(jax_exact_callback, name, flags, size):
+    """Other output modes in the default reference mode, float at bias 0:
+    the port's native, python and raw parsers against the JAX
+    BatchedDecoder (its order-exact transform reached through a host
+    callback, so each format compiles one elementwise program), by
+    value."""
+    nfr = 4
+    feeds = [_es(name)[:nfr * size]] * 2
+    ref = JaxDecoder(2, flags, bias=0.0, parser="native", nthreads=1)
+    for i, data in enumerate(feeds):
+        ref.feed(i, data)
+    want, jvalid = ref.decode_available(max_frames=nfr)
+    assert np.asarray(jvalid).all()
+    for parser in ("native", "python", "raw"):
+        pcm, valid, _ = _drain(parser, feeds, max_frames=nfr, bias=0.0,
+                               emit_int16=False, flags=flags)
+        assert valid.all() and pcm.shape == np.asarray(want).shape, parser
+        assert np.array_equal(pcm.numpy(), np.asarray(want)), parser

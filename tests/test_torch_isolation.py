@@ -24,9 +24,12 @@ def test_import_every_module_without_jax():
         " or m == 'ac3acm_tpu' or m.startswith('ac3acm_tpu.')]\n"
         "assert not bad, bad\n"
         "new = {'ac3acm_tpu_torch.ops.bitgather', 'ac3acm_tpu_torch.ops.alloc',"
-        " 'ac3acm_tpu_torch.ops.unpack_device'}\n"
+        " 'ac3acm_tpu_torch.ops.unpack_device', 'ac3acm_tpu_torch.a52',"
+        " 'ac3acm_tpu_torch.host.bitio', 'ac3acm_tpu_torch.host.alloc',"
+        " 'ac3acm_tpu_torch.host.parse', 'ac3acm_tpu_torch.io.stream',"
+        " 'ac3acm_tpu_torch.utils.config', 'ac3acm_tpu_torch.utils.trace'}\n"
         "assert new <= set(names), names\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 24, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -43,7 +46,7 @@ def test_sources_name_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 17
+    assert len(files) >= 24
     for path in files:
         text = open(path).read()
         m = _FORBIDDEN.search(text)
@@ -60,8 +63,17 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         init_batched_carry(4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         BatchedDecoder(2, T.A52_STEREO)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        BatchedDecoder(2, T.A52_STEREO, parser="raw")
+    for parser in ("raw", "python", "raw_py"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BatchedDecoder(2, T.A52_STEREO, parser=parser)
+    from ac3acm_tpu_torch.io.stream import Ac3ToPcmStream
+    from ac3acm_tpu_torch.models.decoder import Decoder, init_carry
+    for make in (Decoder, lambda: Decoder(exact=False), init_carry,
+                 Ac3ToPcmStream, lambda: Ac3ToPcmStream(2, exact=True)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert Decoder(device="cpu").device.type == "cpu"
+    assert Ac3ToPcmStream(device="cpu").dec.device.type == "cpu"
     from ac3acm_tpu_torch.ops.unpack_device import init_unpack_carry
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_unpack_carry(2)

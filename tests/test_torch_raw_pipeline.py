@@ -230,22 +230,26 @@ def test_mixed_formats_raise(fast):
 
 
 def test_unported_paths_raise(fast, monkeypatch):
-    """raw_py and python need the Python parser (A3) and still raise.
-    Short blocks (the block scan) decode: the raw PCM equals the native
-    parser's bitwise.  Reference accuracy (the order-exact IMDCT) decodes:
-    float output at bias 0 equals the reference decoder's bit for bit."""
-    for parser in ("raw_py", "python"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-            BatchedDecoder(1, FLAGS51, parser=parser, device="cpu")
+    """A mesh (multi-GPU, ROADMAP A12) still raises on both raw parsers;
+    the Python parsers are ported and decode.  Short blocks (the block
+    scan) decode: the raw PCM equals the native parser's bitwise, and the
+    Python parsers' PCM theirs.  Reference accuracy (the order-exact
+    IMDCT) decodes: float output at bias 0 equals the reference decoder's
+    bit for bit."""
+    for parser in ("raw", "raw_py"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            BatchedDecoder(1, FLAGS51, mesh=object(), parser=parser,
+                           device="cpu")
     es = streamgen.gen_stream(16, 3, False, nframes=2, want_blksw=True)
     pcms = []
-    for parser in ("raw", "native"):
+    for parser in ("raw", "native", "raw_py", "python"):
         dec = BatchedDecoder(1, JT.A52_STEREO, parser=parser, device="cpu")
         dec.feed(0, es)
         pcm, valid = dec.decode_available(max_frames=2)
         assert valid.all()
         pcms.append(pcm)
-    assert torch.equal(pcms[0], pcms[1])
+    for pcm in pcms[1:]:
+        assert torch.equal(pcms[0], pcm)
     monkeypatch.setattr(PD, "ACCURACY", "reference")
     dec = BatchedDecoder(1, FLAGS51, parser="raw", device="cpu")
     dec.feed(0, _es("bench_51_448.ac3"))
