@@ -1,8 +1,8 @@
-"""ac3acm_tpu_torch: the AC-3 (ATSC A/52) decode path in PyTorch and CUDA.
+"""ac3acm_tpu_torch: the AC-3 (ATSC A/52) codec in PyTorch and CUDA.
 
 The port of ``ac3acm_tpu`` to one NVIDIA H100.  It holds the batched
-decode in both accuracy modes, the Python parser and the single-stream
-decode:
+decode in both accuracy modes, the Python parser, the single-stream
+decode, the encoder and the transcoder:
 
   host.native          native C++ parsers (dense, side-info, one stream)
                        and the native CPU decoder (own copy of the runtime)
@@ -17,9 +17,18 @@ decode:
   parallel.pipeline    batched_pipeline, raw_batched_pipeline,
                        BatchedDecoder(parser="native" | "raw" | "python"
                        | "raw_py")
-  io.stream            the ACM-shell format model and Ac3ToPcmStream
-  a52                  the a52_* decode API (on the native CPU decoder)
-  utils.state          carry and parser-state checkpoint / resume
+  models.encoder       the frame encoder (ops.mdct, the rate model of
+                       ops.alloc), Encoder
+  ops.pack_device      frame assembly on the device (host.pack: on the host)
+  parallel.encode      BatchedEncoder(pack="device" | "native")
+  parallel.transcode   Transcoder(parser="native" | "raw"),
+                       transcode_pipeline(_multi)
+  io.stream            the ACM-shell format model, Ac3ToPcmStream and
+                       PcmToAc3Stream
+  a52                  the a52_* decode API (on the native CPU decoder) and
+                       AC3_encode_init / AC3_encode_frame
+  utils.state          decoder carry, parser state and encoder carry
+                       checkpoint / resume
 
 Entry points run on the CUDA card unless the caller passes device="cpu".
 Kernels build at first use, never at import.

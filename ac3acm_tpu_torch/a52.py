@@ -7,8 +7,8 @@ state decodes through the native C++ decoder (host.native.NativeDecoder,
 float for float the reference decoder) on the host: this API has no
 device path in either package, so it takes no ``device`` argument.  The
 device decodes are models.decoder.Decoder (one stream) and
-parallel.pipeline.BatchedDecoder (many).  The AC3_encode_* half is
-ROADMAP A9.
+parallel.pipeline.BatchedDecoder (many).  The AC3_encode_* half returns
+a models.encoder.Encoder, which runs on the device.
 """
 from __future__ import annotations
 
@@ -136,3 +136,23 @@ def a52_flags(state: a52_state_t) -> int:
 
 def a52_free(state: a52_state_t) -> None:
     state._dec = None
+
+
+# --- encoder entry points (ac3enc.h parity) --------------------------------
+
+def AC3_encode_init(freq: int, bitrate: int, channels: int, device=None):
+    """Returns an encoder handle (frame size via .frame_bytes); raises
+    ValueError on unsupported parameters (the C returns 0).  device: None
+    -> the CUDA card (raises without one); "cpu" runs the plain PyTorch
+    path."""
+    from .models.encoder import Encoder
+    return Encoder(freq, bitrate, channels, device=device)
+
+
+def AC3_encode_frame(enc, samples: np.ndarray,
+                     chmap=None) -> bytes:
+    """Encode one 1536-sample interleaved int16 frame."""
+    pcm = np.asarray(samples, np.int16).reshape(T.FRAME_SAMPLES, -1)
+    if chmap is not None:
+        pcm = pcm[:, np.asarray(chmap)]
+    return enc.encode(pcm)

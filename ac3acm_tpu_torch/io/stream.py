@@ -11,9 +11,9 @@ Capability parity with src/AC3ACM.cpp minus the Windows plumbing:
   * Ac3ToPcmStream: incremental decode with byte-wise resync, partial-frame
     input carry and undelivered-block output carry
     (stream_convert_ac3, AC3ACM.cpp:1430-1628),
-  * the WAVE-order -> AC-3-order channel map (create_channel_map,
-    AC3ACM.cpp:1631-1662) the encoder stream will use (PcmToAc3Stream is
-    ROADMAP A9),
+  * PcmToAc3Stream: incremental encode with a partial-frame input carry
+    (stream_convert_pcm) through the WAVE-order -> AC-3-order channel map
+    (create_channel_map, AC3ACM.cpp:1631-1662),
   * the AC3ASM MapTab interleave orders for decoded PCM
     (AC3ASM.asm:39-117 and the CONVERTn comments).
 """
@@ -226,6 +226,30 @@ class Ac3ToPcmStream:
         x = (planes.astype(np.float64) - 384.0) * 32768.0
         i16 = np.clip(np.round(x), -32768, 32767).astype(np.int16)
         return i16.transpose(0, 2, 1).reshape(-1, len(order))
+
+
+class PcmToAc3Stream:
+    """Incremental int16 PCM -> AC-3 (stream_convert_pcm parity).
+
+    device: None -> the CUDA card (raises without one); "cpu" runs the
+    plain PyTorch path."""
+
+    def __init__(self, fmt: Ac3Format, cfg: CodecConfig | None = None,
+                 device=None):
+        from ..models.encoder import Encoder
+        self.fmt = fmt
+        self.chmap = create_channel_map(fmt.channels)
+        self.enc = Encoder(fmt.sample_rate, fmt.bitrate * 1000, fmt.channels,
+                           chmap=self.chmap, device=device)
+        self.carry = np.zeros((0, fmt.channels), np.int16)
+
+    def convert(self, pcm: np.ndarray) -> bytes:
+        """Feed interleaved int16 [n, nch] in WAVE channel order."""
+        pcm = np.concatenate([self.carry, np.asarray(pcm, np.int16)], axis=0)
+        nfr = pcm.shape[0] // T.FRAME_SAMPLES
+        out = self.enc.encode(pcm[: nfr * T.FRAME_SAMPLES]) if nfr else b""
+        self.carry = pcm[nfr * T.FRAME_SAMPLES:]
+        return out
 
 
 def stream_copy(data: bytes, dst_capacity: int | None = None) -> bytes:

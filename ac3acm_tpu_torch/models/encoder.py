@@ -1,0 +1,567 @@
+"""AC-3 encoder on tensors: bit-exact frames of the reference encoder.
+
+Capability parity with the reference encoder (fccHandler/Bellard ac3enc,
+ac3enc.cpp), batched over streams:
+
+  * the six blocks x channels x streams window, normalize and MDCT in one
+    pass (ops.mdct: the reference's int16 block-float arithmetic),
+  * exponent strategy, reuse folding and the delta-constraint encoding as
+    whole-tensor ops (the reference's iterative constraint loop,
+    ac3enc.cpp:730-747, is replaced by its fixpoint: the largest
+    2-Lipschitz array below the group minima, one cumulative minimum each
+    way),
+  * the SNR-offset hill climb (ac3enc.cpp:918-975) replayed exactly by a
+    binary search over the monotone bit cost (ops.alloc.bits_for_snro),
+  * quantization (ac3enc.cpp:1149-1190) elementwise on int64 words that
+    wrap to int32 where the reference's ints do.
+
+Packing is host.pack (one frame in Python, or the threaded C++ packer) or
+ops.pack_device (frames assembled on the device).  Encoder state per
+stream is explicit, (last_samples, csnroffst), so the encoder is
+reentrant and batchable.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import tables as T
+from ..ops import alloc as AL
+from ..ops.mdct import extract_exponents, mdct512, window_norm_block
+from ..utils.device import resolve_device
+
+EXP_NEW = 1
+FRAME_BITS_INC = (0, 0, 2, 2, 2, 4, 2, 4)
+ACMOD_BY_NCH = (1, 2, 3, 6, 7, 7)      # ac3enc.cpp:1029-1036
+
+# lane-frames per call of the frame core: a multi-frame encode of B lanes
+# runs max(1, CORE_ROWS // B) frames a call (the core does not depend on
+# the carry, so any grouping gives the same bytes).  Fewer, larger calls
+# launch fewer small ops; peak memory grows with the rows (on an H100, 5.1
+# at 16,384 rows: 24.5 GB; chip_smoke.py's encode phase times the forms)
+CORE_ROWS = 16384
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    channels: int                      # 1..6 (6 => 5.1)
+    fscod: int
+    halfratecod: int
+    frmsizecod: int
+    frame_size: int                    # in 16-bit words
+    bit_rate: int                      # kbit/s (full-rate table value)
+
+    @property
+    def acmod(self) -> int:
+        return ACMOD_BY_NCH[self.channels - 1]
+
+    @property
+    def lfe(self) -> bool:
+        return self.channels == 6
+
+    @property
+    def nfchans(self) -> int:
+        return min(self.channels, 5)
+
+    @property
+    def nb_coefs(self):
+        n = [223] * self.nfchans
+        if self.lfe:
+            n.append(7)
+        return tuple(n)
+
+    @property
+    def sample_rate(self) -> int:
+        return int(T.SAMPLE_RATES[self.fscod]) >> self.halfratecod
+
+
+def make_config(freq: int, bitrate: int, channels: int) -> EncoderConfig:
+    """AC3_encode_init parameter selection (ac3enc.cpp:1019-1110)."""
+    if not 1 <= channels <= 6:
+        raise ValueError("channels must be 1..6")
+    fscod = halfratecod = None
+    for hr in range(3):
+        for j in range(3):
+            if (int(T.SAMPLE_RATES[j]) >> hr) == freq:
+                fscod, halfratecod = j, hr
+                break
+        if fscod is not None:
+            break
+    if fscod is None:
+        raise ValueError(f"unsupported sample rate {freq}")
+    kbps = bitrate // 1000
+    idx = None
+    for i in range(19):
+        if (int(T.BIT_RATES[i]) >> halfratecod) == kbps:
+            idx = i
+            break
+    if idx is None:
+        raise ValueError(f"unsupported bitrate {bitrate}")
+    frame_size = kbps * 1000 * T.FRAME_SAMPLES // (freq * 16)
+    return EncoderConfig(channels=channels, fscod=fscod,
+                         halfratecod=halfratecod, frmsizecod=idx << 1,
+                         frame_size=frame_size, bit_rate=int(T.BIT_RATES[idx]))
+
+
+# ---------------------------------------------------------------------------
+# exponent encoding (static shapes per strategy)
+# ---------------------------------------------------------------------------
+
+def _encode_exp_static(exp, nb_coefs: int, gsize: int):
+    """encode_exp for one static (nb_coefs, group size).
+
+    exp [..., 256] int32 -> (encoded [..., 256], nbits int).
+
+    The reference's iterative +-2 delta relaxation (ac3enc.cpp:730-747)
+    converges to the largest 2-Lipschitz array below the group minima:
+    c_i = min(v_i, c_{i-1} + 2), whose closed form
+    f_i = 2i + cummin_{j<=i}(v_j - 2j), and the same backward."""
+    dev = exp.device
+    ngroups = ((nb_coefs + gsize * 3 - 4) // (3 * gsize)) * 3
+    k = torch.as_tensor(1 + np.arange(ngroups)[:, None] * gsize
+                        + np.arange(gsize)[None, :], device=dev)
+    gmin = exp[..., k].amin(dim=-1)                       # [..., ngroups]
+    dc = torch.clamp(exp[..., 0:1], max=15)
+    v = torch.cat([dc, gmin], dim=-1)                     # [..., ngroups+1]
+    j2 = torch.arange(0, 2 * (ngroups + 1), 2, dtype=exp.dtype, device=dev)
+    f = torch.cummin(v - j2, dim=-1).values + j2
+    g = torch.cummin((f + j2).flip(-1), dim=-1).values.flip(-1) - j2
+    out = torch.zeros_like(exp)
+    out[..., 0] = g[..., 0]
+    out[..., 1:1 + ngroups * gsize] = torch.repeat_interleave(
+        g[..., 1:], gsize, dim=-1)
+    return out, 4 + (ngroups // 3) * 7
+
+
+# ---------------------------------------------------------------------------
+# quantization (ac3enc.cpp:1149-1190), per coefficient on int64 words
+# ---------------------------------------------------------------------------
+
+def _wrap32(x):
+    """int64 -> the value of (int32)x, kept in int64."""
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def _shl32(x, s):
+    """int32 x << s as XLA defines it for any count: a count outside
+    [0, 31] gives 0.  x, s int64; the count is clamped before the shift,
+    so no device sees an over-wide one."""
+    ok = (s >= 0) & (s < 32)
+    return torch.where(ok, _wrap32(x << torch.clamp(s, 0, 31)), 0)
+
+
+def _sar32(x, s):
+    """int32 x >> s (arithmetic) as XLA defines it: a count outside
+    [0, 31] fills with the sign."""
+    return x >> torch.where((s < 0) | (s > 31), 31, s)
+
+
+@lru_cache(maxsize=8)
+def _quant_tables(device: torch.device):
+    """Per bap class: symmetric levels (classes 1-5, else 0), asymmetric
+    bits (classes 6-15, else 1), as int64 tensors."""
+    levels = np.zeros(16, np.int64)
+    levels[1:6] = (3, 5, 7, 11, 15)
+    qbits = np.ones(16, np.int64)
+    for cls in range(6, 16):
+        qbits[cls] = cls - 1 if cls < 14 else (14 if cls == 14 else 16)
+    return (torch.tensor(levels, device=device),
+            torch.tensor(qbits, device=device))
+
+
+def quantize(coef, enc_exp, global_exp, bap):
+    """Raw per-coefficient quantized codes (before group combining).
+
+    Each coefficient is quantized by its own class (a per-element table
+    lookup of levels or bits, not one pass per class); every int32 step
+    of the reference wraps as it does there."""
+    levels_t, qbits_t = _quant_tables(coef.device)
+    cls = bap.to(torch.int64)
+    c = coef.to(torch.int64)
+    e = (enc_exp - global_exp[..., None]).to(torch.int64)
+    # symmetric: levels 3, 5, 7, 11, 15
+    levels = levels_t[cls]
+    x = _shl32(_wrap32(c.abs()), e)
+    v = (_wrap32(levels * x) >> 24) + 1 >> 1
+    half = levels >> 1
+    sym = torch.where(c >= 0, half + v, half - v)
+    # asymmetric: qbits-bit two's complement, saturated at the top
+    qbits = qbits_t[cls]
+    lshift = e + qbits - 24
+    v = torch.where(lshift >= 0, _shl32(c, torch.clamp(lshift, min=0)),
+                    _sar32(c, torch.clamp(-lshift, min=0)))
+    v = _wrap32(v + 1) >> 1
+    one = torch.ones_like(qbits)
+    m = one << (qbits - 1)
+    v = torch.where(v >= m, m - 1, v)
+    asym = v & ((one << qbits) - 1)
+    out = torch.where(cls >= 6, asym, torch.where(cls >= 1, sym, 0))
+    return out.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the frame core
+# ---------------------------------------------------------------------------
+
+def _frame_constants(cfg: EncoderConfig):
+    """(fixed side-info bits, available bits) of a frame (ac3enc.cpp:
+    881-916); the only dynamic side info is 8 bits per non-REUSE fbw
+    (block, channel) for chbwcod+gainrng, plus the exponents."""
+    nf, nch = cfg.nfchans, cfg.channels
+    fixed = 65 + FRAME_BITS_INC[cfg.acmod]
+    for _ in range(6):
+        fixed += nf * 2 + 2
+        if cfg.acmod == 2:
+            fixed += 1
+        fixed += 2 * nf
+        if cfg.lfe:
+            fixed += 1
+        fixed += 1 + 1 + 2
+    fixed += 1
+    fixed += 2 * 4 + 3 + 6 + nch * (4 + 3)
+    fixed += 2 + 16
+    return fixed, 16 * cfg.frame_size
+
+
+def _strategy(cfg: EncoderConfig, exp):
+    """exp [N, 6, ch, 256] -> (new [N, 6, ch] bool: the block starts a
+    run, strat [N, 6, ch] int32), ac3enc.cpp:617-668."""
+    N, nch, nf = exp.shape[0], cfg.channels, cfg.nfchans
+    dev = exp.device
+    diff = (exp[:, 1:] - exp[:, :-1]).abs().sum(dim=-1)      # [N, 5, ch]
+    new = torch.cat([torch.ones((N, 1, nch), dtype=torch.bool, device=dev),
+                     diff > 1000], dim=1)                     # [N, 6, ch]
+    # next_new[i] = min{j > i : new[j]} (6 if none)
+    running = torch.full((N, nch), 6, dtype=torch.int32, device=dev)
+    nxt = [None] * 6
+    for i in range(5, -1, -1):
+        nxt[i] = running
+        running = torch.where(new[:, i], i, running)
+    strat = []
+    for i in range(6):
+        runlen = nxt[i] - i
+        code = torch.where(runlen == 1, T.EXP_D45,
+                           torch.where(runlen <= 3, T.EXP_D25, T.EXP_D15))
+        s_i = torch.where(new[:, i], code, T.EXP_REUSE)
+        if cfg.lfe:
+            s_i[:, nf] = torch.where(new[:, i, nf], EXP_NEW, T.EXP_REUSE)
+        strat.append(s_i)
+    return new, torch.stack(strat, dim=1).to(torch.int32)
+
+
+def _encode_exponents(cfg: EncoderConfig, exp, new, strat):
+    """Reuse folding + exponent coding: -> (enc_exp [N, 6, ch, 256] int32,
+    exponent bits [N])."""
+    N, nch, nf, nb = exp.shape[0], cfg.channels, cfg.nfchans, cfg.nb_coefs
+    dev = exp.device
+    # run id + exponent_min fold over each run (ac3enc.cpp:1730-1749)
+    rid = torch.zeros((N, nch), dtype=torch.int32, device=dev)
+    run_id = []
+    for i in range(6):
+        rid = torch.where(new[:, i], i, rid)
+        run_id.append(rid)
+    run_id = torch.stack(run_id, dim=1)                       # [N, 6, ch]
+    live = (torch.arange(256, device=dev)[None, :]
+            < torch.as_tensor(nb, device=dev)[:, None])       # [ch, 256]
+    folded = exp.clone()
+    for i in range(6):
+        same = run_id == run_id[:, i:i + 1]
+        fmin = torch.where(same[..., None], exp, 25).amin(dim=1)
+        folded[:, i] = torch.where(live, fmin, exp[:, i])
+
+    enc_exp = torch.zeros_like(exp)
+    exp_bits = torch.zeros((N,), dtype=torch.int32, device=dev)
+    fbw = folded[:, :, :nf]
+    for g, scode in ((1, T.EXP_D15), (2, T.EXP_D25), (4, T.EXP_D45)):
+        e_s, bits_s = _encode_exp_static(fbw, nb[0], g)
+        sel = strat[:, :, :nf] == scode                       # [N, 6, nf]
+        enc_exp[:, :, :nf] = torch.where(sel[..., None], e_s,
+                                         enc_exp[:, :, :nf])
+        exp_bits += sel.sum(dim=(1, 2), dtype=torch.int32) * bits_s
+    if cfg.lfe:                                       # D15 only, nb = 7
+        e_s, bits_s = _encode_exp_static(folded[:, :, nf], 7, 1)
+        sel = strat[:, :, nf] == EXP_NEW
+        enc_exp[:, :, nf] = torch.where(sel[..., None], e_s,
+                                        enc_exp[:, :, nf])
+        exp_bits += sel.sum(dim=1, dtype=torch.int32) * bits_s
+    # reuse blocks take the block before's encoded exponents
+    for i in range(1, 6):
+        reuse = strat[:, i] == T.EXP_REUSE
+        enc_exp[:, i] = torch.where(reuse[..., None], enc_exp[:, i - 1],
+                                    enc_exp[:, i])
+    return enc_exp, exp_bits
+
+
+@lru_cache(maxsize=16)
+def _mask_tables(cfg: EncoderConfig, device: torch.device):
+    """(live bins [ch, 256], ends [ch], is_lfe [ch], hearing threshold
+    [50]) on `device`."""
+    nb = torch.as_tensor(cfg.nb_coefs, dtype=torch.int32, device=device)
+    live = torch.arange(256, dtype=torch.int32, device=device) < nb[:, None]
+    is_lfe = torch.zeros(cfg.channels, dtype=torch.bool, device=device)
+    if cfg.lfe:
+        is_lfe[cfg.nfchans] = True
+    hth = torch.as_tensor(T.HTH[:, cfg.fscod].astype(np.int32),
+                          device=device)
+    return live, nb, is_lfe, hth
+
+
+def _masking(cfg: EncoderConfig, enc_exp):
+    """The snroffset-independent masking curve: -> (psd [N, 6, ch, 256],
+    mask [N, 6, ch, 50])."""
+    hr = cfg.halfratecod
+    live, nb, is_lfe, hth = _mask_tables(cfg, enc_exp.device)
+    psd = torch.where(live, 3072 - (enc_exp << 7), 0)
+    ends = nb.expand(enc_exp.shape[:3])
+    bnd = AL.band_psd(psd, ends)
+    exc = AL.excitation(bnd, int(T.FGAINTAB[4]), int(T.SGAINTAB[1]),
+                        int(T.FDECAYTAB[1]) >> hr, int(T.SDECAYTAB[2]) >> hr,
+                        is_lfe.expand(enc_exp.shape[:3]))
+    mask = AL.masking_curve(bnd, exc, int(T.DBKNEETAB[2]), hth)
+    return psd, mask
+
+
+def _snr_search(cfg: EncoderConfig, psd, mask, frame_bits):
+    """The reference's SNR-offset walk replayed by binary search: -> (M
+    [N]: the largest coarse offset whose fine offset 0 fits, -1 if none;
+    fstar [N]: the largest fitting fine offset at M).
+
+    The bit cost is monotone in snroffset, so the reference's down/up-4/
+    up-1 hill climb (ac3enc.cpp:918-975) lands at M whenever its down
+    pass finds a fit, and the fine pass at max{f : fits(M, f)}: 7 + 5
+    single-offset cost evaluations."""
+    live = _mask_tables(cfg, psd.device)[0]
+    floor = int(T.FLOORTAB[4])
+    avail = _frame_constants(cfg)[1] - frame_bits
+    N = psd.shape[0]
+    dev = psd.device
+
+    def fits(c, f):
+        snro = (((c - 15) << 4) + f) << 2
+        bits = AL.bits_for_snro(psd, live, mask, snro[:, None, None, None],
+                                floor).sum(dim=-1)
+        return avail - bits >= 0
+
+    lo = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    hi = torch.full((N,), 63, dtype=torch.int32, device=dev)
+    zero = torch.zeros_like(lo)
+    for _ in range(7):                    # ceil(log2(65))
+        mid = (lo + hi + 1) >> 1
+        ok = fits(mid, zero)
+        lo = torch.where(ok, mid, lo)
+        hi = torch.where(ok, hi, mid - 1)
+    flo = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    fhi = torch.full((N,), 15, dtype=torch.int32, device=dev)
+    for _ in range(5):                    # ceil(log2(17))
+        fmid = (flo + fhi + 1) >> 1
+        ok = fits(lo, fmid)
+        flo = torch.where(ok, fmid, flo)
+        fhi = torch.where(ok, fhi, fmid - 1)
+    return lo, torch.clamp(flo, min=0)
+
+
+def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
+    """(cur, prev) -> frame-fields dict over a flat leading batch.
+
+    cur/prev [N, 6, ch, 256] int32: a frame's blocks and the overlapped
+    blocks before them (prev[:, 0] is the frame before's last block).
+    Returns every field but the csnroffst bookkeeping: "M" is the largest
+    feasible coarse offset, which does not depend on the carried
+    csnroffst (see _csnr_fixup).
+
+    clock: an object with mark(name), called after each stage."""
+    mark = clock.mark if clock is not None else (lambda name: None)
+    nf = cfg.nfchans
+    windowed, _, exp_samples = window_norm_block(prev, cur)
+    mark("window + normalize")
+    coef = mdct512(windowed)                              # [N,6,ch,256]
+    mark("MDCT")
+    exp, coef = extract_exponents(coef, exp_samples)
+    new, strat = _strategy(cfg, exp)
+    enc_exp, exp_bits = _encode_exponents(cfg, exp, new, strat)
+    mark("exponents + strategy + coding")
+    psd, mask = _masking(cfg, enc_exp)
+    mark("masking curve")
+    fbw_new = (strat[:, :, :nf] != T.EXP_REUSE).sum(dim=(1, 2),
+                                                    dtype=torch.int32)
+    frame_bits = _frame_constants(cfg)[0] + exp_bits + 8 * fbw_new
+    M, fstar = _snr_search(cfg, psd, mask, frame_bits)
+    mark("SNR search")
+    snro = (((M - 15) << 4) + fstar) << 2
+    ends = _mask_tables(cfg, cur.device)[1].expand(strat.shape)
+    bap = AL.bap_from_mask(psd, mask, snro[:, None, None, None],
+                           int(T.FLOORTAB[4]), torch.zeros_like(ends), ends)
+    qmant = quantize(coef, enc_exp, exp_samples, bap)
+    mark("bap + quantize")
+    return dict(bap=bap.to(torch.int8), qmant=qmant,
+                enc_exp=(enc_exp & 0xFF).to(torch.uint8), strat=strat,
+                M=M, fsnroffst=fstar, new_last=cur[:, 5])
+
+
+def _csnr_fixup(res, csnroffst):
+    """The carried-csnroffst bookkeeping of one frame: ok <=> the
+    reference's down pass finds a fit from the carried start
+    (M >= csnr & 3); cstar = M then.  On !ok every caller raises (the
+    reference prints its error and aborts the frame), so the fields of
+    such lanes are don't-cares."""
+    M = res.pop("M")
+    ok = M >= (csnroffst & 3)
+    cstar = torch.where(ok, M, csnroffst)
+    return dict(res, csnroffst=cstar, ok=ok, new_csnr=cstar)
+
+
+def _blocks(samples, nch):
+    """samples [..., 1536, nch] -> blocks [..., 6, nch, 256] int32."""
+    lead = samples.shape[:-2]
+    return samples.to(torch.int32).reshape(lead + (6, 256, nch)) \
+        .transpose(-1, -2)
+
+
+def encode_pipeline(cfg: EncoderConfig):
+    """-> fn(samples [B, 1536, nch] int (any width), last [B, ch, 256]
+    int32, csnroffst [B] int32) -> dict of frame fields + new carry."""
+    def run(samples, last, csnroffst):
+        cur = _blocks(samples, cfg.channels)
+        prev = torch.cat([last[:, None], cur[:, :5]], dim=1)
+        return _csnr_fixup(frame_core(cfg, cur, prev), csnroffst)
+    return run
+
+
+def _frame_groups(cfg: EncoderConfig, samples, last, clock=None):
+    """samples [F, B, 1536, nch], last [B, ch, 256] -> yields the core
+    result (leading [n, B]) of each group of n = max(1, CORE_ROWS // B)
+    consecutive frames, in order."""
+    F, B = samples.shape[:2]
+    cur = _blocks(samples, cfg.channels)                  # [F,B,6,ch,256]
+    step = max(1, CORE_ROWS // B)
+    for f0 in range(0, F, step):
+        n = min(step, F - f0)
+        c = cur[f0:f0 + n]
+        first = last[None] if f0 == 0 else cur[f0 - 1:f0, :, 5]
+        before = torch.cat([first, c[:-1, :, 5]], dim=0)  # [n, B, ch, 256]
+        p = torch.cat([before[:, :, None], c[:, :, :5]], dim=2)
+        c = c.reshape((n * B,) + c.shape[2:])
+        p = p.reshape((n * B,) + p.shape[2:])
+        if clock is not None:
+            clock.mark("block layout")
+        res = frame_core(cfg, c, p, clock)
+        yield {k: v.reshape((n, B) + v.shape[1:]) for k, v in res.items()}
+
+
+def _replay_csnr(res, csnr):
+    """_csnr_fixup through a group's frames in order: -> (fields with
+    csnroffst, ok and new_csnr per frame, the carry out)."""
+    M = res.pop("M")
+    steps = []
+    for f in range(M.shape[0]):
+        steps.append(_csnr_fixup({"M": M[f]}, csnr))
+        csnr = steps[-1]["new_csnr"]
+    return dict(res, **{k: torch.stack([r[k] for r in steps])
+                        for k in steps[0]}), csnr
+
+
+def encode_pipeline_multi(cfg: EncoderConfig):
+    """-> fn(samples [F, B, 1536, nch], last, csnr) -> ((last', csnr'),
+    fields with a leading [F] axis): the frames in groups of
+    max(1, CORE_ROWS // B), the csnroffst carry replayed frame by frame;
+    the same fields as F calls of encode_pipeline."""
+    def multi(samples, last, csnr):
+        outs = []
+        for res in _frame_groups(cfg, samples, last):
+            res, csnr = _replay_csnr(res, csnr)
+            outs.append(res)
+        outs = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        return (outs["new_last"][-1], csnr), outs
+    return multi
+
+
+def encode_pipeline_packed(cfg: EncoderConfig, clock=None):
+    """-> fn(samples [F, B, 1536, nch] int, last, csnr) -> ((last', csnr'),
+    ok [F, B] bool, frames [F, B, frame_size*2] uint8), all on the
+    samples' device: the dense fields never leave it, each frame group is
+    packed as soon as it is encoded (ops.pack_device).
+
+    clock: an object with mark(name), called after the block layout,
+    each frame_core stage, the csnr carry and each pack stage."""
+    from ..ops.pack_device import pack_frames_device
+
+    def full(samples, last, csnr):
+        oks, frames = [], []
+        for res in _frame_groups(cfg, samples, last, clock):
+            res, csnr = _replay_csnr(res, csnr)
+            if clock is not None:
+                clock.mark("csnr carry")
+            oks.append(res["ok"])
+            frames.append(pack_frames_device(
+                cfg, res["bap"], res["qmant"], res["enc_exp"], res["strat"],
+                res["csnroffst"], res["fsnroffst"], clock))
+            last = res["new_last"][-1]
+        return (last, csnr), torch.cat(oks), torch.cat(frames)
+
+    return full
+
+
+def rate_failures(ok) -> list:
+    """ok [..., B] bool tensor -> up to 8 failing (frame, stream) indices
+    (empty when every frame fits)."""
+    ok = ok.cpu()
+    if bool(ok.all()):
+        return []
+    return torch.nonzero(~ok)[:8].tolist()
+
+
+# ---------------------------------------------------------------------------
+# public encoder
+# ---------------------------------------------------------------------------
+
+class Encoder:
+    """AC3_encode_init / AC3_encode_frame parity, reentrant & batchable.
+
+    >>> enc = Encoder(48000, 192000, 2)
+    >>> frames = enc.encode(pcm_int16)     # pcm [n*1536, nch] interleaved
+
+    device: None -> the CUDA card (raises without one); "cpu" runs the
+    plain PyTorch path.  Frames are packed on the host by the native
+    packer, as in the JAX package."""
+
+    # frames per device call; longer encodes run in chunks of this many
+    CHUNK = 16
+
+    def __init__(self, freq: int, bitrate: int, channels: int,
+                 chmap=None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = make_config(freq, bitrate, channels)
+        self.chmap = np.arange(channels) if chmap is None \
+            else np.asarray(chmap)
+        self.last = torch.zeros((1, channels, 256), dtype=torch.int32,
+                                device=self.device)
+        self.csnroffst = torch.full((1,), 40, dtype=torch.int32,
+                                    device=self.device)
+        self._fn = encode_pipeline_multi(self.cfg)
+
+    @property
+    def frame_bytes(self) -> int:
+        return self.cfg.frame_size * 2
+
+    def encode(self, pcm: np.ndarray) -> bytes:
+        """pcm int16 [nsamples, nch] (interleaved rows); whole frames only."""
+        from ..host import pack as PK
+        pcm = np.asarray(pcm)
+        nfr = pcm.shape[0] // T.FRAME_SAMPLES
+        out = bytearray()
+        for i in range(0, nfr, self.CHUNK):
+            f = min(self.CHUNK, nfr - i)
+            chunk = pcm[i * 1536:(i + f) * 1536][:, self.chmap] \
+                .astype(np.int16).reshape(f, 1, 1536, -1)
+            (last, csnr), res = self._fn(
+                torch.from_numpy(chunk).to(self.device), self.last,
+                self.csnroffst)
+            if rate_failures(res["ok"]):
+                raise RuntimeError("rate control failed (frame too small)")
+            self.last, self.csnroffst = last, csnr
+            out += b"".join(PK.pack_frames_native(
+                self.cfg, {k: v.cpu().numpy() for k, v in res.items()}))
+        return bytes(out)

@@ -4,8 +4,13 @@ The device twin of liba52's a52_bit_allocate (bit_allocate.c:124-265),
 batched over any leading axes: band PSD integration, the leak/excitation
 recursion over the 50 bands, the masking curve and mask -> bap.  Table
 lookups (LATAB, BAPTAB) are indexed loads of small tensors built once
-per device from ``tables``.  The encoder half (mantissa_bits and the
-rate-search helpers) is not ported yet.
+per device from ``tables``.
+
+The encoder half is the rate model of the SNR-offset search: the grouped-
+mantissa bit cost of a bap lattice (mantissa_bits), counted without the
+lattice from the masking curve for one offset (bits_for_snro, the
+encoder's form), or for many offsets from per-band exponent histograms
+(exp_histogram + bits_for_offsets).  All three give the same counts.
 """
 from __future__ import annotations
 
@@ -155,21 +160,151 @@ def masking_curve(bndpsd, excite, dbknee, hth_row, deltba=None):
     return mask
 
 
+def _vbin(mask, snro, floor):
+    """The masking threshold of every bin for one SNR offset:
+    mask [..., 50] -> [..., 256] (0 past bin 252)."""
+    masktab = _tables_on(mask.device)[2]
+    v = torch.clamp(mask - snro - floor, min=0)
+    v = (v & 0x1FE0) + floor
+    vbin = v[..., masktab]                                # [..., 253]
+    return torch.cat([vbin, torch.zeros(vbin.shape[:-1] + (3,),
+                                        dtype=vbin.dtype,
+                                        device=vbin.device)], dim=-1)
+
+
 def bap_from_mask(psd, mask, snroffset, floor, start, end):
     """mask [..., 50] + psd [..., 256] -> bap [..., 256] int8.
 
     start/end [...] bound the live bins; bins outside get class 0."""
-    _, baptab, masktab = _tables_on(psd.device)
-    v = mask - snroffset - floor
-    v = torch.clamp(v, min=0)
-    v = (v & 0x1FE0) + floor
-    vbin = v[..., masktab]                                # [..., 253]
-    vbin = torch.cat([vbin, torch.zeros(vbin.shape[:-1] + (3,),
-                                        dtype=vbin.dtype,
-                                        device=vbin.device)], dim=-1)
-    address = torch.clamp((psd - vbin) >> 5, 0, 63)
+    baptab = _tables_on(psd.device)[1]
+    address = torch.clamp((psd - _vbin(mask, snroffset, floor)) >> 5, 0, 63)
     bap = baptab[address]
     bins = torch.arange(256, dtype=torch.int32, device=psd.device)
     live = (bins >= start[..., None]) & (bins < end[..., None])
     return torch.where(live, bap, torch.zeros((), dtype=torch.int8,
                                               device=psd.device))
+
+
+# ---------------------------------------------------------------------------
+# encoder half: the rate model of the SNR-offset search
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=1)
+def _class_bounds():
+    """First address of each bap class k (BAPTAB is monotone)."""
+    lo = np.zeros(16, np.int32)
+    for k in range(1, 16):
+        lo[k] = int(np.argmax(T.BAPTAB >= k))
+    return lo
+
+
+@lru_cache(maxsize=1)
+def _band_layout():
+    """Padded [50, 24] bin-index layout plus in-band position masks."""
+    idx = np.zeros((50, 24), np.int64)
+    valid = np.zeros((50, 24), bool)
+    for b in range(50):
+        sz = int(T.BNDSZ[b])
+        start = int(T.BNDTAB[b])
+        idx[b, :sz] = np.arange(start, start + sz)
+        valid[b, :sz] = True
+    return idx, valid
+
+
+@lru_cache(maxsize=8)
+def _rate_tables_on(device: torch.device):
+    """(32 * first address of classes 1..15 [15], the [50, 24] band
+    layout, its valid mask) as tensors on `device`."""
+    idx, valid = _band_layout()
+    return (torch.tensor(32 * _class_bounds()[1:], dtype=torch.int32,
+                         device=device),
+            torch.tensor(idx, device=device),
+            torch.tensor(valid, device=device))
+
+
+def _grouped_bits(nk):
+    """Per-class counts [..., 15] (classes 1..15) -> mantissa bits [...]:
+    classes 1, 2 and 4 pack three, three and two codes a group."""
+    n1, n2, n3, n4 = nk[..., 0], nk[..., 1], nk[..., 2], nk[..., 3]
+    bits = (5 * torch.div(n1 + 2, 3, rounding_mode="floor")
+            + 7 * torch.div(n2 + 2, 3, rounding_mode="floor") + 3 * n3
+            + 7 * torch.div(n4 + 1, 2, rounding_mode="floor"))
+    for j, w in enumerate(T.BAP_BITS[5:16]):             # classes 5..15
+        bits = bits + int(w) * nk[..., 4 + j]
+    return bits
+
+
+def mantissa_bits(bap, end):
+    """Per-(batch)-block mantissa bit cost with grouped-class sharing.
+
+    bap [..., C, 256]: C channels whose group counters share one block
+    (ac3enc.cpp:764-810: the counters carry across channels within a
+    block and reset per block).  end [..., C].  Returns bits [...]."""
+    bins = torch.arange(256, dtype=torch.int32, device=bap.device)
+    live = bins < end[..., None]
+    nk = torch.stack([(live & (bap == cls)).sum(dim=(-1, -2),
+                                                dtype=torch.int32)
+                      for cls in range(1, 16)], dim=-1)
+    return _grouped_bits(nk)
+
+
+def bits_for_snro(psd, live, mask, snro, floor):
+    """Grouped-mantissa bit cost for one (broadcastable) SNR offset,
+    counted directly per bin.
+
+    psd  [..., C, 256] int32 (3072 - 128*exp, zero past end)
+    live [..., C, 256] bool
+    mask [..., C, 50]
+    snro broadcastable against mask's leading axes (e.g. [B, 1, 1, 1])
+    -> bits [...] per block (summed over channels and bins; the grouped
+    classes' ceilings taken after the channel sum).
+
+    Exactly mantissa_bits(bap_from_mask(...)): a live bin's class is the
+    number of class bounds its address reaches, and its address reaches
+    bound k iff psd - vbin >= 32 * lo_k, so the per-class counts are 15
+    compares a bin.  Dead bins are moved below every bound instead of
+    masked."""
+    t32 = _rate_tables_on(psd.device)[0]
+    base = torch.where(live, psd - _vbin(mask, snro, floor),
+                       torch.iinfo(torch.int32).min)
+    ge = (base[..., None] >= t32).sum(dim=(-3, -2), dtype=torch.int32)
+    nk = torch.cat([ge[..., :-1] - ge[..., 1:], ge[..., -1:]], dim=-1)
+    return _grouped_bits(nk)
+
+
+def exp_histogram(exp, ends):
+    """exp [..., C, 256] int32 -> per-band exponent histogram
+    H [..., C, 50, 25] float32 where H[..., b, e] = #coefficients of band
+    b (below end) with exponent e."""
+    _, idx, valid = _rate_tables_on(exp.device)
+    e = exp[..., idx]                                   # [..., C, 50, 24]
+    live = valid & (idx < ends[..., None, None])
+    onehot = (e[..., None] == torch.arange(25, device=exp.device)) \
+        & live[..., None]
+    return onehot.sum(dim=-2).to(torch.float32)         # [..., C, 50, 25]
+
+
+def bits_for_offsets(hist, mask, snro, floor):
+    """Grouped-mantissa bit cost for many SNR offsets at once.
+
+    hist: exp_histogram output [..., C, 50, 25] (float32)
+    mask: [..., C, 50] (the snroffset-independent masking curve)
+    snro: broadcastable against mask (e.g. candidates[:, None, None, None,
+          None] for a leading axis)
+    -> bits [S, ..., blocks...], as bits_for_snro.
+
+    A coefficient with exponent e has address >= t iff psd - v >= 32t
+    with psd = 3072 - 128e, so each bound's count is a compare-and-
+    accumulate over the 25 exponent bins."""
+    t32 = _rate_tables_on(mask.device)[0]
+    v = torch.clamp(mask - snro - floor, min=0)
+    v = (v & 0x1FE0) + floor                            # [S, ..., C, 50]
+    base = (3072 - v)[..., None] - t32                  # [S, ..., C, 50, 15]
+    ge = torch.zeros(v.shape[:-2] + (15,), dtype=torch.float32,
+                     device=mask.device)
+    for e in range(25):
+        cmp = (base >= 128 * e).to(torch.float32)
+        ge = ge + (hist[..., e, None] * cmp).sum(dim=(-3, -2))
+    ge = ge.to(torch.int32)                             # [S, ..., 15]
+    nk = torch.cat([ge[..., :-1] - ge[..., 1:], ge[..., -1:]], dim=-1)
+    return _grouped_bits(nk)

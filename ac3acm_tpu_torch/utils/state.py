@@ -1,4 +1,4 @@
-"""Checkpoint / resume of decode state.
+"""Checkpoint / resume of decode and encode state.
 
 The decoder's carried state is the OLA delay planes + downmixed flag:
 (delay [..., 6, 128] f32, downmixed [...] bool), per lane or for one
@@ -7,6 +7,9 @@ stream, plus, for the Python parser, its side-info caches
 layout in both directions: "delay" and "downmixed", and with a parser
 its state as plain arrays and one JSON blob of scalars -- pure data, no
 pickle, so loading an untrusted file cannot run code.
+
+The encoder's carried state is (last [..., ch, 256] int32: the last
+block's samples, csnroffst [...] int32), saved as "last" and "csnr".
 """
 from __future__ import annotations
 
@@ -115,3 +118,19 @@ def load_parser_state(path: str):
     ``parser.s = load_parser_state(path)``."""
     with np.load(path, allow_pickle=False) as z:
         return _unpack_parser_state(z) if "pscalars" in z else None
+
+
+def save_encode_state(path: str, last_samples, csnroffst):
+    """Write an encoder carry (tensors or arrays) in the JAX package's
+    .npz layout."""
+    np.savez(path, last=np.asarray(torch.as_tensor(last_samples).cpu()),
+             csnr=np.asarray(torch.as_tensor(csnroffst).cpu()))
+
+
+def load_encode_state(path: str, device=None):
+    """-> (last, csnroffst) int32 tensors on `device` (None: the CUDA
+    card)."""
+    device = resolve_device(device)
+    with np.load(path, allow_pickle=False) as z:
+        return tuple(torch.from_numpy(np.array(z[k], np.int32)).to(device)
+                     for k in ("last", "csnr"))

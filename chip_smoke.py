@@ -109,7 +109,35 @@ Phases, each fatal on failure (nothing is caught and passed over):
                meta, frame bytes and int16, K2 and K4 on every chunk (64
                lanes), K3 on coupled lanes (4 lanes); every gather and
                B1F call of the raw_py runs held to its plain version
- 17. report    one JSON line listing every kernel, then the device line
+ 17. enc digest the encoder's integer primitives (window + normalize, MDCT,
+               exponents, quantize at shift counts -40..60, av_log2) on
+               edge cases, card equal to CPU bitwise; then
+               BatchedEncoder(pack="device") and pack="native" on 8 lanes
+               x 4 frames (two calls, the carry crossing them) of seeded
+               PCM (tones, noise, silence, full scale) in six formats: the
+               sha256 of each equal to the JAX encoder's (ENC_DIGESTS)
+ 18. encode    the JAX benchmark's configs 3 (4096 lanes x 8 frames, 2.0,
+               192 kbit/s) and 4 (2048 x 8, 5.1, 640 kbit/s) on
+               bench.py:_encode_pcm's content: device pack == native pack
+               on every frame; x-realtime end to end (int16 PCM on the host
+               in, bytes on the host out) and on the device alone; peak
+               memory; each stage's CUDA-event time, ATen op count and
+               least bytes; the core's frame grouping both ways; the host
+               packer alone
+ 19. single enc Encoder over 512 frames (x-realtime); a 17-frame call
+               (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
+               PcmToAc3Stream fed in ragged pieces == the a52 encode API;
+               a round trip through Decoder() above 12 dB SNR
+ 20. transcode Transcoder(4096, 192000, 2) over the golden 5.1 lanes, 2
+               chunks x 4 frames, reference mode, parser "native" (f32 and
+               compact) and "raw", and 256 coupled raw lanes: B1F (and on
+               the raw paths K2 and K4, on the coupled one K3) on every
+               chunk, K1 and B1 never; every B1F and gather call held to
+               its plain version; the first 8 lanes' digest equal to the
+               JAX Transcoder's (TC_DIGEST); raw == native; the f32 bytes
+               of 64 lanes == BatchedDecoder int16 -> BatchedEncoder;
+               x-realtime of step_frames and of dispatch_frames/finish
+ 21. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -1951,6 +1979,556 @@ def phase_raw_py():
     return errs
 
 
+# ---------------------------------------------------------------------------
+# the encoder and the transcode (ROADMAP A9 + A10)
+# ---------------------------------------------------------------------------
+
+# encoder digests: (channels, sample rate, kbit/s); lanes x frames, encoded
+# in two calls of half the frames each (the carry crosses a call)
+ENC_DIGEST_CONFIGS = ((2, 48000, 192), (6, 48000, 640), (1, 32000, 96),
+                      (2, 44100, 128), (5, 48000, 448), (2, 24000, 96))
+DIGEST_LANES, DIGEST_FRAMES = 8, 4
+# sha256 of each config's lanes' bytes in lane order, from the JAX
+# package's BatchedEncoder on the same PCM (tests/test_torch_pack.py
+# recomputes every one)
+ENC_DIGESTS = {
+    (2, 48000, 192):
+        "c2e5ca62a1e2f560230365c9c90cd632e7a1ff603ec6d9ee551da09f58fc3fdb",
+    (6, 48000, 640):
+        "b27234b407259919929944a30769ee472342688f823c039a4f445a207fee128c",
+    (1, 32000, 96):
+        "bfb2a9c4d517e7f61341a917b9636bdb565a07ec6dcd3dc5ad2756097a79d58f",
+    (2, 44100, 128):
+        "68769ccf28e51dd85ede40b687ef6dd921673eef3f793013d2ece9cb98c5048c",
+    (5, 48000, 448):
+        "8cfb21b6962ee49fb08fd1fc584fc638eb1c84fe2b3a91ca16354d061651ff4d",
+    (2, 24000, 96):
+        "d8552fdd8874411f48736fd3f72e760ee8d4af6b77e5a552c326654b1552e4c4",
+}
+# the JAX benchmark's configs 3 and 4 (bench.py:bench_encode, 1024 and 512
+# lanes there) at the H100's memory: lanes, frames, channels, kbit/s
+ENC_MAIN = (("config 3", 4096, 8, 2, 192), ("config 4", 2048, 8, 6, 640))
+ENC_SINGLE_FRAMES = 512
+# transcode (config 5, bench.py:bench_config5; 1024 x 4 frames there):
+# lanes, chunks, frames per chunk; the coupled raw batch's lanes
+TC_BATCH, TC_NCHUNKS, TC_CHUNK_FRAMES = 4096, 2, 4
+TC_CPL_BATCH = 256
+# sha256 of the first 8 lanes' re-encoded bytes (reference mode, native
+# parser), from the JAX package's Transcoder (tests/test_torch_transcode.py)
+TC_DIGEST = ("edb3f6e9b6fc932dbdeed9350fce642750f143c17b125085ebfcdf9e080a6edf")
+TC_DIGEST_LANES = 8
+# encoder stages in the order frame_core and pack_frames_device mark them
+ENC_STAGES = ("block layout", "window + normalize", "MDCT",
+              "exponents + strategy + coding", "masking curve", "SNR search",
+              "bap + quantize", "csnr carry", "pack: tokens",
+              "pack: offsets", "pack: deposit", "pack: CRC")
+
+
+def mixed_pcm(nch, nframes, seed, lanes=1):
+    """Seeded PCM [lanes, nframes*1536, nch] int16 (PCG64, the same on
+    every machine) mixing tones, noise, silence and full-scale segments:
+    exponent reuse, every strategy, grouped mantissas and overrange
+    exponents all occur."""
+    rng = np.random.default_rng(seed)
+    n = nframes * 1536
+    t = np.arange(n)[None, :, None]
+    f = rng.uniform(40, 9000, (lanes, 1, nch))
+    x = 0.5 * np.sin(2 * np.pi * f * t / 48000 + rng.uniform(0, 6, f.shape))
+    x += rng.choice([0.0, 0.02, 0.3], (lanes, 1, nch)) \
+        * rng.standard_normal((lanes, n, nch))
+    x *= 20000
+    seg = rng.integers(0, 4, (lanes, n // 256 + 1, 1))
+    seg = np.repeat(seg, 256, axis=1)[:, :n]
+    x = np.where(seg == 0, 0.0, x)                                # silence
+    sq = np.where((t // 37) % 2 == 0, 32767.0, -32768.0)
+    x = np.where(seg == 1, np.broadcast_to(sq, x.shape), x)       # full scale
+    return np.clip(np.round(x), -32768, 32767).astype(np.int16)
+
+
+def encode_digest(make_encoder, config):
+    """sha256 of DIGEST_LANES lanes x DIGEST_FRAMES frames of mixed_pcm
+    through make_encoder(lanes, rate, bit/s, channels).encode_frames, in
+    two calls; -> (hex digest, the lanes' bytes)."""
+    import hashlib
+    nch, freq, kbps = config
+    pcm = mixed_pcm(nch, DIGEST_FRAMES, nch * 7 + kbps + freq // 1000,
+                    DIGEST_LANES)
+    enc = make_encoder(DIGEST_LANES, freq, kbps * 1000, nch)
+    half = DIGEST_FRAMES // 2 * 1536
+    outs = [a + b for a, b in zip(enc.encode_frames(pcm[:, :half]),
+                                  enc.encode_frames(pcm[:, half:]))]
+    return hashlib.sha256(b"".join(outs)).hexdigest(), outs
+
+
+def tc_chunks(lanes, path=GOLDEN, rotate=True):
+    """Per chunk, per lane, the bytes of TC_CHUNK_FRAMES golden frames;
+    with rotate, lane i starts at frame i mod n."""
+    base = golden_frames(path)
+    n = len(base)
+    nfr = TC_NCHUNKS * TC_CHUNK_FRAMES
+    per = [[base[((i % n if rotate else 0) + j) % n] for j in range(nfr)]
+           for i in range(lanes)]
+    return [[b"".join(fr[k * TC_CHUNK_FRAMES:(k + 1) * TC_CHUNK_FRAMES])
+             for fr in per] for k in range(TC_NCHUNKS)]
+
+
+def transcode_run(tc, chunks):
+    """chunks (tc_chunks) through tc.step_frames; -> each lane's bytes."""
+    outs = [b""] * len(chunks[0])
+    for data in chunks:
+        outs = [a + b for a, b in zip(outs, tc.step_frames(
+            data, TC_CHUNK_FRAMES))]
+    return outs
+
+
+def tc_digest(outs):
+    import hashlib
+    return hashlib.sha256(b"".join(outs[:TC_DIGEST_LANES])).hexdigest()
+
+
+class EventClock:
+    """mark(name) records a CUDA event; seconds() sums the time between
+    each mark and the one before under the later mark's name."""
+
+    def __init__(self):
+        self.events = [(None, self._event())]
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def mark(self, name):
+        self.events.append((name, self._event()))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (name, b) in zip(self.events, self.events[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+class OpClock:
+    """Counts the ATen ops dispatched between marks (each is a kernel
+    launch or two at most, or none for a view), by the later mark's name."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        clock = self
+
+        class Count(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                clock.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n, self.by, self.mode = 0, {}, Count()
+
+    def mark(self, name):
+        self.by[name] = self.by.get(name, 0) + self.n
+        self.n = 0
+
+
+def stage_least_bytes(rows, nch, frame_bytes):
+    """Least bytes each encoder stage must move for `rows` lane-frames:
+    its inputs read once and its outputs written once at the narrowest
+    type that holds them, per (block, channel): samples int16, a
+    coefficient int32 (up to 2^17), an exponent or bap class a byte, a
+    quantized code int16 (up to 16 bits), the masking curve 50 int16."""
+    bc = rows * 6 * nch
+    s16, c32, b8, q16, m16 = 256 * 2, 256 * 4, 256, 256 * 2, 50 * 2
+    return {
+        "block layout": 2 * bc * s16,
+        "window + normalize": bc * (2 * s16 + 2 * s16 + 1),
+        "MDCT": bc * (2 * s16 + c32),
+        "exponents + strategy + coding": bc * (c32 + b8),
+        "masking curve": bc * (b8 + m16),
+        "SNR search": bc * (b8 + m16),
+        "bap + quantize": bc * (c32 + b8 + m16 + b8 + q16),
+        "csnr carry": 0,
+        "pack: tokens": bc * (b8 + q16 + b8),
+        "pack: offsets": 0,
+        "pack: deposit": rows * frame_bytes,
+        "pack: CRC": 2 * rows * frame_bytes,
+    }
+
+
+def enc_extremes(seed=0):
+    """Integer edge cases of the encoder's filterbank and quantizer, as
+    numpy inputs: block pairs (full-scale +-32767 / -32768 square waves,
+    silence, single impulses, noise at four scales), near-overrange
+    coefficients, quantizer inputs whose shift counts run from -40 to 60,
+    and av_log2 arguments at int32's edges."""
+    rng = np.random.default_rng(seed)
+    n = 32
+    blocks = (rng.standard_normal((2, n, 256)) * rng.choice(
+        [10.0, 300.0, 8000.0, 30000.0], (2, n, 1))).round()
+    i = np.arange(256)
+    blocks[:, 0] = np.where(i % 32 < 16, 32767, -32767)
+    blocks[:, 1] = np.where(i % 8 < 4, 32767, -32768)
+    blocks[:, 2:4] = 0
+    blocks[0, 4, :] = 0
+    blocks[0, 4, 100] = 32767
+    blocks[1, 5, :] = 0
+    blocks[1, 5, 0] = -32768
+    blocks[:, 6] = blocks[::-1, 0]
+    blocks = np.clip(blocks, -32768, 32767).astype(np.int32)
+    coef = rng.integers(-(1 << 17), 1 << 17, (8, 256)).astype(np.int32)
+    coef[0] = [1 << (k % 17) for k in range(256)]
+    coef[1] = -coef[0]
+    coef[2] = 0
+    cexp = np.array([-9, -9, 0, 5, -3, 2, -9, 4], np.int32)
+    shifts = np.arange(-40, 61, 4)
+    qcoef = rng.integers(-(1 << 17), 1 << 17, (len(shifts), 16 * 64))
+    qcoef[:, :11] = [0, 1, -1, 65535, -65536, 2**31 - 1, -2**31, 2**30,
+                     -2**30, 32767, -32768]
+    qenc = np.broadcast_to(24 + shifts[:, None], qcoef.shape).copy()
+    qenc[:, ::3] = rng.integers(-10, 40, qenc[:, ::3].shape)
+    log2 = np.concatenate([np.arange(0, 4096), 1 << np.arange(31),
+                           (1 << np.arange(1, 32)) - 1,
+                           rng.integers(0, 2**31 - 1, 4096)])
+    return dict(last=blocks[0], cur=blocks[1], coef=coef, cexp=cexp,
+                qcoef=qcoef.astype(np.int32), qenc=qenc.astype(np.int32),
+                qgexp=np.where(shifts % 8, -9, 0).astype(np.int32),
+                qbap=np.tile(np.arange(16, dtype=np.int8),
+                             (len(shifts), 64)),
+                log2=np.clip(log2, 0, 2**31 - 1).astype(np.int32))
+
+
+def enc_extreme_outputs(d, device):
+    """The port's encoder primitives on enc_extremes' inputs, on
+    `device`; -> dict of numpy results."""
+    from ac3acm_tpu_torch.models import encoder as PE
+    from ac3acm_tpu_torch.ops import mdct as PM
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    x, v, s = PM.window_norm_block(t(d["last"]), t(d["cur"]))
+    e, c = PM.extract_exponents(t(d["coef"]), t(d["cexp"]))
+    out = dict(windowed=x, shift=v, exp_samples=s, mdct=PM.mdct512(x),
+               exp=e, coef=c, av_log2=PM.av_log2(t(d["log2"])),
+               quant=PE.quantize(t(d["qcoef"]), t(d["qenc"]), t(d["qgexp"]),
+                                 t(d["qbap"])))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def phase_enc_extremes():
+    """The encoder's integer primitives on the card equal their CPU runs
+    (which tests/test_torch_mdct.py holds to the JAX package) on the
+    edge cases of enc_extremes."""
+    d = enc_extremes()
+    card, cpu = enc_extreme_outputs(d, "cuda"), enc_extreme_outputs(d, "cpu")
+    bad = [k for k in cpu if not np.array_equal(card[k], cpu[k])]
+    e = d["qenc"] - d["qgexp"][:, None]
+    log(f"encoder int semantics on the card == on the CPU for "
+        f"{sorted(cpu)} (quantizer exponent differences {int(e.min())}.."
+        f"{int(e.max())}): mismatches {bad}")
+    assert not bad, bad
+
+
+def encode_resident(enc, x, clock=None):
+    """PCM [F, B, 1536, nch] int16 already on the card through
+    BatchedEncoder enc's carry, encoded and packed there; -> (ok [F, B],
+    frames [F, B, bytes]) on the card.  clock: see frame_core."""
+    from ac3acm_tpu_torch.models.encoder import encode_pipeline_packed
+    (enc.last, enc.csnr), ok, fr = encode_pipeline_packed(enc.cfg, clock)(
+        x, enc.last, enc.csnr)
+    return ok, fr
+
+
+def phase_enc_digests():
+    """Both pack modes on the card equal the JAX encoder's bytes in every
+    digest config."""
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    for config in ENC_DIGEST_CONFIGS:
+        got = {}
+        for pack in ("device", "native"):
+            got[pack], outs = encode_digest(
+                lambda *a: BatchedEncoder(*a, pack=pack), config)
+        nch, freq, kbps = config
+        log(f"encoder digest {nch} ch {freq} Hz {kbps} kbit/s, "
+            f"{DIGEST_LANES} lanes x {DIGEST_FRAMES} frames: device pack "
+            f"{got['device'][:16]}, native pack {got['native'][:16]}, JAX "
+            f"{ENC_DIGESTS[config][:16]}")
+        assert got["device"] == got["native"] == ENC_DIGESTS[config], config
+
+
+def enc_bench_pcm(channels, nframes, lanes):
+    """bench.py:_encode_pcm's content (the golden 5.1 stream decoded to
+    stereo by the native decoder, its rounding included, tiled per
+    channel), lane i starting at frame i mod 8: [lanes, n, ch] int16."""
+    from ac3acm_tpu_torch.host.native import NativeDecoder
+    out = NativeDecoder().decode_stream(
+        b"".join(golden_frames(GOLDEN) * 2), FLAGS_51_TO_20, 1.0, 384.0)
+    pcm = np.clip(np.round(out - 384.0) * 32768.0 / 2, -20000, 20000)
+    flat = pcm.transpose(0, 2, 1).reshape(-1, 2)
+    need = (nframes + 8) * 1536
+    flat = np.tile(flat, (need // flat.shape[0] + 1, 1))[:need]
+    chans = np.stack([flat[:, i % 2] * (1.0 - 0.05 * i)
+                      for i in range(channels)], -1).astype(np.int16)
+    return np.stack([chans[(i % 8) * 1536:(i % 8 + nframes) * 1536]
+                     for i in range(lanes)])
+
+
+def phase_enc_main():
+    """Configs 3 and 4: device pack == native pack on every frame;
+    x-realtime end to end and on the device alone; peak memory; the stage
+    table; the core's frame grouping both ways.  -> {label: numbers}."""
+    from ac3acm_tpu_torch.host import pack as PK
+    from ac3acm_tpu_torch.models import encoder as PE
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    report = {}
+    for label, B, F, nch, kbps in ENC_MAIN:
+        pcm = enc_bench_pcm(nch, F, B)
+        audio_s = B * F * 1536 / 48000.0
+        outs, dts = {}, {}
+        for pack in ("device", "native"):
+            enc = BatchedEncoder(B, 48000, kbps * 1000, nch, pack=pack)
+            enc.encode_frames(pcm[:, :1536])            # warm-up, 1 frame
+            enc = BatchedEncoder(B, 48000, kbps * 1000, nch, pack=pack)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            outs[pack] = enc.encode_frames(pcm)
+            dts[pack] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            log(f"encode {label} pack={pack}: {B} lanes x {F} frames, "
+                f"{nch} ch {kbps} kbit/s, int16 PCM on the host -> bytes on "
+                f"the host: {dts[pack]:.3f} s -> {audio_s / dts[pack]:.0f}x "
+                f"realtime; peak {peak / 1e9:.2f} GB")
+            assert peak <= PEAK_MEM_LIMIT
+        same = outs["device"] == outs["native"]
+        nbytes = sum(map(len, outs["device"]))
+        log(f"encode {label}: device pack == native pack on all "
+            f"{B * F} frames: {same}")
+        assert same and nbytes == B * F * 2 * PE.make_config(
+            48000, kbps * 1000, nch).frame_size
+        # the device alone: PCM resident, encode + pack, synchronized
+        enc = BatchedEncoder(B, 48000, kbps * 1000, nch)
+        cfg = enc.cfg
+        x = torch.from_numpy(np.ascontiguousarray(
+            pcm.reshape(B, F, 1536, nch).transpose(1, 0, 2, 3))).to(enc.device)
+
+        def dev_run():
+            enc.last.zero_()
+            enc.csnr.fill_(40)
+            return encode_resident(enc, x)
+
+        ok, fr = dev_run()
+        assert bool(ok.all())
+        want = np.stack([np.frombuffer(o, np.uint8).reshape(F, -1)
+                         for o in outs["device"]], 1)
+        assert np.array_equal(fr.cpu().numpy(), want)
+        dev_ms = cuda_ms(dev_run, warmup=1, reps=3)
+        groups = {}
+        for rows in sorted({B, PE.CORE_ROWS, B * F}):
+            old = PE.CORE_ROWS
+            PE.CORE_ROWS = rows
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                groups[rows] = (cuda_ms(dev_run, warmup=1, reps=3),
+                                torch.cuda.max_memory_allocated())
+                ok, fr2 = dev_run()
+                assert torch.equal(fr2, fr)
+            finally:
+                PE.CORE_ROWS = old
+        log(f"encode {label} on the device alone (PCM resident, encode + "
+            f"device pack, synchronized): {dev_ms:.3f} ms -> "
+            f"{audio_s / (dev_ms * 1e-3):.0f}x realtime; frames a core "
+            f"call: " + "; ".join(
+                f"{min(F, max(1, r // B))} ({r} rows) {ms:.3f} ms, peak "
+                f"{pk / 1e9:.2f} GB" for r, (ms, pk) in groups.items()))
+        # stages: CUDA events in one run, op counts in another
+        clock = EventClock()
+        enc.last.zero_()
+        enc.csnr.fill_(40)
+        encode_resident(enc, x, clock)
+        ms = clock.ms()
+        ops = OpClock()
+        enc.last.zero_()
+        enc.csnr.fill_(40)
+        with ops.mode:
+            encode_resident(enc, x, ops)
+        least = stage_least_bytes(B * F, nch, cfg.frame_size * 2)
+        total_ms = sum(ms.values())
+        for name in ENC_STAGES:
+            b_ms = least[name] / PEAK_BYTES * 1e3
+            log(f"encode {label} stage {name}: {ms.get(name, 0.0):.3f} ms, "
+                f"{ops.by.get(name, 0)} ATen ops, least {least[name]} B -> "
+                f"bound {b_ms:.3f} ms ({b_ms / max(ms.get(name, 1e-9), 1e-9):.1%})")
+        io_bytes = B * F * 1536 * nch * 2 + nbytes
+        io_ms = io_bytes / PEAK_BYTES * 1e3
+        log(f"encode {label} whole: stages {total_ms:.3f} ms, "
+            f"{sum(ops.by.values())} ATen ops; least bytes {io_bytes} (int16 "
+            f"PCM once + frames once) -> bound {io_ms:.3f} ms "
+            f"({io_ms / dev_ms:.2%} of the device time)")
+        # the host packer alone on the same fields
+        (_, _), res = PE.encode_pipeline_multi(cfg)(
+            x, torch.zeros_like(enc.last), torch.full_like(enc.csnr, 40))
+        host = {k: v.cpu().numpy() for k, v in res.items()}
+        t0 = time.perf_counter()
+        PK.pack_frames_native(cfg, host)
+        host_s = time.perf_counter() - t0
+        log(f"encode {label}: host pack='native' alone ({os.cpu_count()} "
+            f"CPUs) {host_s:.3f} s for {B * F} frames")
+        report[label] = dict(e2e_device=audio_s / dts["device"],
+                             e2e_native=audio_s / dts["native"],
+                             device=audio_s / (dev_ms * 1e-3))
+        del x, enc, outs, res, host, fr
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_enc_single():
+    """Encoder over ENC_SINGLE_FRAMES frames; a 17-frame call equal to
+    lane 0 of a BatchedEncoder; PcmToAc3Stream (ragged feeds) and the a52
+    encode API equal to Encoder; a round trip through Decoder()."""
+    from ac3acm_tpu_torch import a52
+    from ac3acm_tpu_torch import tables as T
+    from ac3acm_tpu_torch.io.stream import Ac3Format, PcmToAc3Stream
+    from ac3acm_tpu_torch.models.decoder import Decoder
+    from ac3acm_tpu_torch.models.encoder import Encoder
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    pcm = enc_bench_pcm(2, ENC_SINGLE_FRAMES, 1)[0]
+    Encoder(48000, 192000, 2).encode(pcm[:1536])          # warm-up
+    enc = Encoder(48000, 192000, 2)
+    t0 = time.perf_counter()
+    out = enc.encode(pcm)
+    dt = time.perf_counter() - t0
+    audio_s = ENC_SINGLE_FRAMES * 1536 / 48000.0
+    assert len(out) == ENC_SINGLE_FRAMES * 768
+    p17 = mixed_pcm(2, 17, 17)[0]
+    one = Encoder(48000, 192000, 2).encode(p17)
+    lane = BatchedEncoder(1, 48000, 192000, 2).encode_frames(p17[None])[0]
+    st = PcmToAc3Stream(Ac3Format(2, 48000, 192))
+    cuts = [0, 7, 1536 * 3 + 5, 1536 * 10, 1536 * 17]
+    fed = b"".join(st.convert(p17[a:b]) for a, b in zip(cuts, cuts[1:]))
+    h = a52.AC3_encode_init(48000, 192000, 2)
+    api = b"".join(a52.AC3_encode_frame(h, p17[f * 1536:(f + 1) * 1536])
+                   for f in range(17))
+    log(f"single-stream Encoder: {ENC_SINGLE_FRAMES} frames in {dt:.3f} s "
+        f"-> {audio_s / dt:.1f}x realtime; a 17-frame call == lane 0 of "
+        f"BatchedEncoder {one == lane}; PcmToAc3Stream (feeds of 7 B..) == "
+        f"Encoder {fed == one}; AC3_encode_frame == Encoder {api == one}")
+    assert one == lane == fed == api
+    mp = mixed_pcm(2, 4, 21)[0]
+    es = Encoder(48000, 192000, 2).encode(mp)
+    dec, _ = Decoder().decode_stream(es, T.A52_STEREO | T.A52_ADJUST_LEVEL,
+                                     level=1.0, bias=0.0)
+    mine = np.moveaxis(np.asarray(dec), 1, 2).reshape(-1, 2)[256:] * 32768.0
+    orig = mp[: mine.shape[0]].astype(np.float64)
+    snr = 10 * np.log10((orig ** 2).mean() / ((mine - orig) ** 2).mean())
+    log(f"single-stream round trip through Decoder(): SNR {snr:.2f} dB")
+    assert snr > 12.0
+    return audio_s / dt
+
+
+def phase_transcode():
+    """Config 5 in reference mode through Transcoder: native f32, compact
+    and raw (and a coupled raw batch); every B1F and gather call held to
+    its plain version; the digest of the first lanes; f32 equal to its
+    composition on a subset of lanes.  -> (launches by kernel, worst
+    |diff| by kernel, x-realtime by path)."""
+    from ac3acm_tpu_torch.models import decoder as PD
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    from ac3acm_tpu_torch.parallel.transcode import Transcoder, enc_input
+    assert PD.ACCURACY == "reference"
+    chunks = tc_chunks(TC_BATCH)
+    audio_s = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
+    launches, worst, rt, errs, wires = {}, {}, {}, {}, {}
+    outs = {}
+    for tag, kw, lanes, want in (
+            ("native f32", {}, chunks, ("B1F",)),
+            ("native compact", dict(compact_h2d=True), chunks, ("B1F",)),
+            ("raw", dict(parser="raw"), chunks,
+             ("B1F", "extract_fields", "extract_i16_table")),
+            ("raw coupled", dict(parser="raw"),
+             tc_chunks(TC_CPL_BATCH, CPL_GOLDEN, rotate=False),
+             ("B1F", "extract_fields", "extract_fields_shared"))):
+        n = len(lanes[0])
+        tc = Transcoder(n, 192000, 2, **kw)
+        got, per_chunk = [b""] * n, []
+
+        def run():
+            nonlocal got
+            for data in lanes:
+                before = kernel_counts()
+                got = [a + b for a, b in zip(got, tc.step_frames(
+                    data, TC_CHUNK_FRAMES))]
+                per_chunk.append({k: v - before[k]
+                                  for k, v in kernel_counts().items()})
+                assert tc.ok.all(), tag
+
+        torch.cuda.synchronize()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        with record_steady() as steady:
+            gathers = record_gathers(run)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernel_counts()
+        outs[tag] = got
+        for c in per_chunk:
+            assert all(c[k] >= 1 for k in want), (tag, per_chunk)
+            assert c["K1"] == 0 and c["B1"] == 0, (tag, per_chunk)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check_gather_calls(gathers, f"transcode {tag}", errs, wires)
+        for k, v in check_steady_calls(steady, f"transcode {tag}").items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        rt[tag] = n * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0 / dt
+        log(f"transcode {tag}: {n} lanes x {TC_NCHUNKS} chunks x "
+            f"{TC_CHUNK_FRAMES} frames, step_frames {dt:.3f} s -> "
+            f"{rt[tag]:.0f}x realtime; launches per chunk "
+            f"{[{k: c[k] for k in c if c[k]} for c in per_chunk]}")
+        del tc, steady, gathers
+        torch.cuda.empty_cache()
+    for k, v in errs.items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    dig = tc_digest(outs["native f32"])
+    same_raw = outs["raw"] == outs["native f32"]
+    ndiff = sum(a != b for a, b in zip(outs["native compact"],
+                                       outs["native f32"]))
+    log(f"transcode digest of the first {TC_DIGEST_LANES} lanes "
+        f"{dig[:16]} (JAX {TC_DIGEST[:16]}); raw == native {same_raw}; "
+        f"compact lanes that differ from f32: {ndiff} of {TC_BATCH}")
+    assert dig == TC_DIGEST and same_raw
+    # the f32 transcode equals its composition on a subset of lanes
+    sub = min(64, TC_BATCH)
+    dec = BatchedDecoder(sub, FLAGS_51_TO_20, 1.0, 384.0, None, True)
+    enc = BatchedEncoder(sub, 48000, 192000, 2)
+    comp = [b""] * sub
+    for data in chunks:
+        for i in range(sub):
+            dec.feed(i, data[i])
+        pcm, valid = dec.decode_available(max_frames=TC_CHUNK_FRAMES)
+        x = enc_input(pcm, 2)
+        ok, fr = encode_resident(enc, x)
+        assert valid.all() and bool(ok.all())
+        fr = fr.cpu().numpy()
+        comp = [c + fr[:, b].tobytes() for b, c in enumerate(comp)]
+    log(f"transcode: the first {sub} lanes == BatchedDecoder int16 -> "
+        f"BatchedEncoder {comp == outs['native f32'][:sub]}")
+    assert comp == outs["native f32"][:sub]
+    # pipelined dispatch_frames/finish, two chunks in flight
+    tc = Transcoder(TC_BATCH, 192000, 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = [tc.dispatch_frames(d, TC_CHUNK_FRAMES) for d in chunks]
+    piped = [tc.finish(x) for x in h]
+    dt = time.perf_counter() - t0
+    piped = [a + b for a, b in zip(*piped)]
+    rt["native f32 pipelined"] = audio_s / dt
+    log(f"transcode native f32 dispatch_frames x {TC_NCHUNKS} then finish: "
+        f"{dt:.3f} s -> {audio_s / dt:.0f}x realtime; == step_frames "
+        f"{piped == outs['native f32']}")
+    assert piped == outs["native f32"]
+    return launches, worst, rt
+
+
 def main():
     phase_card()
     dev = torch.device("cuda")
@@ -1991,6 +2569,17 @@ def main():
     py_errs = phase_python()
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
                     for k, v in phase_raw_py().items()})
+    phase_enc_extremes()
+    phase_enc_digests()
+    phase_enc_main()
+    phase_enc_single()
+    torch.cuda.empty_cache()
+    tc_launches, tc_errs, _ = phase_transcode()
+    b1f_launches += tc_launches["B1F"]
+    for entry, _, _ in GATHER_KERNELS:
+        raw_launches[entry] += tc_launches[entry]
+    py_errs.update({k: max(v, py_errs.get(k, 0.0))
+                    for k, v in tc_errs.items()})
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",

@@ -27,9 +27,13 @@ def test_import_every_module_without_jax():
         " 'ac3acm_tpu_torch.ops.unpack_device', 'ac3acm_tpu_torch.a52',"
         " 'ac3acm_tpu_torch.host.bitio', 'ac3acm_tpu_torch.host.alloc',"
         " 'ac3acm_tpu_torch.host.parse', 'ac3acm_tpu_torch.io.stream',"
-        " 'ac3acm_tpu_torch.utils.config', 'ac3acm_tpu_torch.utils.trace'}\n"
+        " 'ac3acm_tpu_torch.utils.config', 'ac3acm_tpu_torch.utils.trace',"
+        " 'ac3acm_tpu_torch.ops.mdct', 'ac3acm_tpu_torch.models.encoder',"
+        " 'ac3acm_tpu_torch.host.pack', 'ac3acm_tpu_torch.ops.pack_device',"
+        " 'ac3acm_tpu_torch.parallel.encode',"
+        " 'ac3acm_tpu_torch.parallel.transcode'}\n"
         "assert new <= set(names), names\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 30, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -46,7 +50,7 @@ def test_sources_name_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 24
+    assert len(files) >= 30
     for path in files:
         text = open(path).read()
         m = _FORBIDDEN.search(text)
@@ -80,6 +84,29 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         carry_from_numpy(torch.zeros(2, 6, 128).numpy(),
                          torch.ones(2, dtype=torch.bool).numpy())
+    from ac3acm_tpu_torch.a52 import AC3_encode_init
+    from ac3acm_tpu_torch.io.stream import Ac3Format, PcmToAc3Stream
+    from ac3acm_tpu_torch.models.encoder import Encoder
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    from ac3acm_tpu_torch.parallel.transcode import Transcoder
+    from ac3acm_tpu_torch.utils.state import load_encode_state
+    for make in (lambda: Encoder(48000, 192000, 2),
+                 lambda: BatchedEncoder(2, 48000, 192000, 2),
+                 lambda: BatchedEncoder(2, 48000, 192000, 2, pack="native"),
+                 lambda: Transcoder(2, 192000, 2),
+                 lambda: Transcoder(2, 192000, 2, parser="raw"),
+                 lambda: PcmToAc3Stream(Ac3Format(2, 48000, 192)),
+                 lambda: AC3_encode_init(48000, 192000, 2),
+                 lambda: load_encode_state("unused.npz")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    for make in (lambda: BatchedEncoder(2, 48000, 192000, 2, mesh=object(),
+                                        device="cpu"),
+                 lambda: Transcoder(2, 192000, 2, mesh=object(),
+                                    device="cpu")):
+        with pytest.raises(NotImplementedError, match="A12"):
+            make()
+    assert Encoder(48000, 192000, 2, device="cpu").device.type == "cpu"
     delay, downmixed = init_batched_carry(4, device="cpu")
     assert delay.device.type == "cpu" and delay.shape == (4, 6, 128)
     assert bool(downmixed.all())

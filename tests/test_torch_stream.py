@@ -271,10 +271,10 @@ def test_a52_dynrng_callback_matches_jax():
 def test_a52_namespace_and_syncinfo():
     pub = [n for n in dir(a52) if not n.startswith("_")
            and n not in ("annotations", "np", "T")]
+    prefixes = ("a52_", "A52_", "MM_", "AC3_")
     for n in pub:
-        assert n.startswith(("a52_", "A52_", "MM_")), n
-    assert {n for n in dir(ja52) if n.startswith(("a52_", "A52_", "MM_"))} \
-        == set(pub)
+        assert n.startswith(prefixes), n
+    assert {n for n in dir(ja52) if n.startswith(prefixes)} == set(pub)
     es = open(os.path.join(GOLDEN, "bench_51_448.ac3"), "rb").read()
     for off in (0, 1, 1792, 3000):
         assert a52.a52_syncinfo(es[off:off + 7]) == \
