@@ -1,5 +1,6 @@
-// Order-exact float IMDCT for Hopper (sm_90a): B1, the (z, d) split, and
-// B1F, the fused steady tail built on the same transform code.
+// Order-exact IMDCT for Hopper (sm_90a): B1, the float (z, d) split; B1Q,
+// the same split in the fixed-point (int32 Q30) sample type; and B1F, the
+// fused steady tail built on the same transform code.
 //
 // The function of ac3acm_tpu_torch/ops/imdct_exact.py:split_fb_exact, the
 // counterpart of ac3acm_tpu/ops/imdct_exact.py:imdct512_z / imdct256_z
@@ -43,6 +44,26 @@
 // B1 serves the block scan, whose OLA runs block by block in eager
 // PyTorch.  The steady chunks take B1F below, which fuses the window, the
 // OLA chain and int16 into the same transform code.
+//
+// B1Q: the transform is written once, over an arithmetic trait.  FloatOps
+// is B1's (__fmul_rn, __fadd_rn, __fsub_rn; z takes the reference's "- a*w"
+// signs).  FixedOps is the fixed build's (LIBA52_FIXED): MUL is the split
+// 16-bit multiply of native/ac3sample.inc:33-38 with its intermediates in
+// uint32 (mod 2^32), adds and subtracts in uint32, and z keeps each
+// value's own sign, because MUL truncates with arithmetic shifts and so
+// is not odd (ops/imdct_exact.py:filterbank_fixed applies the signs after
+// its MULs).  imdct_fixed_kernel is the counterpart of
+// ac3acm_tpu/ops/imdct_exact.py:_build("fixed") imdct512 / imdct256
+// (:256, 294; XLA there, no pallas_call), on the Q30 tables of _tw_fixed,
+// packed as the float ones.  Bound: the same 2.5 KB a row as B1 (0.601 ms
+// at 786,432 long rows on an H100), which outweighs its integer
+// instructions, 14,744 a long row at the fewest (1,724 MULs of 7 each,
+// 2,676 adds; IMUL and IMAD issue to the FMA pipe beside the INT pipe):
+// chip_smoke.py computes the bound, PERF.md keeps the times.  A simple
+// kernel: B1's
+// schedule, layouts and one warp a row, nothing fused; the fixed path
+// calls it with 1 to 5 rows at a time, so there the launch and its host
+// wrapper, not the kernel, set the time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,6 +108,39 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// the two sample types of the transform
+struct FloatOps {
+    typedef float T;
+    typedef float4 T4;
+    static __device__ __forceinline__ T mul(T a, T b) { return __fmul_rn(a, b); }
+    static __device__ __forceinline__ T add(T a, T b) { return __fadd_rn(a, b); }
+    static __device__ __forceinline__ T sub(T a, T b) { return __fsub_rn(a, b); }
+    static __device__ __forceinline__ T neg(T a) { return -a; }
+};
+
+struct FixedOps {
+    typedef int T;
+    typedef int4 T4;
+    // FixedOps::MUL of native/ac3sample.inc: each partial product fits in
+    // int32; the sums and the << 2 wrap in uint32; >> is arithmetic
+    static __device__ __forceinline__ T mul(T a, T b)
+    {
+        const int tc = (int)((unsigned)((a & 0xffff) * (b >> 16))
+                             + (unsigned)((a >> 16) * (b & 0xffff)));
+        return (int)((unsigned)(tc >> 14)
+                     + ((unsigned)((a >> 16) * (b >> 16)) << 2));
+    }
+    static __device__ __forceinline__ T add(T a, T b)
+    {
+        return (int)((unsigned)a + (unsigned)b);
+    }
+    static __device__ __forceinline__ T sub(T a, T b)
+    {
+        return (int)((unsigned)a - (unsigned)b);
+    }
+    static __device__ __forceinline__ T neg(T a) { return a; }
+};
+
 // Shared-memory layouts, each a bijection chosen so that every access of
 // the schedule below takes the fewest wavefronts its width allows (one for
 // a 4-byte access of up to 32 lanes, one per 8 active lanes for a float4;
@@ -104,130 +158,147 @@ __device__ __forceinline__ int DS(int i) { return i ^ ((i >> 5) & 1); }
 
 // the four butterflies of imdct.c, in place on (a0, a1, a2, a3); the
 // outputs keep the inputs' slots: a0 + t, a1 + t', a0 - t, a1 - t'
-__device__ __forceinline__ void finish(float& a0r, float& a0i, float& a1r,
-                                       float& a1i, float& a2r, float& a2i,
-                                       float& a3r, float& a3i, float t1,
-                                       float t2, float t3, float t4)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void finish(T& a0r, T& a0i, T& a1r,
+                                       T& a1i, T& a2r, T& a2i,
+                                       T& a3r, T& a3i, T t1,
+                                       T t2, T t3, T t4)
 {
-    const float b0r = a0r, b0i = a0i, b1r = a1r, b1i = a1i;
-    a0r = add(b0r, t1); a0i = add(b0i, t2);
-    a1r = add(b1r, t3); a1i = add(b1i, t4);
-    a2r = sub(b0r, t1); a2i = sub(b0i, t2);
-    a3r = sub(b1r, t3); a3i = sub(b1i, t4);
+    const T b0r = a0r, b0i = a0i, b1r = a1r, b1i = a1i;
+    a0r = O::add(b0r, t1); a0i = O::add(b0i, t2);
+    a1r = O::add(b1r, t3); a1i = O::add(b1i, t4);
+    a2r = O::sub(b0r, t1); a2i = O::sub(b0i, t2);
+    a3r = O::sub(b1r, t3); a3i = O::sub(b1i, t4);
 }
 
-__device__ __forceinline__ void bf_zero(float& a0r, float& a0i, float& a1r,
-                                        float& a1i, float& a2r, float& a2i,
-                                        float& a3r, float& a3i)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void bf_zero(T& a0r, T& a0i, T& a1r,
+                                        T& a1i, T& a2r, T& a2i,
+                                        T& a3r, T& a3i)
 {
-    const float t1 = add(a2r, a3r), t2 = add(a2i, a3i);
-    const float t3 = sub(a2i, a3i), t4 = sub(a3r, a2r);
-    finish(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, t1, t2, t3, t4);
+    const T t1 = O::add(a2r, a3r), t2 = O::add(a2i, a3i);
+    const T t3 = O::sub(a2i, a3i), t4 = O::sub(a3r, a2r);
+    finish<O>(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, t1, t2, t3, t4);
 }
 
-__device__ __forceinline__ void bf_half(float& a0r, float& a0i, float& a1r,
-                                        float& a1i, float& a2r, float& a2i,
-                                        float& a3r, float& a3i, float w)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void bf_half(T& a0r, T& a0i, T& a1r,
+                                        T& a1i, T& a2r, T& a2i,
+                                        T& a3r, T& a3i, T w)
 {
-    const float t5 = mul(add(a2r, a2i), w), t6 = mul(sub(a2i, a2r), w);
-    const float t7 = mul(sub(a3r, a3i), w), t8 = mul(add(a3i, a3r), w);
-    finish(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i,
-           add(t5, t7), add(t6, t8), sub(t6, t8), sub(t7, t5));
+    const T t5 = O::mul(O::add(a2r, a2i), w);
+    const T t6 = O::mul(O::sub(a2i, a2r), w);
+    const T t7 = O::mul(O::sub(a3r, a3i), w);
+    const T t8 = O::mul(O::add(a3i, a3r), w);
+    finish<O>(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, O::add(t5, t7),
+              O::add(t6, t8), O::sub(t6, t8), O::sub(t7, t5));
 }
 
-__device__ __forceinline__ void bf(float& a0r, float& a0i, float& a1r,
-                                   float& a1i, float& a2r, float& a2i,
-                                   float& a3r, float& a3i, float wr, float wi)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void bf(T& a0r, T& a0i, T& a1r,
+                                   T& a1i, T& a2r, T& a2i,
+                                   T& a3r, T& a3i, T wr, T wi)
 {
-    const float t5 = add(mul(wi, a2i), mul(wr, a2r));
-    const float t6 = sub(mul(wr, a2i), mul(wi, a2r));
-    const float t8 = add(mul(wi, a3r), mul(wr, a3i));
-    const float t7 = sub(mul(wr, a3r), mul(wi, a3i));
-    finish(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i,
-           add(t5, t7), add(t6, t8), sub(t6, t8), sub(t7, t5));
+    const T t5 = O::add(O::mul(wi, a2i), O::mul(wr, a2r));
+    const T t6 = O::sub(O::mul(wr, a2i), O::mul(wi, a2r));
+    const T t8 = O::add(O::mul(wi, a3r), O::mul(wr, a3i));
+    const T t7 = O::sub(O::mul(wr, a3r), O::mul(wi, a3i));
+    finish<O>(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, O::add(t5, t7),
+              O::add(t6, t8), O::sub(t6, t8), O::sub(t7, t5));
 }
 
-__device__ __forceinline__ void ifft2(float* r, float* i)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void ifft2(T* r, T* i)
 {
-    const float r0 = r[0], i0 = i[0];
-    r[0] = add(r0, r[1]); r[1] = sub(r0, r[1]);
-    i[0] = add(i0, i[1]); i[1] = sub(i0, i[1]);
+    const T r0 = r[0], i0 = i[0];
+    r[0] = O::add(r0, r[1]); r[1] = O::sub(r0, r[1]);
+    i[0] = O::add(i0, i[1]); i[1] = O::sub(i0, i[1]);
 }
 
-__device__ __forceinline__ void ifft4(float* r, float* i)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void ifft4(T* r, T* i)
 {
-    const float t1 = add(r[0], r[1]), t2 = add(r[3], r[2]);
-    const float t3 = add(i[0], i[1]), t4 = add(i[2], i[3]);
-    const float t5 = sub(r[0], r[1]), t6 = sub(i[0], i[1]);
-    const float t7 = sub(i[2], i[3]), t8 = sub(r[3], r[2]);
-    r[0] = add(t1, t2); r[1] = add(t5, t7); r[2] = sub(t1, t2); r[3] = sub(t5, t7);
-    i[0] = add(t3, t4); i[1] = add(t6, t8); i[2] = sub(t3, t4); i[3] = sub(t6, t8);
+    const T t1 = O::add(r[0], r[1]), t2 = O::add(r[3], r[2]);
+    const T t3 = O::add(i[0], i[1]), t4 = O::add(i[2], i[3]);
+    const T t5 = O::sub(r[0], r[1]), t6 = O::sub(i[0], i[1]);
+    const T t7 = O::sub(i[2], i[3]), t8 = O::sub(r[3], r[2]);
+    r[0] = O::add(t1, t2); r[1] = O::add(t5, t7);
+    r[2] = O::sub(t1, t2); r[3] = O::sub(t5, t7);
+    i[0] = O::add(t3, t4); i[1] = O::add(t6, t8);
+    i[2] = O::sub(t3, t4); i[3] = O::sub(t6, t8);
 }
 
 // ifft8: ifft4 on [0, 4), ifft2 on [4, 6) and [6, 8), then bf_zero on
 // slots 0/2/4/6 and bf_half on 1/3/5/7 (whose outputs are the reference's
 // order [a0, b0, a1, b1, a2, b2, a3, b3])
-__device__ __forceinline__ void ifft8(float* r, float* i, float w)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void ifft8(T* r, T* i, T w)
 {
-    ifft4(r, i);
-    ifft2(r + 4, i + 4);
-    ifft2(r + 6, i + 6);
-    bf_zero(r[0], i[0], r[2], i[2], r[4], i[4], r[6], i[6]);
-    bf_half(r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7], w);
+    ifft4<O>(r, i);
+    ifft2<O>(r + 4, i + 4);
+    ifft2<O>(r + 6, i + 6);
+    bf_zero<O>(r[0], i[0], r[2], i[2], r[4], i[4], r[6], i[6]);
+    bf_half<O>(r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7], w);
 }
 
 // 4 consecutive values of re/im (4-aligned, so contiguous under CS)
-__device__ __forceinline__ void ld4(const float* a, int o, float* v)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void ld4(const T* a, int o, T* v)
 {
-    const float4 t = *reinterpret_cast<const float4*>(a + CS(o));
+    const typename O::T4 t =
+        *reinterpret_cast<const typename O::T4*>(a + CS(o));
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
 }
 
-__device__ __forceinline__ void st4(float* a, int o, const float* v)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void st4(T* a, int o, const T* v)
 {
-    *reinterpret_cast<float4*>(a + CS(o)) = make_float4(v[0], v[1], v[2],
-                                                        v[3]);
+    typename O::T4 t;
+    t.x = v[0]; t.y = v[1]; t.z = v[2]; t.w = v[3];
+    *reinterpret_cast<typename O::T4*>(a + CS(o)) = t;
 }
 
 // the leaves of one IFFT level 0, one per lane, in registers
-__device__ __forceinline__ void leaves(float* re, float* im, const int* list,
-                                       int count, float w16, int lane)
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void leaves(T* re, T* im, const int* list,
+                                       int count, T w16, int lane)
 {
     if (lane >= count)
         return;
     const int e = list[lane], o = e & 0xff;
-    float r[8], i[8];
+    T r[8], i[8];
     if (e & 0x100) {
-        ld4(re, o, r); ld4(re, o + 4, r + 4);
-        ld4(im, o, i); ld4(im, o + 4, i + 4);
-        ifft8(r, i, w16);
-        st4(re, o, r); st4(re, o + 4, r + 4);
-        st4(im, o, i); st4(im, o + 4, i + 4);
+        ld4<O>(re, o, r); ld4<O>(re, o + 4, r + 4);
+        ld4<O>(im, o, i); ld4<O>(im, o + 4, i + 4);
+        ifft8<O>(r, i, w16);
+        st4<O>(re, o, r); st4<O>(re, o + 4, r + 4);
+        st4<O>(im, o, i); st4<O>(im, o + 4, i + 4);
     } else {
-        ld4(re, o, r); ld4(im, o, i);
-        ifft4(r, i);
-        st4(re, o, r); st4(im, o, i);
+        ld4<O>(re, o, r); ld4<O>(im, o, i);
+        ifft4<O>(r, i);
+        st4<O>(re, o, r); st4<O>(im, o, i);
     }
 }
 
 // one ifft_pass level: nodes of 4n points at offs[], butterfly k of a
 // node on slots k, n + k, 2n + k, 3n + k with weights roots[k - 1] and
 // roots[n - 1 - k] (k = 0: bf_zero)
-__device__ __forceinline__ void pass_level(float* re, float* im,
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void pass_level(T* re, T* im,
                                            const int* offs, int nodes, int n,
-                                           const float* roots, int lane)
+                                           const T* roots, int lane)
 {
     for (int t = lane; t < nodes * n; t += 32) {
         const int node = t / n, k = t - node * n;
         const int q0 = offs[node] + k, p0 = CS(q0), p1 = CS(q0 + n),
                   p2 = CS(q0 + 2 * n), p3 = CS(q0 + 3 * n);
-        float a0r = re[p0], a0i = im[p0], a1r = re[p1], a1i = im[p1];
-        float a2r = re[p2], a2i = im[p2], a3r = re[p3], a3i = im[p3];
+        T a0r = re[p0], a0i = im[p0], a1r = re[p1], a1i = im[p1];
+        T a2r = re[p2], a2i = im[p2], a3r = re[p3], a3i = im[p3];
         if (k == 0)
-            bf_zero(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i);
+            bf_zero<O>(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i);
         else
-            bf(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, roots[k - 1],
-               roots[n - 1 - k]);
+            bf<O>(a0r, a0i, a1r, a1i, a2r, a2i, a3r, a3i, roots[k - 1],
+                  roots[n - 1 - k]);
         re[p0] = a0r; im[p0] = a0i; re[p1] = a1r; im[p1] = a1i;
         re[p2] = a2r; im[p2] = a2i; re[p3] = a3r; im[p3] = a3i;
     }
@@ -235,90 +306,92 @@ __device__ __forceinline__ void pass_level(float* re, float* im,
 
 // x: the row's coefficients in, z out (XS); re/im: the IFFT buffer (CS);
 // dd: d out (DS)
-__device__ void long_row(float* x, float* re, float* im, float* dd,
-                         const float* tab, const int* order,
+template <class O, class T = typename O::T>
+__device__ void long_row(T* x, T* re, T* im, T* dd,
+                         const T* tab, const int* order,
                          const int* sched, int lane)
 {
     for (int k = lane; k < 128; k += 32) {
         const int o = order[k];
-        const float dk = x[XS(o)], dm = x[XS(255 - o)];
-        const float tr = tab[PRE1_R + k], ti = tab[PRE1_I + k];
-        re[CS(k)] = add(mul(ti, dm), mul(tr, dk));
-        im[CS(k)] = sub(mul(tr, dm), mul(ti, dk));
+        const T dk = x[XS(o)], dm = x[XS(255 - o)];
+        const T tr = tab[PRE1_R + k], ti = tab[PRE1_I + k];
+        re[CS(k)] = O::add(O::mul(ti, dm), O::mul(tr, dk));
+        im[CS(k)] = O::sub(O::mul(tr, dm), O::mul(ti, dk));
     }
     __syncwarp();
-    leaves(re, im, sched + LEAVES_LONG, 21, tab[ROOTS16 + 1], lane);
+    leaves<O>(re, im, sched + LEAVES_LONG, 21, tab[ROOTS16 + 1], lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS16_LONG, 5, 4, tab + ROOTS16, lane);
+    pass_level<O>(re, im, sched + PASS16_LONG, 5, 4, tab + ROOTS16, lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS32_LONG, 3, 8, tab + ROOTS32, lane);
+    pass_level<O>(re, im, sched + PASS32_LONG, 3, 8, tab + ROOTS32, lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS_0_64, 1, 16, tab + ROOTS64, lane);
+    pass_level<O>(re, im, sched + PASS_0_64, 1, 16, tab + ROOTS64, lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS_0_64, 1, 32, tab + ROOTS128, lane);
+    pass_level<O>(re, im, sched + PASS_0_64, 1, 32, tab + ROOTS128, lane);
     __syncwarp();
     for (int i = lane; i < 64; i += 32) {
-        const float tr = tab[POST1_R + i], ti = tab[POST1_I + i];
-        const float fr = re[CS(i)], fi = im[CS(i)];
-        const float gr = re[CS(127 - i)], gi = im[CS(127 - i)];
-        const float a_r = add(mul(tr, fr), mul(ti, fi));
-        const float a_i = sub(mul(ti, fr), mul(tr, fi));
-        const float b_r = add(mul(ti, gr), mul(tr, gi));
-        const float b_i = sub(mul(tr, gr), mul(ti, gi));
+        const T tr = tab[POST1_R + i], ti = tab[POST1_I + i];
+        const T fr = re[CS(i)], fi = im[CS(i)];
+        const T gr = re[CS(127 - i)], gi = im[CS(127 - i)];
+        const T a_r = O::add(O::mul(tr, fr), O::mul(ti, fi));
+        const T a_i = O::sub(O::mul(ti, fr), O::mul(tr, fi));
+        const T b_r = O::add(O::mul(ti, gr), O::mul(tr, gi));
+        const T b_i = O::sub(O::mul(tr, gr), O::mul(ti, gi));
         x[XS(255 - 2 * i)] = a_r;
-        x[XS(2 * i)] = -a_r;
+        x[XS(2 * i)] = O::neg(a_r);
         x[XS(2 * i + 1)] = b_r;
-        x[XS(254 - 2 * i)] = -b_r;
+        x[XS(254 - 2 * i)] = O::neg(b_r);
         dd[DS(2 * i)] = a_i;
         dd[DS(2 * i + 1)] = b_i;
     }
 }
 
-__device__ void short_row(float* x, float* re, float* im, float* dd,
-                          const float* tab, const int* order,
+template <class O, class T = typename O::T>
+__device__ void short_row(T* x, T* re, T* im, T* dd,
+                          const T* tab, const int* order,
                           const int* sched, int lane)
 {
     for (int c = lane; c < 64; c += 32) {
         const int k = order[c];
-        const float d1a = x[XS(k)], d1b = x[XS(254 - k)];
-        const float d2a = x[XS(k + 1)], d2b = x[XS(255 - k)];
-        const float tr = tab[PRE2_R + c], ti = tab[PRE2_I + c];
-        re[CS(c)] = add(mul(ti, d1b), mul(tr, d1a));
-        im[CS(c)] = sub(mul(tr, d1b), mul(ti, d1a));
-        re[CS(64 + c)] = add(mul(ti, d2b), mul(tr, d2a));
-        im[CS(64 + c)] = sub(mul(tr, d2b), mul(ti, d2a));
+        const T d1a = x[XS(k)], d1b = x[XS(254 - k)];
+        const T d2a = x[XS(k + 1)], d2b = x[XS(255 - k)];
+        const T tr = tab[PRE2_R + c], ti = tab[PRE2_I + c];
+        re[CS(c)] = O::add(O::mul(ti, d1b), O::mul(tr, d1a));
+        im[CS(c)] = O::sub(O::mul(tr, d1b), O::mul(ti, d1a));
+        re[CS(64 + c)] = O::add(O::mul(ti, d2b), O::mul(tr, d2a));
+        im[CS(64 + c)] = O::sub(O::mul(tr, d2b), O::mul(ti, d2a));
     }
     __syncwarp();
-    leaves(re, im, sched + LEAVES_SHORT, 22, tab[ROOTS16 + 1], lane);
+    leaves<O>(re, im, sched + LEAVES_SHORT, 22, tab[ROOTS16 + 1], lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS16_SHORT, 6, 4, tab + ROOTS16, lane);
+    pass_level<O>(re, im, sched + PASS16_SHORT, 6, 4, tab + ROOTS16, lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS_0_64, 2, 8, tab + ROOTS32, lane);
+    pass_level<O>(re, im, sched + PASS_0_64, 2, 8, tab + ROOTS32, lane);
     __syncwarp();
-    pass_level(re, im, sched + PASS_0_64, 2, 16, tab + ROOTS64, lane);
+    pass_level<O>(re, im, sched + PASS_0_64, 2, 16, tab + ROOTS64, lane);
     __syncwarp();
     const int i = lane;                                  // 32 outputs
-    const float tr = tab[POST2_R + i], ti = tab[POST2_I + i];
-    const float b1r = re[CS(i)], b1i = im[CS(i)];
-    const float g1r = re[CS(63 - i)], g1i = im[CS(63 - i)];
-    const float b2r = re[CS(64 + i)], b2i = im[CS(64 + i)];
-    const float g2r = re[CS(127 - i)], g2i = im[CS(127 - i)];
-    const float a_r = add(mul(tr, b1r), mul(ti, b1i));
-    const float a_i = sub(mul(ti, b1r), mul(tr, b1i));
-    const float b_r = add(mul(ti, g1r), mul(tr, g1i));
-    const float b_i = sub(mul(tr, g1r), mul(ti, g1i));
-    const float c_r = add(mul(tr, b2r), mul(ti, b2i));
-    const float c_i = sub(mul(ti, b2r), mul(tr, b2i));
-    const float d_r = add(mul(ti, g2r), mul(tr, g2i));
-    const float d_i = sub(mul(tr, g2r), mul(ti, g2i));
+    const T tr = tab[POST2_R + i], ti = tab[POST2_I + i];
+    const T b1r = re[CS(i)], b1i = im[CS(i)];
+    const T g1r = re[CS(63 - i)], g1i = im[CS(63 - i)];
+    const T b2r = re[CS(64 + i)], b2i = im[CS(64 + i)];
+    const T g2r = re[CS(127 - i)], g2i = im[CS(127 - i)];
+    const T a_r = O::add(O::mul(tr, b1r), O::mul(ti, b1i));
+    const T a_i = O::sub(O::mul(ti, b1r), O::mul(tr, b1i));
+    const T b_r = O::add(O::mul(ti, g1r), O::mul(tr, g1i));
+    const T b_i = O::sub(O::mul(tr, g1r), O::mul(ti, g1i));
+    const T c_r = O::add(O::mul(tr, b2r), O::mul(ti, b2i));
+    const T c_i = O::sub(O::mul(ti, b2r), O::mul(tr, b2i));
+    const T d_r = O::add(O::mul(ti, g2r), O::mul(tr, g2i));
+    const T d_i = O::sub(O::mul(tr, g2r), O::mul(ti, g2i));
     x[XS(255 - 2 * i)] = a_r;
-    x[XS(2 * i)] = -a_r;
+    x[XS(2 * i)] = O::neg(a_r);
     x[XS(128 + 2 * i)] = a_i;
-    x[XS(127 - 2 * i)] = -a_i;
+    x[XS(127 - 2 * i)] = O::neg(a_i);
     x[XS(129 + 2 * i)] = b_r;
-    x[XS(126 - 2 * i)] = -b_r;
+    x[XS(126 - 2 * i)] = O::neg(b_r);
     x[XS(254 - 2 * i)] = b_i;
-    x[XS(2 * i + 1)] = -b_i;
+    x[XS(2 * i + 1)] = O::neg(b_i);
     dd[DS(127 - 2 * i)] = c_r;
     dd[DS(2 * i)] = c_i;
     dd[DS(2 * i + 1)] = d_r;
@@ -497,9 +570,9 @@ fused_steady_exact_kernel(const float* __restrict__ freq,
             }
             __syncwarp();
             if (sh)
-                short_row(x, re, im, dd, tab, order, sched, lane);
+                short_row<FloatOps>(x, re, im, dd, tab, order, sched, lane);
             else
-                long_row(x, re, im, dd, tab, order, sched, lane);
+                long_row<FloatOps>(x, re, im, dd, tab, order, sched, lane);
             __syncwarp();
             if (i >= i0) {
 #pragma unroll
@@ -530,18 +603,19 @@ fused_steady_exact_kernel(const float* __restrict__ freq,
 #undef FOLD
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-imdct_exact_kernel(const float* __restrict__ coeffs,
-                   const uint8_t* __restrict__ blksw,
-                   const float* __restrict__ tab_g,
-                   const int* __restrict__ order_g, float* __restrict__ z,
-                   float* __restrict__ d, long long rows)
+// one row a warp: the row staged in shared memory (XS) from 16-byte loads,
+// transformed in place, z and d written back with coalesced stores
+template <class O, class T = typename O::T>
+__device__ __forceinline__ void split_rows(const T* __restrict__ coeffs,
+                                           const uint8_t* __restrict__ blksw,
+                                           const T* __restrict__ tab_g,
+                                           const int* __restrict__ order_g,
+                                           T* __restrict__ z,
+                                           T* __restrict__ d, long long rows,
+                                           T* tab, int* order, int* sched,
+                                           T (*xbuf)[256], T (*rebuf)[128],
+                                           T (*imbuf)[128], T (*dbuf)[128])
 {
-    __shared__ float tab[TAB_SIZE];
-    __shared__ int order[128], sched[SCHED_SIZE];
-    __shared__ __align__(16) float xbuf[WARPS][256];
-    __shared__ __align__(16) float rebuf[WARPS][128], imbuf[WARPS][128];
-    __shared__ __align__(16) float dbuf[WARPS][128];
     for (int t = threadIdx.x; t < TAB_SIZE; t += blockDim.x)
         tab[t] = tab_g[t];
     for (int t = threadIdx.x; t < 128; t += blockDim.x)
@@ -554,22 +628,23 @@ imdct_exact_kernel(const float* __restrict__ coeffs,
     const long long row = (long long)blockIdx.x * WARPS + warp;
     if (row >= rows)
         return;
-    float* x = xbuf[warp];
-    const float4* src = reinterpret_cast<const float4*>(coeffs + row * 256);
+    T* x = xbuf[warp];
+    const typename O::T4* src =
+        reinterpret_cast<const typename O::T4*>(coeffs + row * 256);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-        const float4 v = src[lane + 32 * h];
+        const typename O::T4 v = src[lane + 32 * h];
         const int w = 4 * lane + 128 * h;
         x[XS(w)] = v.x; x[XS(w + 1)] = v.y; x[XS(w + 2)] = v.z;
         x[XS(w + 3)] = v.w;
     }
     __syncwarp();
     if (blksw != nullptr && blksw[row])
-        short_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, sched,
-                  lane);
+        short_row<O>(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order,
+                     sched, lane);
     else
-        long_row(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order, sched,
-                 lane);
+        long_row<O>(x, rebuf[warp], imbuf[warp], dbuf[warp], tab, order,
+                    sched, lane);
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < 8; ++k)
@@ -577,6 +652,40 @@ imdct_exact_kernel(const float* __restrict__ coeffs,
 #pragma unroll
     for (int k = 0; k < 4; ++k)
         d[row * 128 + lane + 32 * k] = dbuf[warp][DS(lane + 32 * k)];
+}
+
+// B1: the float split
+__global__ void __launch_bounds__(WARPS * 32)
+imdct_exact_kernel(const float* __restrict__ coeffs,
+                   const uint8_t* __restrict__ blksw,
+                   const float* __restrict__ tab_g,
+                   const int* __restrict__ order_g, float* __restrict__ z,
+                   float* __restrict__ d, long long rows)
+{
+    __shared__ float tab[TAB_SIZE];
+    __shared__ int order[128], sched[SCHED_SIZE];
+    __shared__ __align__(16) float xbuf[WARPS][256];
+    __shared__ __align__(16) float rebuf[WARPS][128], imbuf[WARPS][128];
+    __shared__ __align__(16) float dbuf[WARPS][128];
+    split_rows<FloatOps>(coeffs, blksw, tab_g, order_g, z, d, rows, tab,
+                         order, sched, xbuf, rebuf, imbuf, dbuf);
+}
+
+// B1Q: the fixed-point (int32 Q30) split
+__global__ void __launch_bounds__(WARPS * 32)
+imdct_fixed_kernel(const int* __restrict__ coeffs,
+                   const uint8_t* __restrict__ blksw,
+                   const int* __restrict__ tab_g,
+                   const int* __restrict__ order_g, int* __restrict__ z,
+                   int* __restrict__ d, long long rows)
+{
+    __shared__ int tab[TAB_SIZE];
+    __shared__ int order[128], sched[SCHED_SIZE];
+    __shared__ __align__(16) int xbuf[WARPS][256];
+    __shared__ __align__(16) int rebuf[WARPS][128], imbuf[WARPS][128];
+    __shared__ __align__(16) int dbuf[WARPS][128];
+    split_rows<FixedOps>(coeffs, blksw, tab_g, order_g, z, d, rows, tab,
+                         order, sched, xbuf, rebuf, imbuf, dbuf);
 }
 
 }  // namespace
@@ -594,6 +703,22 @@ extern "C" int imdct_exact_launch(const void* coeffs, const void* blksw,
                          (cudaStream_t)stream>>>(
         (const float*)coeffs, (const uint8_t*)blksw, (const float*)tab,
         (const int*)order, (float*)z, (float*)d, rows);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int imdct_fixed_launch(const void* coeffs, const void* blksw,
+                                  const void* tab, const void* order, void* z,
+                                  void* d, long long rows, void* stream)
+{
+    if (rows <= 0)
+        return 0;
+    const long long blocks = (rows + WARPS - 1) / WARPS;
+    if (blocks > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    imdct_fixed_kernel<<<(unsigned)blocks, WARPS * 32, 0,
+                         (cudaStream_t)stream>>>(
+        (const int*)coeffs, (const uint8_t*)blksw, (const int*)tab,
+        (const int*)order, (int*)z, (int*)d, rows);
     return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,9 @@ own threads.  For one stream it has the per-stream parser
 (``NativeParser``, the same ``decode_frame`` planes as host.parse.A52Parser)
 and the full native CPU decoder (``NativeDecoder``: parse, the bit-exact
 filterbank and the mixer, float for float the reference decoder), which
-the a52 API decodes through.
+the a52 API decodes through; and the fixed-point and double sample types
+(``SampleDecoder``), whose fixed device backend runs the native
+parse-only pre-pass here and the filterbank on the card.
 """
 from __future__ import annotations
 
@@ -27,8 +29,12 @@ from .. import tables as T
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
 _SOURCES = ("ac3host.cpp", "ac3sample.inc", "ac3fb.inc")
+# -fno-gnu-unique: the function-local statics of the sample-type
+# templates (TDec<...>::tables()) stay this library's own; as GNU unique
+# symbols they would bind to another copy of the same C++ loaded in the
+# process first (the JAX package's, in the tests), tables and all
 _FLAGS = ["-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17",
-          "-pthread"]
+          "-pthread", "-fno-gnu-unique"]
 
 _lock = threading.Lock()
 _lib = None
@@ -129,6 +135,7 @@ def get_lib():
         lib.ac3h_init.argtypes = [C.c_void_p] * len(args)
         lib.ac3h_init(*[a.ctypes.data for a in args])
         _bind_single(lib)
+        _bind_sample(lib)
         _bind_dense(lib)
         _bind_sideinfo(lib)
         _lib = lib
@@ -251,29 +258,183 @@ class NativeDecoder:
     def decode_stream(self, es: bytes, flags: int, level: float = 1.0,
                       bias: float = 0.0):
         """Returns float32 [nblk, nch_out, 256] planar PCM."""
-        from .parse import syncinfo
         out_blocks = []
         pcm = np.zeros((6, 6, 256), np.float32)
         nch = C.c_int32(0)
-        pos = 0
-        while pos + 7 <= len(es):
-            size = syncinfo(es[pos:pos + 7])[0]
-            if size == 0:
-                pos += 1
-                continue
-            if pos + size > len(es):
-                break
+        for frame in _frames(es):
             r = self.lib.ac3h_dec_frame(
-                self._d, es[pos:pos + size], flags, level, bias,
+                self._d, frame, flags, level, bias,
                 pcm.ctypes.data_as(C.POINTER(C.c_float)), C.byref(nch))
             if r == 0:
                 n = int(nch.value)
                 out_blocks.append(
                     pcm.reshape(-1)[: 6 * n * 256].reshape(6, n, 256).copy())
-            pos += size
         if not out_blocks:
             return np.zeros((0, 0, 256), np.float32)
         return np.concatenate(out_blocks, axis=0)
+
+
+def _bind_sample(lib):
+    lib.ac3h_sdec_new.restype = C.c_void_p
+    lib.ac3h_sdec_new.argtypes = [C.c_int]
+    lib.ac3h_sdec_free.restype = None
+    lib.ac3h_sdec_free.argtypes = [C.c_void_p, C.c_int]
+    lib.ac3h_sdec_set_drc.restype = None
+    lib.ac3h_sdec_set_drc.argtypes = [C.c_void_p, C.c_int, C.c_int]
+    for name, ct in (("ac3h_sdec_frame_fixed", C.c_int32),
+                     ("ac3h_sdec_frame_double", C.c_double)):
+        fn = getattr(lib, name)
+        fn.restype = C.c_int
+        fn.argtypes = [C.c_void_p, C.c_char_p, C.c_int, C.c_double,
+                       C.c_double, C.POINTER(ct), C.POINTER(C.c_int32)]
+    lib.ac3h_sdec_parse_fixed.restype = C.c_int
+    lib.ac3h_sdec_parse_fixed.argtypes = [
+        C.c_void_p, C.c_char_p, C.c_int, C.c_double,
+        C.c_void_p, C.c_void_p, C.c_void_p, C.c_void_p]
+
+
+class SampleDecoder:
+    """The LIBA52_FIXED / LIBA52_DOUBLE sample types (include/a52.h:27-36).
+
+    NativeDecoder is the float build; this decodes in the int32 Q30 fixed
+    build or the double build (native/ac3sample.inc templates the C++ over
+    the arithmetic traits the reference expresses as macros,
+    a52_internal.h:124-163).
+
+    backend="device" (the default; kind="fixed" only): the native
+    parse-only pre-pass (ac3h_sdec_parse_fixed: dequantized Q30 planes,
+    rematrixed) on the host, then models.decoder.fixed_block_pipeline on
+    `device` (None: the CUDA card, raising without one; "cpu" runs the
+    plain PyTorch versions), bit for bit the native fixed backend.
+    backend="native": the whole decode in C++ on the host, either kind.
+    The JAX package names its device backend "tpu"; here that name raises.
+    kind="double" stays a host backend, as in the JAX package (no double
+    arithmetic on the device path), so it needs backend="native".
+
+    >>> d = SampleDecoder("fixed")                 # on the card
+    >>> pcm = d.decode_stream(es, T.A52_STEREO)    # int32 Q30 planar
+    """
+
+    _KINDS = {"fixed": (0, np.int32), "double": (1, np.float64)}
+
+    def __init__(self, kind: str, backend: str = "device", device=None):
+        if kind not in self._KINDS:
+            raise ValueError(f"kind must be fixed|double, got {kind!r}")
+        if backend == "tpu":
+            raise ValueError("backend 'tpu' is the JAX package's name; the "
+                             "device backend here is backend='device'")
+        if backend not in ("native", "device"):
+            raise ValueError(f"backend must be native|device, got "
+                             f"{backend!r}")
+        if backend == "device" and kind != "fixed":
+            raise ValueError("backend='device' supports kind='fixed' only; "
+                             "the double build is a host backend: pass "
+                             "backend='native'")
+        from ..utils.device import resolve_device
+        self.device = (resolve_device(device) if backend == "device"
+                       else None)
+        self.kind = kind
+        self.backend = backend
+        self._k, self._np = self._KINDS[kind]
+        self.lib = get_lib()
+        self._d = self.lib.ac3h_sdec_new(self._k)
+        self._frame_fn = (self.lib.ac3h_sdec_frame_fixed if self._k == 0
+                          else self.lib.ac3h_sdec_frame_double)
+        self._ct = C.c_int32 if self._k == 0 else C.c_double
+        self._dev_carry = None
+
+    def __del__(self):
+        if getattr(self, "_d", None):
+            self.lib.ac3h_sdec_free(self._d, self._k)
+            self._d = None
+
+    def set_drc_enabled(self, enabled: bool):
+        self.lib.ac3h_sdec_set_drc(self._d, self._k, int(enabled))
+
+    def decode_stream(self, es: bytes, flags: int, level=None, bias=None):
+        """-> planar [nblk, nch_out, 256] numpy in the kind's sample type
+        (int32 Q30 or float64).
+
+        The default level and bias follow the reference CLI's sinks: fixed
+        1<<26 and 0 (audio_out_internal.h:30-32), double 1.0 and 0.0."""
+        if level is None:
+            level = float(1 << 26) if self._k == 0 else 1.0
+        if bias is None:
+            bias = 0.0
+        if self.backend == "device":
+            return self._decode_stream_device(es, flags, level)
+        out_blocks = []
+        pcm = np.zeros((6, 6, 256), self._np)
+        nch = C.c_int32(0)
+        for frame in _frames(es):
+            r = self._frame_fn(self._d, frame, flags, level, bias,
+                               pcm.ctypes.data_as(C.POINTER(self._ct)),
+                               C.byref(nch))
+            if r == 0:
+                n = int(nch.value)
+                out_blocks.append(
+                    pcm.reshape(-1)[: 6 * n * 256].reshape(6, n, 256).copy())
+        if not out_blocks:
+            return np.zeros((0, 0, 256), self._np)
+        return np.concatenate(out_blocks, axis=0)
+
+    def _decode_stream_device(self, es: bytes, flags: int, level: float):
+        """LIBA52_FIXED on the device: the native parse-only pre-pass
+        (dequantize to Q30, rematrix), then the int32 filterbank and
+        downmix (models.decoder.fixed_block_pipeline) a frame at a time,
+        the carry on the device between frames and calls; bit for bit the
+        native fixed backend."""
+        import torch
+        from ..models.decoder import (StreamFormat, fixed_block_pipeline,
+                                      init_fixed_carry)
+        freq = np.zeros((6, 6, 256), np.int32)
+        blksw = np.zeros((6, 5), np.uint8)
+        czero = np.zeros((6, 5), np.uint8)
+        meta = np.zeros(6, np.int32)
+        if self._dev_carry is None:
+            self._dev_carry = init_fixed_carry(self.device)
+        remat = torch.zeros((6, 256), dtype=torch.bool, device=self.device)
+        bias = torch.zeros(6, dtype=torch.int32, device=self.device)
+        outs = []
+        for frame in _frames(es):
+            r = self.lib.ac3h_sdec_parse_fixed(
+                self._d, frame, flags, level,
+                C.c_void_p(freq.ctypes.data), C.c_void_p(blksw.ctypes.data),
+                C.c_void_p(czero.ctypes.data), C.c_void_p(meta.ctypes.data))
+            if r != 0:
+                continue
+            fmt = StreamFormat(acmod=int(meta[0]), output=int(meta[1]),
+                               slev_zero=bool(meta[3]),
+                               chanbias=int(meta[2]))
+            blocks = {
+                "freq": torch.from_numpy(freq.copy()),
+                "blksw": torch.from_numpy(blksw.astype(bool)),
+                "coeff": torch.from_numpy(1.0 - czero.astype(np.float32)),
+                "remat": remat,
+                "bias": bias,
+            }
+            self._dev_carry, pcm = fixed_block_pipeline(fmt)(
+                self._dev_carry, blocks)
+            outs.append(pcm)
+        if not outs:
+            return np.zeros((0, 0, 256), self._np)
+        return np.concatenate([o.cpu().numpy() for o in outs], axis=0)
+
+
+def _frames(es: bytes):
+    """The frames of an elementary stream, resynced byte by byte; a frame
+    cut short at the end is left out."""
+    from .parse import syncinfo
+    pos = 0
+    while pos + 7 <= len(es):
+        size = syncinfo(es[pos:pos + 7])[0]
+        if size == 0:
+            pos += 1
+            continue
+        if pos + size > len(es):
+            return
+        yield es[pos:pos + size]
+        pos += size
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,9 @@ The batched bodies take the lane axis explicitly: tensors are
 [B, n, ...] (lanes, blocks), the carry is (delay [B, 6, 128] f32,
 downmixed [B] bool).  One stream (``block_pipeline``, ``Decoder``) runs
 the block scan with a lane axis of 1; ``_block_step`` is one block of it,
-written out (the form the scan is checked against, and the one the
-fixed-point decode, ROADMAP A8, will reuse with its own filterbank).
+written out: the fixed-point decode (``fixed_block_pipeline``, int32 Q30)
+runs it block by block with its own filterbank, and the tests hold a scan
+of it to the block scan.
 """
 from __future__ import annotations
 
@@ -102,7 +103,9 @@ def _block_step(fmt: StreamFormat, carry, blk, filterbank=filterbank):
     (host dequant), blksw [5] bool, coeff [5], remat [256] bool, bias 0-d
     -> (carry, pcm [nch_out, 256], LFE first).  `filterbank` may be
     swapped for the order-exact ops.imdct_exact.filterbank_exact, which
-    reproduces the reference's float output bit for bit."""
+    reproduces the reference's float output bit for bit, or for
+    filterbank_fixed (int32 Q30 freq, delay and bias: every where and
+    mix below keeps freq's dtype)."""
     delay, downmixed = carry
     nf = fmt.nfchans
     bias = blk["bias"]
@@ -480,6 +483,48 @@ def block_pipeline(fmt: StreamFormat, exact: bool | None = None):
         return (delay[0], downmixed[0]), pcm[0]
 
     return run
+
+
+def fixed_block_pipeline(fmt: StreamFormat):
+    """(carry, blocks) -> (carry, pcm int32 [nblk, nch_out, 256]): the
+    LIBA52_FIXED decode of one stream, int32 Q30 throughout.
+
+    The same _block_step orchestration as the float scan (the path
+    decision, the downmix/upmix fixups of the carried delay, zero-coeff
+    channels), block after block, with the order-exact Q30 filterbank
+    (ops.imdct_exact.filterbank_fixed: the split on B1Q on the card, the
+    reference's MUL, a52_internal.h:144-150).  The host pre-pass (native
+    ac3h_sdec_parse_fixed) has dequantized and rematrixed, so blocks carry
+    remat False; the fixed build's bias is always 0 (BIASV,
+    native/ac3sample.inc).
+
+    blocks: freq int32 [n, 6, 256], blksw bool [n, 5], coeff 0/1 [n, 5],
+    remat bool [n, 256] (False), bias int32 [n] (zeros), numpy arrays or
+    tensors (they go to the carry's device).
+    carry: (delay int32 [6, 128], downmixed 0-d bool)."""
+    from ..ops.imdct_exact import filterbank_fixed
+
+    def run(carry, blocks):
+        dev = carry[0].device
+        blocks = {k: torch.as_tensor(v, device=dev)
+                  for k, v in blocks.items()}
+        outs = []
+        for i in range(blocks["freq"].shape[0]):
+            carry, pcm = _block_step(fmt, carry,
+                                     {k: v[i] for k, v in blocks.items()},
+                                     filterbank=filterbank_fixed)
+            outs.append(pcm)
+        return carry, torch.stack(outs)
+
+    return run
+
+
+def init_fixed_carry(device=None):
+    """The fixed decode's zero carry: (delay int32 [6, 128], downmixed
+    True), on `device` (None: the CUDA card; raises without one)."""
+    device = resolve_device(device)
+    return (torch.zeros((6, 128), dtype=torch.int32, device=device),
+            torch.ones((), dtype=torch.bool, device=device))
 
 
 def init_carry(batch_shape=(), device=None):

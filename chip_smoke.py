@@ -9,7 +9,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
   2. build     the native host library (g++) and every CUDA kernel (nvcc),
                started together, each build timed; no kernel spills, and
                the SASS (cuobjdump) of the order-exact kernels B1 and B1F
-               holds no FFMA (every product rounds on its own)
+               holds no FFMA (every product rounds on its own; B1Q, the
+               fixed-point entry of the same source, is integer)
   3. check     the fused steady kernel (K1) against its plain PyTorch
                version on the card: at the bench shape (4096 lanes x 64
                frames of the golden 5.1 stream, premixed to 2 planes);
@@ -137,7 +138,28 @@ Phases, each fatal on failure (nothing is caught and passed over):
                JAX Transcoder's (TC_DIGEST); raw == native; the f32 bytes
                of 64 lanes == BatchedDecoder int16 -> BatchedEncoder;
                x-realtime of step_frames and of dispatch_frames/finish
- 21. report    one JSON line listing every kernel, then the device line
+ 21. B1Q       the Q30 order-exact IMDCT kernel (B1Q, the fixed-point
+               sample type) equal to its plain version BITWISE on the 5.1
+               golden's real Q30 planes (ac3h_sdec_parse_fixed) tiled to
+               786,432 rows, long and 30% short, on edge rows (full-range
+               int32, INT32_MIN/MAX, zeros, one non-zero bin) and ragged
+               row counts; an unaligned view raises; its times at 786,432
+               rows and at the fixed path's 5-row call beside its bound
+ 22. fixed     SampleDecoder("fixed") on the card: 512 frames of the 5.1
+               golden to stereo and to 3F2R|LFE, and the 5.1 -> 2.0
+               switch with DRC off, each int32 bitwise the native fixed
+               backend's; B1Q on every frame, B1, B1F and K1 never; every
+               B1Q call's output equal to the plain version of its inputs
+ 23. cli       python -m ac3acm_tpu_torch.cli as subprocesses on 128 frames:
+               decode to wav on the card (float and fixed) byte-equal to
+               --backend native; encode of that wav equal to Encoder's
+               bytes; info --check-crc; x-realtime from the CLI's meter
+ 24. driver    CodecDriver streams on the card equal to Ac3ToPcmStream and
+               PcmToAc3Stream on the same bytes
+ 25. profile   utils.trace.profile() around 32 frames of the fixed decode:
+               the Chrome trace names B1Q's kernel; the device busy share
+               (the union of kernel intervals over the traced window)
+ 26. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -188,6 +210,23 @@ B1_LONG_ROW_FLOP = 768 + 776 + 420 + 540 + 372 + 756 + 768
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, FP32 FLOP/s
 # outside the tensor cores, dense TF32 and bf16 FLOP/s in them
 PEAK_BYTES, PEAK_FP32, PEAK_TF32, PEAK_BF16 = 3.35e12, 67e12, 495e12, 989e12
+# instructions a second an H100 SXM can issue: 4 schedulers x 32 lanes an
+# SM x 132 SMs x 1.98 GHz boost, the FP32 peak counted one instruction per
+# FMA (67e12 / 2).  Integer instructions issue to the INT pipe and (IMUL,
+# IMAD) to the FMA pipe beside it, and no mix of them issues faster
+PEAK_ISSUE = PEAK_FP32 / 2
+# integer instructions of one long row of the Q30 IMDCT (B1Q), at the
+# fewest the function needs: the long row's 1,724 MULs (B1's multiplies)
+# at 7 each (of native/ac3sample.inc:33-38, IMUL, IMAD, the shift of tc
+# and the LEA that adds it to the high product's << 2, one more IMUL, and
+# the two 16-bit halves of each operand, each shared by the two MULs that
+# use it) and its 2,676 adds and subtracts (B1's)
+B1Q_LONG_ROW_OPS = 1724 * 7 + 2676
+# the fixed path: frames of the 5.1 golden a run, frames of each half of
+# the 5.1 -> 2.0 switch, frames traced by the profiler, frames the CLI
+# decodes and encodes
+FIXED_FRAMES, FIXED_SWITCH_FRAMES, PROFILE_FRAMES, CLI_FRAMES = (512, 32, 32,
+                                                                 128)
 
 
 def log(msg):
@@ -1637,6 +1676,7 @@ def kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
+            "B1Q": IE.launches_fixed,
             **{k: v for k, v in gather_counts().items()}}
 
 
@@ -1644,7 +1684,7 @@ def zero_kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
-    IE.launches = FE.launches = FS.launches = 0
+    IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
     zero_gather_counts()
 
 
@@ -2529,6 +2569,360 @@ def phase_transcode():
     return launches, worst, rt
 
 
+def fixed_planes(path, flags):
+    """ac3h_sdec_parse_fixed over a golden's frames: the Q30 planes the
+    fixed device path feeds B1Q, [frames * 36, 256] int32 (6 blocks x 6
+    channel slots a frame), and each row's short-block flag."""
+    import ctypes as C
+    from ac3acm_tpu_torch.host.native import get_lib
+    lib = get_lib()
+    d = lib.ac3h_sdec_new(0)
+    rows, flags_out = [], []
+    for fb in golden_frames(path):
+        freq = np.zeros((6, 6, 256), np.int32)
+        blksw = np.zeros((6, 5), np.uint8)
+        czero = np.zeros((6, 5), np.uint8)
+        meta = np.zeros(6, np.int32)
+        assert lib.ac3h_sdec_parse_fixed(
+            d, fb, flags, float(1 << 26), C.c_void_p(freq.ctypes.data),
+            C.c_void_p(blksw.ctypes.data), C.c_void_p(czero.ctypes.data),
+            C.c_void_p(meta.ctypes.data)) == 0
+        rows.append(freq.reshape(36, 256))
+        flags_out.append(np.concatenate([blksw, np.zeros((6, 1), np.uint8)],
+                                        1).reshape(36).astype(bool))
+    lib.ac3h_sdec_free(d, 0)
+    return np.concatenate(rows), np.concatenate(flags_out)
+
+
+def b1q_same(x, blk, what):
+    """B1Q against its plain version, bitwise -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    z, d = IE.split_fb_fixed(x, blk)
+    zr, dr = IE.split_fb_fixed_ref(x, blk)
+    torch.cuda.synchronize()
+    err = max(int((z.long() - zr.long()).abs().max()),
+              int((d.long() - dr.long()).abs().max()))
+    assert torch.equal(z, zr) and torch.equal(d, dr), (what, err)
+    return float(err)
+
+
+def phase_check_b1q(dev):
+    """B1Q (the Q30 split, csrc/imdct_exact.cu:imdct_fixed_kernel) against
+    its plain version BITWISE: the 5.1 golden's real Q30 planes tiled to
+    the main chunk's 786,432 rows, long and with 30% short rows; edge rows
+    (full-range random int32, INT32_MIN / INT32_MAX, zeros, one non-zero
+    bin) long, short and mixed; ragged row counts; the real planes with
+    their own flags; an unaligned view, which must raise.  -> (the tiled
+    rows, max |diff|)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    rng = np.random.default_rng(17)
+    planes, own = fixed_planes(GOLDEN, FLAGS_51_TO_20)
+    worst, cases = 0.0, 0
+    R = MAIN_BATCH * CHUNK_FRAMES * 6 * 2                # B1's chunk rows
+    tiled = torch.from_numpy(
+        np.resize(planes, (R, 256))).to(dev).contiguous()
+    for tag, blk in (("long", None),
+                     ("30% short", torch.rand(R, device=dev) < 0.3)):
+        worst = max(worst, b1q_same(tiled, blk, tag))
+        cases += 1
+    n = 64
+    edge = np.concatenate([
+        rng.integers(-2 ** 31, 2 ** 31, (n, 256), dtype=np.int64),
+        np.where(rng.random((n, 256)) < 0.5, -2 ** 31, 2 ** 31 - 1),
+        np.full((4, 256), -2 ** 31), np.full((4, 256), 2 ** 31 - 1),
+        np.zeros((4, 256), np.int64)]).astype(np.int32)
+    one = np.zeros((256, 256), np.int32)
+    one[np.arange(256), np.arange(256)] = rng.integers(
+        -2 ** 31, 2 ** 31, 256, dtype=np.int64).astype(np.int32)
+    edge = torch.from_numpy(np.concatenate([edge, one])).to(dev)
+    E = edge.shape[0]
+    for blk in (None, torch.zeros(E, dtype=torch.bool),
+                torch.ones(E, dtype=torch.bool),
+                torch.from_numpy(rng.random(E) < 0.5)):
+        worst = max(worst, b1q_same(edge, None if blk is None else
+                                    blk.to(dev), "edge rows"))
+        cases += 1
+    real = torch.from_numpy(planes).to(dev)
+    worst = max(worst, b1q_same(real, torch.from_numpy(own).to(dev),
+                                "real planes, own flags"))
+    cases += 1
+    for rows in (1, 5, 6, 31, 33):
+        x = edge[:rows].contiguous()
+        for blk in (None, torch.from_numpy(rng.random(rows) < 0.5).to(dev)):
+            worst = max(worst, b1q_same(x, blk, ("ragged", rows)))
+            cases += 1
+    flat = torch.zeros(5 * 256 + 1, dtype=torch.int32, device=dev)
+    try:
+        IE.split_fb_fixed(flat[1:].view(5, 256))
+        raise AssertionError("an unaligned view was accepted")
+    except ValueError as e:
+        assert "aligned" in str(e), e
+    log(f"check imdct_fixed (B1Q): {cases} cases equal to the plain version "
+        f"bitwise (the 5.1 golden's {planes.shape[0]} real Q30 rows tiled "
+        f"to {R} rows, long and 30% short; {E} edge rows: full-range "
+        f"int32, INT32_MIN/INT32_MAX, zeros, one non-zero bin, long, short "
+        f"and mixed; the real rows with their own flags; ragged 1, 5, 6, "
+        f"31, 33 rows), max |diff| {worst}; an unaligned view raises")
+    return tiled, worst
+
+
+def phase_times_b1q(tiled):
+    """B1Q at B1's 786,432 long rows and at the fixed path's 5-row call:
+    kernel, plain version, bound (bytes or integer instructions, the
+    larger; bytes at both sizes).
+    No PyTorch call computes a Q30 split-16 IMDCT: library_ms is null."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    out = {}
+    for R, x in ((tiled.shape[0], tiled), (5, tiled[:5].contiguous())):
+        before = IE.launches_fixed
+        ms = cuda_ms(lambda: IE.split_fb_fixed(x))
+        per_call = (IE.launches_fixed - before) / 9
+        plain_ms = cuda_ms(lambda: IE.split_fb_fixed_ref(x), warmup=1,
+                           reps=3)
+        nbytes = R * (256 + 256 + 128) * 4
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = R * B1Q_LONG_ROW_OPS / PEAK_ISSUE * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"time imdct_fixed (B1Q) [{R} long rows]: kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.3f}; bounds: bytes {nbytes} B / 3.35e12 "
+            f"B/s = {t_bytes:.5f} ms | integer instructions "
+            f"{R * B1Q_LONG_ROW_OPS:.4e} / {PEAK_ISSUE:.4e} issued/s = "
+            f"{t_ops:.5f} ms; bound_ms {bound_ms:.5f} -> {bound_by} "
+            f"({bound_ms / ms:.1%} of the kernel's time); library_ms null "
+            f"(no PyTorch call computes a Q30 split-16 IMDCT); {per_call:g} "
+            f"launch per call")
+        out[R] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                      bound_ms=bound_ms, bound_by=bound_by)
+    big, small = out[tiled.shape[0]], out[5]
+    return dict(big, ms_5_rows=small["ms"], plain_ms_5_rows=small["plain_ms"],
+                bound_ms_5_rows=small["bound_ms"])
+
+
+@contextlib.contextmanager
+def record_b1q():
+    """The inputs and outputs of every split_fb_fixed call the fixed path
+    makes (each still launches B1Q once), cloned on the card."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    orig = IE.split_fb_fixed
+    calls = []
+
+    def call(coeffs, blksw=None):
+        z, d = orig(coeffs, blksw)
+        blk = (torch.zeros(coeffs.shape[:-1], dtype=torch.bool,
+                           device=coeffs.device) if blksw is None else blksw)
+        calls.append((coeffs.reshape(-1, 256).clone(),
+                      blk.reshape(-1).clone(), z.reshape(-1, 256).clone(),
+                      d.reshape(-1, 128).clone()))
+        return z, d
+
+    IE.split_fb_fixed = call
+    try:
+        yield calls
+    finally:
+        IE.split_fb_fixed = orig
+
+
+def check_b1q_calls(calls):
+    """Every recorded B1Q call's outputs (from the run itself) against the
+    plain version of its inputs, bitwise, all calls in one plain pass
+    (rows are independent) -> (rows, max |diff|)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    x, blk, z, d = (torch.cat([c[i] for c in calls]) for i in range(4))
+    zr, dr = IE.split_fb_fixed_ref(x, blk)
+    err = max(int((z.long() - zr.long()).abs().max()),
+              int((d.long() - dr.long()).abs().max()))
+    assert torch.equal(z, zr) and torch.equal(d, dr), err
+    return x.shape[0], float(err)
+
+
+def fixed_run(es, flags, drc=True):
+    """SampleDecoder("fixed") on the card over es, its counts set to 0
+    just before; -> (pcm, the native fixed backend's pcm, seconds, kernel
+    counts, B1Q calls)."""
+    from ac3acm_tpu_torch.host.native import SampleDecoder
+    dev, nat = SampleDecoder("fixed"), SampleDecoder("fixed",
+                                                     backend="native")
+    if not drc:
+        dev.set_drc_enabled(False)
+        nat.set_drc_enabled(False)
+    torch.cuda.synchronize()
+    with record_b1q() as calls:
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        pcm = dev.decode_stream(es, flags)                  # numpy: synced
+        dt = time.perf_counter() - t0
+        counts = kernel_counts()
+    return pcm, nat.decode_stream(es, flags), dt, counts, calls
+
+
+def phase_fixed():
+    """The fixed-point path (SampleDecoder("fixed"), device backend) on the
+    card: 512 frames of the 5.1 golden to stereo and to 3F2R|LFE, the 5.1
+    -> 2.0 switch with DRC off; each int32 bitwise the native fixed
+    backend's; B1Q on every frame, B1, B1F and K1 never; every B1Q call
+    held to its plain version.  -> (B1Q launches, max |diff|)."""
+    b51, st = golden_frames(GOLDEN), golden_frames(STEREO_GOLDEN)
+    runs = (("5.1 -> 2.0", cycle(b51, FIXED_FRAMES), 2 | 32, True),
+            ("5.1 -> 3F2R|LFE", cycle(b51, FIXED_FRAMES), 7 | 16 | 32, True),
+            ("5.1 then 2.0 mid-stream, DRC off",
+             cycle(b51, FIXED_SWITCH_FRAMES) + cycle(st, FIXED_SWITCH_FRAMES),
+             2 | 32, False))
+    launches, worst, xrt = 0, 0.0, {}
+    for tag, es, flags, drc in runs:
+        pcm, want, dt, counts, calls = fixed_run(es, flags, drc)
+        nfr = pcm.shape[0] // 6
+        same = pcm.dtype == np.int32 and pcm.shape == want.shape \
+            and np.array_equal(pcm, want)
+        xrt[tag] = nfr * 1536 / 48000.0 / dt
+        log(f"fixed path {tag}: SampleDecoder('fixed') on the card, {nfr} "
+            f"frames {dt:.3f} s -> {xrt[tag]:.2f}x realtime; int32 "
+            f"{tuple(pcm.shape)} == the native fixed backend {same}; "
+            f"launches B1Q {counts['B1Q']} ({len(calls)} calls recorded), "
+            f"B1 {counts['B1']}, B1F {counts['B1F']}, K1 {counts['K1']}")
+        assert same, tag
+        assert counts["B1Q"] >= nfr and counts["B1Q"] == len(calls), counts
+        assert counts["B1"] == counts["B1F"] == counts["K1"] == 0, counts
+        launches += counts["B1Q"]
+        rows, err = check_b1q_calls(calls)
+        worst = max(worst, err)
+        log(f"fixed path {tag}: every B1Q call's output ({len(calls)} calls, "
+            f"{rows} rows) == the plain version of its inputs, max |diff| "
+            f"{err}")
+    return launches, worst, xrt
+
+
+def meter_xrt(stderr):
+    """The x-realtime of the CLI's closing meter line ("N frames in Xs
+    (F fps, Rx realtime)"), from its frames a second at 48 kHz: decode or
+    encode alone, start-up excluded."""
+    m = re.findall(r"frames in [\d.]+s \(([\d.]+) fps", stderr)
+    assert m, stderr[-2000:]
+    return float(m[-1]) * 1536 / 48000.0
+
+
+def phase_cli():
+    """python -m ac3acm_tpu_torch.cli as subprocesses on a 128-frame file
+    of the 5.1 golden: decode to wav on the card (float, reference mode,
+    and fixed) byte-equal to --backend native (run in this process, to
+    save a start-up each); encode of that wav equal to the port's Encoder
+    on the same PCM; info --check-crc exits 0.  -> {run: x-realtime}."""
+    import tempfile
+    from ac3acm_tpu_torch.cli import _read_wav
+    from ac3acm_tpu_torch.cli import main as cli_main
+    from ac3acm_tpu_torch.models.encoder import Encoder
+    env = dict(os.environ, PYTHONPATH=HERE)
+    xrt = {}
+
+    def cli(*args):
+        r = subprocess.run([sys.executable, "-m", "ac3acm_tpu_torch.cli",
+                            *args], cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode == 0, (args, r.stderr[-3000:])
+        return r
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.ac3")
+        with open(src, "wb") as f:
+            f.write(cycle(golden_frames(GOLDEN), CLI_FRAMES))
+        wavs = {}
+        for st in ("float", "fixed"):
+            for backend in ("device", "native"):
+                out = os.path.join(tmp, f"{st}_{backend}.wav")
+                args = ("decode", src, "-o", out, "--output", "wav",
+                        "--sample-type", st, "--backend", backend)
+                if backend == "device":
+                    xrt[st] = meter_xrt(cli(*args).stderr)
+                else:
+                    assert cli_main([*args, "-q"]) == 0
+                wavs[st, backend] = open(out, "rb").read()
+            same = wavs[st, "device"] == wavs[st, "native"]
+            log(f"cli decode --sample-type {st}: {CLI_FRAMES} frames, wav "
+                f"{len(wavs[st, 'device'])} B, --backend device == native "
+                f"bytes {same}; device {xrt[st]:.3f}x realtime (the "
+                f"meter: decode alone)")
+            assert same, st
+        enc = os.path.join(tmp, "enc.ac3")
+        r = cli("encode", os.path.join(tmp, "float_device.wav"), "-o", enc,
+                "-b", "384")
+        xrt["encode"] = meter_xrt(r.stderr)
+        pcm, rate = _read_wav(os.path.join(tmp, "float_device.wav"))
+        want = Encoder(rate, 384000, pcm.shape[1]).encode(pcm)
+        got = open(enc, "rb").read()
+        log(f"cli encode: {len(got)} B == Encoder's bytes on the same PCM "
+            f"{got == want}; {xrt['encode']:.3f}x realtime (the meter)")
+        assert got == want and got[:2] == b"\x0b\x77"
+        r = cli("info", enc, "--check-crc")
+        log(f"cli info --check-crc: {r.stdout.strip()}")
+        assert "CRC ok" in r.stdout
+    return xrt
+
+
+def phase_driver():
+    """CodecDriver streams on the card: decode and encode equal to
+    Ac3ToPcmStream and PcmToAc3Stream on the same bytes."""
+    from ac3acm_tpu_torch.io.driver import CodecDriver
+    from ac3acm_tpu_torch.io.stream import (Ac3Format, Ac3ToPcmStream,
+                                            PcmFormat, PcmToAc3Stream)
+    es = cycle(golden_frames(GOLDEN), 16)
+    with CodecDriver() as drv:
+        src = Ac3Format(6, 48000, 448)
+        dec = drv.stream_open(src, PcmFormat(2, 48000))
+        pcm = dec.convert(es)
+        want = Ac3ToPcmStream(2).convert(es)
+        fmt = Ac3Format(2, 48000, 192)
+        out = drv.stream_open(PcmFormat(2, 48000), fmt).convert(pcm)
+        want_out = PcmToAc3Stream(fmt).convert(pcm)
+    same = np.array_equal(pcm, want) and out == want_out
+    log(f"driver: CodecDriver().stream_open decode {tuple(pcm.shape)} int16 "
+        f"== Ac3ToPcmStream and encode {len(out)} B == PcmToAc3Stream "
+        f"{same}")
+    assert same and pcm.shape == (16 * 1536, 2) and out[:2] == b"\x0b\x77"
+
+
+def phase_profile():
+    """profile() around 32 frames of the fixed decode on the card: the
+    Chrome trace must exist and name B1Q's kernel; the device busy share
+    is the union of the kernels' intervals over the traced window (from
+    the trace's first event to its last end).  -> busy share."""
+    import glob
+    import tempfile
+    from ac3acm_tpu_torch.host.native import SampleDecoder
+    from ac3acm_tpu_torch.utils.trace import profile
+    es = cycle(golden_frames(GOLDEN), PROFILE_FRAMES)
+    dec = SampleDecoder("fixed")
+    dec.decode_stream(cycle(golden_frames(GOLDEN), 2), FLAGS_51_TO_20)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        with profile(tmp):
+            dec.decode_stream(es, FLAGS_51_TO_20)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tmp, "*.json"))
+        assert len(files) == 1, files
+        events = json.load(open(files[0]))["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if "ts" in e and e.get("ph") == "X"]
+    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "kernel" and e.get("ph") == "X")
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    assert any("imdct_fixed_kernel" in n for n in names), sorted(names)[:20]
+    busy, end = 0.0, -1e30
+    for a, b in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0, t1 = min(a for a, _ in spans), max(b for _, b in spans)
+    share = busy / (t1 - t0)
+    b1q = sum(1 for e in events if e.get("cat") == "kernel"
+              and "imdct_fixed_kernel" in e.get("name", ""))
+    log(f"profile: {PROFILE_FRAMES} frames of the fixed decode traced; "
+        f"{len(kern)} kernels ({len(names)} names, B1Q "
+        f"'imdct_fixed_kernel' {b1q} times), window "
+        f"{(t1 - t0) / 1e3:.3f} ms, kernels busy {busy / 1e3:.3f} ms -> "
+        f"device busy share {share:.2%}, idle {1 - share:.2%}")
+    return share
+
+
 def main():
     phase_card()
     dev = torch.device("cuda")
@@ -2544,6 +2938,10 @@ def main():
     b1_times = phase_times_b1(b1_freq)
     b1f_times = phase_times_b1f(b1f_inputs, b1_times)
     del bench_inputs, b1_freq, b1f_inputs
+    torch.cuda.empty_cache()
+    b1q_rows, b1q_err = phase_check_b1q(dev)
+    b1q_times = phase_times_b1q(b1q_rows)
+    del b1q_rows
     torch.cuda.empty_cache()
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
@@ -2580,6 +2978,15 @@ def main():
         raw_launches[entry] += tc_launches[entry]
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
                     for k, v in tc_errs.items()})
+    torch.cuda.empty_cache()
+    b1q_launches, b1q_path_err, fixed_xrt = phase_fixed()
+    cli_xrt = phase_cli()
+    phase_driver()
+    busy = phase_profile()
+    log(f"x-realtime: fixed path (SampleDecoder on the card) "
+        f"{fixed_xrt['5.1 -> 2.0']:.2f}x; cli decode (the meter) float "
+        f"{cli_xrt['float']:.3f}x, fixed {cli_xrt['fixed']:.3f}x; "
+        f"device busy share of the traced fixed decode {busy:.2%}")
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
@@ -2607,6 +3014,13 @@ def main():
                  "and int16 (XLA; no pallas_call)",
         launches=b1f_launches, max_abs_err=max(b1f_err, py_errs["B1F"]),
         **b1f_times))
+    kernels.append(dict(
+        name="imdct_fixed (B1Q)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
+        replaces="ac3acm_tpu/ops/imdct_exact.py:256,294 _build(\"fixed\") "
+                 "(XLA; no pallas_call)",
+        launches=b1q_launches, max_abs_err=max(b1q_err, b1q_path_err),
+        **b1q_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

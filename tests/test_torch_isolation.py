@@ -31,9 +31,12 @@ def test_import_every_module_without_jax():
         " 'ac3acm_tpu_torch.ops.mdct', 'ac3acm_tpu_torch.models.encoder',"
         " 'ac3acm_tpu_torch.host.pack', 'ac3acm_tpu_torch.ops.pack_device',"
         " 'ac3acm_tpu_torch.parallel.encode',"
-        " 'ac3acm_tpu_torch.parallel.transcode'}\n"
+        " 'ac3acm_tpu_torch.parallel.transcode',"
+        " 'ac3acm_tpu_torch.cli', 'ac3acm_tpu_torch.io.driver',"
+        " 'ac3acm_tpu_torch.io.demux', 'ac3acm_tpu_torch.io.sinks',"
+        " 'ac3acm_tpu_torch.utils.meter'}\n"
         "assert new <= set(names), names\n"
-        "assert len(names) >= 30, names\n"
+        "assert len(names) >= 35, names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -107,6 +110,18 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         with pytest.raises(NotImplementedError, match="A12"):
             make()
     assert Encoder(48000, 192000, 2, device="cpu").device.type == "cpu"
+    from ac3acm_tpu_torch.host.native import SampleDecoder
+    from ac3acm_tpu_torch.io.driver import CodecDriver
+    from ac3acm_tpu_torch.io.stream import PcmFormat
+    from ac3acm_tpu_torch.models.decoder import init_fixed_carry
+    for make in (lambda: SampleDecoder("fixed"), init_fixed_carry,
+                 lambda: CodecDriver().stream_open(
+                     Ac3Format(2, 48000, 192), PcmFormat(2, 48000)),
+                 lambda: CodecDriver().stream_open(
+                     PcmFormat(2, 48000), Ac3Format(2, 48000, 192))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert SampleDecoder("fixed", device="cpu").device.type == "cpu"
     delay, downmixed = init_batched_carry(4, device="cpu")
     assert delay.device.type == "cpu" and delay.shape == (4, 6, 128)
     assert bool(downmixed.all())
@@ -123,3 +138,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert pcm.dtype == torch.int16 and pcm.shape == (2, 6, 2, 256)
     assert dlast.shape == (2, 2, 128)
     assert int(pcm.abs().max()) == 0
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    before = IE.launches, IE.launches_fixed
+    z, d = IE.split_fb_fixed(torch.zeros((3, 256), dtype=torch.int32))
+    assert (IE.launches, IE.launches_fixed) == before
+    assert z.dtype == torch.int32 and not bool(z.any())
