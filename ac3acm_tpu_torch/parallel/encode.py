@@ -5,6 +5,14 @@ each stream's carry (last_samples, csnroffst) on the device.  Frames are
 packed on the device by default (ops.pack_device: only the finished
 frames and the ok mask come back), or on the host by the threaded native
 C++ packer (native/ac3host.cpp:ac3h_pack_frames), byte-identically.
+
+With a mesh (parallel.mesh.make_mesh) the streams are split over its
+'data' axis: each shard's carry lives on its row's device and the frame
+core runs once per shard.  The native packer sees the gathered fields;
+the device packer packs each shard's fields on its own device, where the
+core left them (a frame's bytes depend on that frame's fields alone, so
+the bytes are the same, and the dense fields, about 20x the frames'
+bytes, never cross between devices).
 """
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ from ..host import pack as PK
 from ..models.encoder import (encode_pipeline_multi, encode_pipeline_packed,
                               make_config, rate_failures)
 from ..utils.device import resolve_device
-from .pipeline import _no_mesh
+from .mesh import Sharded, check_mesh, over_data, stream_sharding
 
 
 class BatchedEncoder:
@@ -24,15 +32,18 @@ class BatchedEncoder:
     pack: "device" (default) assembles frames on the device; "native"
     fetches the dense fields and packs them in C++ threads.  Byte-identical.
     device: None -> the CUDA card (raises without one); "cpu" runs the
-    plain PyTorch path.  mesh: the JAX package's slot, kept in its
-    position; only None is served (ROADMAP A12)."""
+    plain PyTorch path.  mesh: the streams split over its 'data' axis
+    (the carry then is parallel.mesh.Sharded); device stays None."""
 
     def __init__(self, batch: int, freq: int, bitrate: int, channels: int,
                  mesh=None, pack: str = "device", device=None):
-        _no_mesh(mesh)
         if pack not in ("device", "native"):
             raise ValueError(f"pack={pack!r}: expected 'device' or 'native'")
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.row_devices[0])
         self.batch = batch
         self.cfg = make_config(freq, bitrate, channels)
         self.pack = pack
@@ -40,6 +51,9 @@ class BatchedEncoder:
                                 device=self.device)
         self.csnr = torch.full((batch,), 40, dtype=torch.int32,
                                device=self.device)
+        if mesh is not None:
+            self.last, self.csnr = stream_sharding(mesh).put(
+                (self.last, self.csnr))
 
     def encode_step(self, pcm: np.ndarray) -> list[bytes]:
         """pcm int16 [batch, 1536, nch] (AC-3 channel order) -> one frame
@@ -54,26 +68,61 @@ class BatchedEncoder:
         device as int16."""
         B, n, nch = np.shape(pcm)
         F = n // 1536
-        frames = np.moveaxis(np.asarray(pcm, np.int16).reshape(B, F, 1536,
-                                                                nch), 1, 0)
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
-        if self.pack == "device":
-            carry, ok, out = encode_pipeline_packed(self.cfg)(
-                x, self.last, self.csnr)
-            bad = rate_failures(ok)
-            if bad:
-                raise RuntimeError(
-                    f"rate control failed at (frame, stream) {bad}")
-            self.last, self.csnr = carry
-            fr = out.cpu().numpy()
-            return [fr[:, b].tobytes() for b in range(B)]
-        (last, csnr), res = encode_pipeline_multi(self.cfg)(
-            x, self.last, self.csnr)
-        bad = rate_failures(res["ok"])
+        pcm = np.asarray(pcm, np.int16)
+        if self.mesh is None:
+            x = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+                pcm.reshape(B, F, 1536, nch), 1, 0))).to(self.device)
+            carry, ok, out = encode_run(self.cfg, self.pack, x, self.last,
+                                        self.csnr)
+        else:
+            def shard(x, last, csnr):
+                x = x.reshape(x.shape[0], F, 1536, nch).transpose(0, 1)
+                return lanes_first(*encode_run(self.cfg, self.pack,
+                                               x.contiguous(), last, csnr))
+
+            carry, ok, out = frame_major(*over_data(self.mesh, shard)(
+                pcm, self.last, self.csnr))
+        bad = rate_failures(ok)
         if bad:
             raise RuntimeError(f"rate control failed at (frame, stream) {bad}")
-        self.last, self.csnr = last, csnr
-        flat = PK.pack_frames_native(
-            self.cfg, {k: v.cpu().numpy() for k, v in res.items()})
-        # [F, B] flattens C-order: frame f of stream b at index f*B + b
-        return [b"".join(flat[f * B + b] for f in range(F)) for b in range(B)]
+        self.last, self.csnr = carry
+        return frame_bytes(self.cfg, out, B, F)
+
+
+def encode_run(cfg, pack: str, samples, last, csnr):
+    """samples [F, B, 1536, nch] on one device -> ((last', csnr'), ok
+    [F, B], out): with pack="device" the packed frames [F, B, bytes]
+    (encode_pipeline_packed), with "native" the frame fields {k: [F, B,
+    ...]} (encode_pipeline_multi)."""
+    if pack == "device":
+        return encode_pipeline_packed(cfg)(samples, last, csnr)
+    carry, res = encode_pipeline_multi(cfg)(samples, last, csnr)
+    return carry, res["ok"], res
+
+
+def lanes_first(carry, ok, out):
+    """encode_run's outputs with the lane axis first (one shard's, for the
+    split over 'data')."""
+    t = lambda x: x.transpose(0, 1)
+    return carry, t(ok), (t(out) if isinstance(out, torch.Tensor)
+                          else {k: t(v) for k, v in out.items()})
+
+
+def frame_major(carry, ok, out):
+    """The Sharded outputs of lanes_first over a mesh -> the carry as it
+    is and ok, out gathered to the host in encode_run's [F, B] layout."""
+    t = lambda x: x.gather().transpose(0, 1)
+    return carry, t(ok), (t(out) if isinstance(out, Sharded)
+                          else {k: t(v) for k, v in out.items()})
+
+
+def frame_bytes(cfg, out, B: int, F: int) -> list[bytes]:
+    """encode_run's out -> each stream's F frames of bytes: the device
+    packer's frames as they are, the fields through the native packer."""
+    if isinstance(out, torch.Tensor):
+        fr = out.cpu().numpy()
+        return [fr[:, b].tobytes() for b in range(B)]
+    flat = PK.pack_frames_native(
+        cfg, {k: v.cpu().numpy() for k, v in out.items()})
+    # [F, B] flattens C-order: frame f of stream b at index f*B + b
+    return [b"".join(flat[f * B + b] for f in range(F)) for b in range(B)]

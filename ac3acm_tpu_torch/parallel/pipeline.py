@@ -23,9 +23,15 @@ bodies; in reference mode a steady chunk of a premixable format is
 premixed on the device (models.decoder.premix_blocks_device) and takes
 B1F.
 
-The JAX package's ``mesh`` argument keeps its position in every entry
-point's signature; only ``mesh=None`` is served (multi-GPU is ROADMAP
-A12).
+``mesh`` (parallel.mesh.make_mesh) keeps the JAX package's position in
+every entry point's signature.  With a mesh, the lane axis of every
+operand is split over its 'data' axis and the one-device function runs
+once per data row on that row's device (parallel.mesh.over_data), with
+the kernels the one-device call takes (B1F, B1, K1, K2-K4): JAX drops its
+Pallas kernel under a mesh only because GSPMD does not partition a
+pallas_call.  Each lane's PCM is the same as without the mesh: the
+reference mode, K1, K2-K4 and the block scan work lane by lane.
+``tp_filterbank`` splits the filterbank product over 'model' as well.
 """
 from __future__ import annotations
 
@@ -44,7 +50,7 @@ from ..models.decoder import (StreamFormat, _lanes_first, _pipeline_body,
                               frame_format, premix_blocks,
                               premix_blocks_device, steady_ok)
 from ..ops.downmix import downmix
-from ..ops.filterbank import convert_to_int16
+from ..ops.filterbank import convert_to_int16, mats_on
 from ..ops.fused_steady import fused_steady
 from ..ops.fused_steady_exact import fused_steady_exact
 from ..ops.unpack_device import (init_unpack_carry, null_raw_rec,
@@ -53,6 +59,8 @@ from ..ops.unpack_device import (init_unpack_carry, null_raw_rec,
                                  static_emax, static_exp_pts, unpack_blocks)
 from ..utils.device import resolve_device
 from ..utils.trace import log
+from .mesh import (Mesh, Sharded, check_mesh, over_data,
+                   stream_sharding)
 
 
 def _expand_compact(blocks):
@@ -69,13 +77,6 @@ def _expand_compact(blocks):
     out["freq"] = (grouped.to(torch.float32)
                    * scale[..., None]).reshape(man.shape)
     return out
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port runs on one card; multi-GPU sharding is not "
-            "ported yet (ROADMAP A12)")
 
 
 def _fused_run(fmt: StreamFormat, exact: bool = False,
@@ -172,35 +173,38 @@ def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
     fused=False forces the plain steady body (A/B comparisons); fused=True
     asks for K1 and asserts its eligibility (so it implies fast mode).
 
-    mesh: the JAX package's slot, kept in its position; only None is
-    served (ROADMAP A12).
+    mesh (parallel.mesh.Mesh): fn splits the lanes of carry and blocks
+    over its 'data' axis (operands already placed there stay), runs the
+    function above once per data row on that row's device, and returns
+    carry and pcm as parallel.mesh.Sharded, split the same way.
     """
-    _no_mesh(mesh)
+    check_mesh(mesh)
     if exact is None:
         exact = False if fused else default_exact()
     eligible = steady and long_only and premixed and emit_int16 and not exact
     if fused:
         assert eligible, "the fused kernel requires steady+long_only+" \
                          "premixed+int16 in fast mode"
-        return _fused_run(fmt)
-    if fused is None and (eligible or (exact and steady and premixed)):
-        return _fused_run(fmt, exact=exact, emit_int16=emit_int16,
-                          long_only=long_only)
-    assert steady or not premixed, "the block scan takes full planes"
+        run = _fused_run(fmt)
+    elif fused is None and (eligible or (exact and steady and premixed)):
+        run = _fused_run(fmt, exact=exact, emit_int16=emit_int16,
+                         long_only=long_only)
+    else:
+        assert steady or not premixed, "the block scan takes full planes"
 
-    def run(carry, blocks):
-        blocks = _expand_compact(blocks)
-        if steady:
-            carry, pcm = _pipeline_steady(fmt, carry, blocks,
-                                          long_only=long_only,
-                                          premixed=premixed, exact=exact)
-        else:
-            carry, pcm = _pipeline_body(fmt, carry, blocks, exact=exact)
-        if emit_int16:
-            pcm = convert_to_int16(pcm)
-        return carry, pcm
+        def run(carry, blocks):
+            blocks = _expand_compact(blocks)
+            if steady:
+                carry, pcm = _pipeline_steady(fmt, carry, blocks,
+                                              long_only=long_only,
+                                              premixed=premixed, exact=exact)
+            else:
+                carry, pcm = _pipeline_body(fmt, carry, blocks, exact=exact)
+            if emit_int16:
+                pcm = convert_to_int16(pcm)
+            return carry, pcm
 
-    return run
+    return run if mesh is None else over_data(mesh, run)
 
 
 def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
@@ -225,8 +229,9 @@ def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
     an identity mix) is premixed on the device (premix_blocks_device) and
     decoded by the fused order-exact tail (B1F), as the JAX package's raw
     pallas=True body does with its fused kernel.  Fast mode keeps the
-    plain steady body.  mesh: as for batched_pipeline."""
-    _no_mesh(mesh)
+    plain steady body.  mesh: as for batched_pipeline (the unpack carry
+    too is split over 'data'); clock is for a one-device step only."""
+    check_mesh(mesh)
     if exact is None:
         exact = default_exact()
     tail = None
@@ -260,7 +265,17 @@ def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
                        + " + int16")
         return (ucarry, dcarry), pcm
 
-    return run
+    if mesh is None:
+        return run
+    sharded = over_data(mesh, run)
+
+    def run_mesh(carry, frames_u8, meta, bias, clock=None):
+        if clock is not None:
+            raise ValueError("a StageClock breaks down a one-device step; "
+                             "pass no clock with a mesh")
+        return sharded(carry, frames_u8, meta, bias)
+
+    return run_mesh
 
 
 class StageClock:
@@ -289,13 +304,70 @@ class StageClock:
         self._t = now
 
 
-def init_batched_carry(batch: int, device=None):
-    """Zero OLA delay and downmixed=True per lane, on `device` (None: the
-    CUDA card; raises without one)."""
+def init_batched_carry(batch: int, mesh=None, device=None):
+    """Zero OLA delay and downmixed=True per lane: split over the 'data'
+    axis of `mesh`, or on `device` (None: the CUDA card; raises without
+    one).  The slots are the JAX package's (batch, mesh)."""
+    if check_mesh(mesh) is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        return stream_sharding(mesh).put(init_batched_carry(batch,
+                                                            device="cpu"))
     device = resolve_device(device)
     delay = torch.zeros((batch, 6, 128), dtype=torch.float32, device=device)
     downmixed = torch.ones((batch,), dtype=torch.bool, device=device)
     return delay, downmixed
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel filterbank step: the frequency contraction split over
+# 'model', the partial products summed in model order (JAX's psum)
+# ---------------------------------------------------------------------------
+
+def tp_filterbank(mesh, coeffs, delay, blksw, bias):
+    """The filterbank (ops.filterbank.filterbank) with coeffs [B, C, 256]
+    split on the lane axis over 'data' and on the last axis over 'model':
+    the device at (data i, model j) multiplies its 256/m frequency rows by
+    the same rows of w_long / w_short into a partial [..., 384] product;
+    the partials of a data row are summed on its model-0 device in model
+    order (the psum); the window and OLA follow there.  delay [B, C, 128],
+    blksw [B, C] bool, bias [B, C]: split over 'data'.
+
+    -> (out [B, C, 256], new_delay [B, C, 128]) as parallel.mesh.Sharded.
+    The contraction is summed in m pieces, so the result is within a few
+    f32 ulps of the one-device filterbank's, not bitwise."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError("tp_filterbank needs a parallel.mesh.Mesh")
+    m = mesh.shape["model"]
+    if 256 % m:
+        raise ValueError(f"model={m} does not divide the 256 coefficients")
+    rows = 256 // m
+    c_s, d_s, b_s, bias_s = stream_sharding(mesh).put(
+        (coeffs, delay, blksw, bias))
+    outs, dnews = [], []
+    for i, row in enumerate(mesh.grid):
+        partial = []
+        for j, dev in enumerate(row):
+            w_long, w_short = mats_on(dev)[:2]
+            c = c_s.parts[i][..., j * rows:(j + 1) * rows].to(
+                dev, non_blocking=True)
+            blk = b_s.parts[i].to(dev, non_blocking=True)[..., None]
+            partial.append(
+                torch.matmul(torch.where(blk, 0.0, c),
+                             w_long[j * rows:(j + 1) * rows])
+                + torch.matmul(torch.where(blk, c, 0.0),
+                               w_short[j * rows:(j + 1) * rows]))
+        home = row[0]
+        zd = partial[0]
+        for p in partial[1:]:
+            zd = zd + p.to(home, non_blocking=True)
+        _, _, win, win_r = mats_on(home)
+        d = d_s.parts[i]
+        dfold = torch.cat([d, d.flip(-1)], dim=-1)
+        outs.append(zd[..., :256] * win + dfold * win_r
+                    + bias_s.parts[i][..., None])
+        dnews.append(zd[..., 256:])
+    return Sharded(outs, mesh), Sharded(dnews, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -337,16 +409,22 @@ class BatchedDecoder:
 
     Either way the host arrays go to the device with
     torch.from_numpy(...).to(device); PCM comes back as a device tensor.
+    With a mesh (parallel.mesh.make_mesh) the host half is still one
+    parser over all lanes: its arrays are split over the mesh's 'data'
+    axis, each shard's carry lives on its row's device, the device half
+    runs once per shard (batched_pipeline(mesh=...)) and PCM comes back as
+    a parallel.mesh.Sharded; each lane's PCM is the one-device decoder's.
 
     A bad frame marks the lane invalid for that frame (its PCM is zeroed)
     instead of failing the batch (a52dec.c:271-306).
 
     device: None -> the CUDA card (raises without one); "cpu" runs the
-    plain PyTorch versions of every kernel.  fused: see batched_pipeline
+    plain PyTorch versions of every kernel; with a mesh, the mesh names
+    the devices and device stays None.  fused: see batched_pipeline
     (parser="native" only).
 
-    The positional order is the JAX package's, mesh included (only None is
-    served, ROADMAP A12).  The default parser is "native", where the JAX
+    The positional order is the JAX package's, mesh included.  The
+    default parser is "native", where the JAX
     package's is "python": the two parsers emit the same planes, and the
     native one is the throughput path.
     """
@@ -356,11 +434,16 @@ class BatchedDecoder:
                  parser: str = "native", nthreads=None,
                  compact_h2d: bool = False, device=None,
                  fused: bool | None = None):
-        _no_mesh(mesh)
         if parser not in ("native", "raw", "python", "raw_py"):
             raise ValueError(f"parser={parser!r}: expected 'native', 'raw', "
                              "'python' or 'raw_py'")
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        if mesh is None:
+            self.device = resolve_device(device)
+        elif device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        else:
+            self.device = mesh.row_devices[0]
         self.lanes = [StreamLane() for _ in range(batch)]
         self._parser_kind = parser
         self.flags = flags
@@ -372,7 +455,8 @@ class BatchedDecoder:
         self.compact_h2d = compact_h2d
         self.fused = fused
         self._fmt = None
-        self._carry = init_batched_carry(batch, self.device)
+        self._carry = init_batched_carry(
+            batch, mesh, None if mesh is not None else self.device)
         self._pre_planes = None
         self._dense = self._sdense = None
         if parser == "native":
@@ -386,7 +470,8 @@ class BatchedDecoder:
             for lane in self.lanes:
                 lane.parser = A52Parser(sideinfo_only=parser == "raw_py")
         if parser in ("raw", "raw_py"):
-            self._raw_carry = init_unpack_carry(batch, self.device)
+            self._raw_carry = self._place(init_unpack_carry(
+                batch, "cpu" if mesh is not None else self.device))
 
     def feed(self, lane: int, data: bytes):
         ln = self.lanes[lane]
@@ -399,12 +484,16 @@ class BatchedDecoder:
                          clock: StageClock | None = None):
         """Parse up to max_frames per lane, run the device pipeline once.
 
-        Returns (pcm [B, nblk, nch, 256] device tensor, valid [B, nframes]
-        bool numpy) or None if no lane had a complete frame.
+        Returns (pcm [B, nblk, nch, 256] device tensor, or Sharded with a
+        mesh; valid [B, nframes] bool numpy) or None if no lane had a
+        complete frame.
 
-        clock (parser="raw" | "raw_py" only): a StageClock that breaks the
-        step into its stages.
+        clock (parser="raw" | "raw_py" only, no mesh): a StageClock that
+        breaks the step into its stages.
         """
+        if clock is not None and self.mesh is not None:
+            raise ValueError("a StageClock breaks down a one-device step; "
+                             "pass no clock with a mesh")
         if self._sdense is not None:
             return self._decode_available_raw_native(max_frames, clock)
         if self._parser_kind == "raw_py":
@@ -662,7 +751,7 @@ class BatchedDecoder:
         # smaller lattice and no coupling/dither stages, and the dropped
         # arrays never cross the host link
         meta = prune_raw_meta(meta)
-        fn = raw_batched_pipeline(fmt, emit_int16=self.emit_int16,
+        fn = raw_batched_pipeline(fmt, self.mesh, self.emit_int16,
                                   **self._raw_plan(fmt, meta))
         L, nf = fu8.shape[:2]
         bias = np.full((L, T.NB_BLOCKS * nf), self.bias, np.float32)
@@ -756,7 +845,15 @@ class BatchedDecoder:
         return StreamFormat(acmod=int(m[0]), output=int(m[2]),
                             slev_zero=bool(m[5]), chanbias=int(m[4]))
 
+    def _place(self, tree):
+        """Tensors on the decoder's device, or split over its mesh."""
+        if self.mesh is not None:
+            return stream_sharding(self.mesh).put(tree)
+        return tree
+
     def _to_device(self, x):
+        if self.mesh is not None:
+            return stream_sharding(self.mesh).put(x)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
     def _run_native(self, fmt, valid, freq_pre, freq_full, blksw, coeff,
@@ -769,7 +866,7 @@ class BatchedDecoder:
                 host = {"freq": freq_pre}
             host.update(blksw=blksw, bias=bias)
             lo = not blksw.any()
-            fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+            fn = batched_pipeline(fmt, self.mesh, self.emit_int16,
                                   steady=True, long_only=lo, premixed=True,
                                   fused=self.fused)
         else:
@@ -777,7 +874,7 @@ class BatchedDecoder:
                     "remat": np.asarray(remat).astype(bool), "bias": bias}
             steady = steady_ok(fmt, host)
             lo = steady and not blksw.any()
-            fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+            fn = batched_pipeline(fmt, self.mesh, self.emit_int16,
                                   steady=steady, long_only=lo,
                                   fused=self.fused)
         blocks = {k: self._to_device(v) for k, v in host.items()}
@@ -910,12 +1007,17 @@ class BatchedDecoder:
         return {"freq": fp, "blksw": obj["blksw"].astype(bool),
                 "bias": obj["bias"]}
 
-    @staticmethod
-    def _bucket_size(nsel: int) -> int:
+    def _bucket_size(self, nsel: int) -> int:
         """A bucket's lane count: the next power of two, so that a mixed
         stream reuses a few batch shapes (and the allocator's blocks for
-        them) instead of one per lane count."""
-        return 1 << max(nsel - 1, 0).bit_length()
+        them) instead of one per lane count; with a mesh, rounded up to a
+        multiple of its device count so that every bucket splits evenly
+        over 'data'."""
+        b = 1 << max(nsel - 1, 0).bit_length()
+        if self.mesh is not None:
+            nd = self.mesh.size
+            b = -(-max(b, nd) // nd) * nd
+        return b
 
     def _decode_heterogeneous(self, per_lane, valid):
         """Decode frames whose formats differ across lanes or within a
@@ -929,8 +1031,13 @@ class BatchedDecoder:
         planes, steady or block scan).  The carries are gathered and
         scattered by lane index on the device, so a lane's OLA state
         survives a change of format as the reference's single a52_state_t
-        does; PCM lands in one device buffer of the widest layout.
-        -> (pcm [B, 6 * nf, nch_max, 256] device tensor, valid)."""
+        does; PCM lands in one device buffer of the widest layout.  With a
+        mesh (a bucket's lanes come from every shard) the carries and the
+        PCM are gathered to the host for the chunk, as the JAX package
+        keeps them there, each bucket runs split over 'data', and both are
+        split over the mesh again at the end.
+        -> (pcm [B, 6 * nf, nch_max, 256] device tensor or Sharded,
+        valid)."""
         B = len(self.lanes)
         nf = len(per_lane[0])
         fmts = []
@@ -947,9 +1054,14 @@ class BatchedDecoder:
             fmts.append(lane_fmts)
         nch_max = max(f.nch_out for row in fmts for f in row)
         dtype = torch.int16 if self.emit_int16 else torch.float32
+        mesh = self.mesh
+        home = self.device if mesh is None else torch.device("cpu")
         out = torch.zeros((B, nf * 6, nch_max, 256), dtype=dtype,
-                          device=self.device)
-        d_all, m_all = (t.clone() for t in self._carry)
+                          device=home)
+        if mesh is None:
+            d_all, m_all = (t.clone() for t in self._carry)
+        else:
+            d_all, m_all = stream_sharding(mesh).gather(self._carry, home)
         catframes = lambda frames: {k: np.concatenate([f[k] for f in frames])
                                     for k in frames[0]}
         seg0 = 0
@@ -982,7 +1094,7 @@ class BatchedDecoder:
                           for k in rows[0]}
                 lo = not blocks["blksw"].any()
                 if premixed:
-                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                    fn = batched_pipeline(fmt, mesh, self.emit_int16,
                                           steady=True, long_only=lo,
                                           premixed=True, fused=self.fused)
                 elif steady_ok(fmt, blocks):
@@ -991,24 +1103,27 @@ class BatchedDecoder:
                         blocks = premix_blocks(fmt, blocks)
                         blocks = {k: blocks[k]
                                   for k in ("freq", "blksw", "bias")}
-                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                    fn = batched_pipeline(fmt, mesh, self.emit_int16,
                                           steady=True, long_only=lo,
                                           premixed=pre, fused=self.fused)
                 else:
-                    fn = batched_pipeline(fmt, emit_int16=self.emit_int16,
+                    fn = batched_pipeline(fmt, mesh, self.emit_int16,
                                           fused=self.fused)
-                idx = torch.tensor(sel, device=self.device)
+                idx = torch.tensor(sel, device=home)
                 dg, mg = d_all[idx], m_all[idx]
                 if pad:
                     dg = torch.cat([dg, dg.new_zeros((pad, 6, 128))])
                     mg = torch.cat([mg, mg.new_ones((pad,))])
                 (dg, mg), pcm = fn((dg, mg), {k: self._to_device(v)
                                               for k, v in blocks.items()})
+                if mesh is not None:
+                    dg, mg, pcm = stream_sharding(mesh).gather(
+                        (dg, mg, pcm), home)
                 d_all[idx] = dg[:len(sel)]
                 m_all[idx] = mg[:len(sel)]
                 out[idx, seg0 * 6:seg1 * 6, :fmt.nch_out] = \
                     pcm[:len(sel)].to(dtype)
                 self._fmt = fmt
             seg0 = seg1
-        self._carry = (d_all, m_all)
-        return out, valid
+        self._carry = self._place((d_all, m_all))
+        return self._place(out), valid

@@ -8,7 +8,9 @@ with pack="native", packs coming out.  Carries per stream: the decoder's
 transcode_pipeline(_multi) composes the decode body with the frame
 encoder for callers that hold decoder block tensors; Transcoder drives
 BatchedDecoder (any of its parse paths and fused kernels) into the
-encoder.
+encoder.  With a mesh (parallel.mesh.make_mesh) both run once per shard of
+the lanes split over its 'data' axis, the PCM staying on its shard's
+device between them.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ import torch
 
 from .. import tables as T
 from ..models.decoder import StreamFormat, _pipeline_body, default_exact
-from ..models.encoder import (EncoderConfig, encode_pipeline,
-                              encode_pipeline_multi, encode_pipeline_packed,
-                              make_config, rate_failures)
+from ..models.encoder import (EncoderConfig, encode_pipeline, make_config,
+                              rate_failures)
 from ..ops.filterbank import convert_to_int16
 from ..utils.device import resolve_device
-from .pipeline import BatchedDecoder, _no_mesh
+from .encode import encode_run, frame_bytes, frame_major, lanes_first
+from .mesh import check_mesh, over_data, stream_sharding
+from .pipeline import BatchedDecoder
 
 
 def _plane_perm(nch: int) -> list:
@@ -61,10 +64,19 @@ def transcode_pipeline(dec_fmt: StreamFormat, enc_cfg: EncoderConfig,
     scan).  The decoded PCM (bias 384 in the parse) becomes the encoder's
     input frame; the decoder's output channel count must equal
     enc_cfg.channels.  exact: None -> the package accuracy mode now.
-    mesh: the JAX package's slot; only None is served (ROADMAP A12)."""
-    _no_mesh(mesh)
-    return _make_run(dec_fmt, enc_cfg,
-                     default_exact() if exact is None else bool(exact))
+    mesh: every operand's lanes split over its 'data' axis, the step run
+    once per shard, the outputs parallel.mesh.Sharded; the function is
+    cached on (dec_fmt, enc_cfg, mesh, exact), as JAX's is on its
+    arguments."""
+    return _pipeline_on(dec_fmt, enc_cfg, check_mesh(mesh),
+                        default_exact() if exact is None else bool(exact))
+
+
+@lru_cache(maxsize=16)
+def _pipeline_on(dec_fmt: StreamFormat, enc_cfg: EncoderConfig, mesh,
+                 exact: bool):
+    run = _make_run(dec_fmt, enc_cfg, exact)
+    return run if mesh is None else over_data(mesh, run)
 
 
 def transcode_pipeline_multi(dec_fmt: StreamFormat, enc_cfg: EncoderConfig,
@@ -110,19 +122,24 @@ class Transcoder:
     package.  pack: "device" or "native", as for BatchedEncoder.
     compact_h2d: block-float planes over the link (parser="native").
     device: None -> the CUDA card (raises without one); "cpu" runs the
-    plain PyTorch path.  mesh: only None is served (ROADMAP A12)."""
+    plain PyTorch path.  mesh: the lanes split over its 'data' axis
+    (BatchedDecoder(mesh=...) and the encoder once per shard); device
+    stays None."""
 
     def __init__(self, batch: int, out_bitrate: int, out_channels: int,
                  sample_rate: int = 48000, mesh=None, pack: str = "device",
                  compact_h2d: bool = False, parser: str = "native",
                  device=None):
-        _no_mesh(mesh)
         if pack not in ("device", "native"):
             raise ValueError(f"pack={pack!r}: expected 'device' or 'native'")
         if parser not in ("native", "raw"):
             raise ValueError(f"parser={parser!r}: expected 'native' or "
                              "'raw'")
-        self.device = resolve_device(device)
+        self.mesh = check_mesh(mesh)
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.row_devices[0])
         self.batch = batch
         self.enc_cfg = make_config(sample_rate, out_bitrate, out_channels)
         self.out_channels = out_channels
@@ -130,14 +147,19 @@ class Transcoder:
                                     dtype=torch.int32, device=self.device)
         self.enc_csnr = torch.full((batch,), 40, dtype=torch.int32,
                                    device=self.device)
+        if mesh is not None:
+            self.enc_last, self.enc_csnr = stream_sharding(mesh).put(
+                (self.enc_last, self.enc_csnr))
         self.ok = None           # [batch, nframes] validity of the last step
-        self._pack_device = pack == "device"
+        self.pack = pack
         want = {1: T.A52_MONO, 2: T.A52_STEREO, 3: T.A52_3F,
                 4: T.A52_2F2R, 5: T.A52_3F2R,
                 6: T.A52_3F2R | T.A52_LFE}[out_channels]
         self._bd = BatchedDecoder(batch, want | T.A52_ADJUST_LEVEL, 1.0,
-                                  384.0, None, True, parser,
-                                  compact_h2d=compact_h2d, device=self.device)
+                                  384.0, mesh, True, parser,
+                                  compact_h2d=compact_h2d,
+                                  device=None if mesh is not None
+                                  else self.device)
 
     def step(self, frames: list[bytes]) -> list[bytes]:
         """One frame per stream in; one re-encoded frame per stream out."""
@@ -171,33 +193,32 @@ class Transcoder:
                 f"step_frames promised {nframes} frames/lane but only {F} "
                 f"complete frames were available on every lane "
                 f"(shortest lanes: {short[:8]})")
-        samples = enc_input(pcm, self.out_channels)
-        if self._pack_device:
-            (last, csnr), ok, fr = encode_pipeline_packed(self.enc_cfg)(
-                samples, self.enc_last, self.enc_csnr)
-            self.enc_last, self.enc_csnr = last, csnr
-            return ("device", F, valid, ok, fr)
-        (last, csnr), enc = encode_pipeline_multi(self.enc_cfg)(
-            samples, self.enc_last, self.enc_csnr)
-        self.enc_last, self.enc_csnr = last, csnr
-        return ("native", F, valid, enc["ok"], enc)
+        nch = self.out_channels
+        if self.mesh is None:
+            carry, ok, out = encode_run(self.enc_cfg, self.pack,
+                                        enc_input(pcm, nch), self.enc_last,
+                                        self.enc_csnr)
+        else:
+            def shard(pcm, last, csnr):
+                return lanes_first(*encode_run(self.enc_cfg, self.pack,
+                                               enc_input(pcm, nch), last,
+                                               csnr))
+
+            carry, ok, out = over_data(self.mesh, shard)(
+                pcm, self.enc_last, self.enc_csnr)
+        self.enc_last, self.enc_csnr = carry
+        return F, valid, ok, out
 
     def finish(self, handle) -> list[bytes]:
         """Drain one dispatch_frames handle: check rate control, record
         the per-lane `ok` mask, and return the re-encoded bytes per
         stream (packing them on the host for pack="native")."""
-        from ..host import pack as PK
-        kind, F, valid, ok, payload = handle
+        F, valid, ok, out = handle
+        if self.mesh is not None:
+            _, ok, out = frame_major(None, ok, out)
         self.ok = np.asarray(valid)
         bad = rate_failures(ok)
         if bad:
             raise RuntimeError(f"rate control failed at (frame, stream) "
                                f"{bad} -- out_bitrate too low")
-        B = self.batch
-        if kind == "device":
-            fr = payload.cpu().numpy()
-            return [fr[:, b].tobytes() for b in range(B)]
-        flat = PK.pack_frames_native(
-            self.enc_cfg, {k: v.cpu().numpy() for k, v in payload.items()})
-        # [F, B] flattens C-order: frame f of stream b at index f*B + b
-        return [b"".join(flat[f * B + b] for f in range(F)) for b in range(B)]
+        return frame_bytes(self.enc_cfg, out, self.batch, F)

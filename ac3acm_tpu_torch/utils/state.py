@@ -10,6 +10,10 @@ pickle, so loading an untrusted file cannot run code.
 
 The encoder's carried state is (last [..., ch, 256] int32: the last
 block's samples, csnroffst [...] int32), saved as "last" and "csnr".
+
+A carry split over a mesh (parallel.mesh.Sharded) is gathered when it is
+saved, as np.asarray gathers a sharded JAX array, and load_decode_state
+can split one over a mesh again.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import json
 import numpy as np
 import torch
 
+from ..parallel.mesh import check_mesh, stream_sharding
 from .device import resolve_device
 
 
@@ -34,7 +39,8 @@ def carry_from_numpy(delay, downmixed, device=None):
 
 
 def carry_to_numpy(carry):
-    """carry tensors -> numpy (delay f32, downmixed bool)."""
+    """carry tensors (on a device or Sharded over a mesh) -> numpy (delay
+    f32, downmixed bool)."""
     delay, downmixed = carry
     return delay.cpu().numpy(), downmixed.cpu().numpy()
 
@@ -106,8 +112,13 @@ def save_decode_state(path: str, carry, parser=None):
     np.savez(path, **blobs)
 
 
-def load_decode_state(path: str, device=None):
-    """-> carry (delay, downmixed) on `device`."""
+def load_decode_state(path: str, device=None, mesh=None):
+    """-> carry (delay, downmixed) on `device`, or split over the 'data'
+    axis of `mesh` (parallel.mesh.make_mesh; device stays None)."""
+    if check_mesh(mesh) is not None:
+        if device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        return stream_sharding(mesh).put(load_decode_state(path, "cpu"))
     with np.load(path, allow_pickle=False) as z:
         return carry_from_numpy(z["delay"], z["downmixed"], device)
 

@@ -159,7 +159,23 @@ Phases, each fatal on failure (nothing is caught and passed over):
  25. profile   utils.trace.profile() around 32 frames of the fixed decode:
                the Chrome trace names B1Q's kernel; the device busy share
                (the union of kernel intervals over the traced window)
- 26. report    one JSON line listing every kernel, then the device line
+ 26. mesh      the lane split over a mesh's 'data' axis (parallel/mesh.py):
+               on one card make_mesh(data=4, devices=["cuda:0"] * 4), the
+               card named four times (every line of the split, the shards
+               in turn); with more cards one entry per card.  The main
+               path's 4096 lanes x 3 chunks x 16 frames through
+               BatchedDecoder(mesh=...) native in reference mode (B1F once
+               a chunk a shard), native in fast mode (K1) and raw in fast
+               mode (K2, K4): PCM bitwise the one-device run in reference
+               mode, within 1 LSB in fast mode; every B1F, K1 and gather
+               call of the sharded runs held to its plain version; the
+               transcode (config 5) through Transcoder(mesh=...), bytes
+               equal to the one-device Transcoder's; tp_filterbank on a 2x2
+               mesh at [4096, 6, 256] and the one-device filterbank, each
+               within the f32 rounding bound (any order of the 256-term
+               sums) of the float64 product; x-realtime sharded beside
+               one-device, launches per kernel, peak memory
+ 27. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -202,6 +218,10 @@ PEAK_MEM_LIMIT = 60e9
 # lanes, frames per chunk, chunks
 GEN_BATCH, GEN_CHUNK_FRAMES, GEN_NCHUNKS = 4096, 4, 2
 MIX_BATCH, MIX_CHUNK_FRAMES, MIX_NCHUNKS = 4096, 4, 2
+# the mesh phase: data rows on one card (the card repeated), the
+# tp_filterbank input [lanes, channels, 256] and its mesh (data, model)
+MESH_DATA_ONE_CARD = 4
+MESH_TP_SHAPE, MESH_TP_GRID = (4096, 6, 256), (2, 2)
 # FP32 operations of one long row of the order-exact IMDCT (B1): the
 # pre-twiddle 128 x 6, the leaves 11 ifft8 x 56 + 10 ifft4 x 16, the
 # passes (a zero butterfly 12, another 24) 5 x 84 + 3 x 180 + 372 + 756,
@@ -2923,6 +2943,254 @@ def phase_profile():
     return share
 
 
+def filterbank_f64(coeffs, delay, blksw, bias):
+    """The filterbank in float64 on the card, and the bound on |f32 result
+    - this| that holds for any order of the 256-term sums: gamma_256 =
+    256 u / (1 - 256 u) (u = 2^-24) times the sum of |terms| of each
+    product, then for `out` the epilogue's four f32 roundings (z * win,
+    dfold * win_r, their sum, + bias), each within u of its value;
+    -> ((out, new_delay), (bound on out, bound on new_delay))."""
+    from ac3acm_tpu_torch.ops.filterbank import mats_on
+    w_long, w_short, win, win_r = (w.double() for w in
+                                   mats_on(coeffs.device))
+    blk = blksw[..., None]
+    c = coeffs.double()
+
+    def product(x, wl, ws):
+        return torch.where(blk, 0.0, x) @ wl + torch.where(blk, x, 0.0) @ ws
+
+    zd = product(c, w_long, w_short)
+    mag = product(c.abs(), w_long.abs(), w_short.abs())
+    u = 2.0 ** -24
+    gamma = 256 * u / (1 - 256 * u)
+    dfold = torch.cat([delay, delay.flip(-1)], dim=-1).double()
+    zw, dw = zd[..., :256] * win, dfold * win_r
+    out = zw + dw + bias.double()[..., None]
+    out_bound = (gamma * mag[..., :256] * win.abs()
+                 + u * (zw.abs() + dw.abs() + (zw + dw).abs() + out.abs())
+                 ) * 1.01
+    return ((out, zd[..., 256:]),
+            (out_bound, gamma * mag[..., 256:] * 1.01))
+
+
+def mesh_devices(n):
+    """n mesh entries: with one card cuda:0 n times, with more the cards
+    in turn (cuda:0, cuda:1, ...)."""
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(n)]
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def reset_peaks():
+    """Peak statistics of every card set to 0; -> the bytes each holds
+    now (peaks_gb's baseline)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    return [torch.cuda.memory_allocated(i)
+            for i in range(torch.cuda.device_count())]
+
+
+def peaks_gb(base):
+    """Each card's peak allocation since reset_peaks, above its baseline
+    (what a run itself allocated: tensors kept from earlier runs are not
+    its own)."""
+    return [round((torch.cuda.max_memory_allocated(i) - b) / 1e9, 2)
+            for i, b in enumerate(base)]
+
+
+def mesh_decode(streams, parser, mesh):
+    """One BatchedDecoder run of the main path's chunks (int16, bias 384)
+    on `mesh`, or on one card for None; -> (PCM chunks on one card, kernel
+    launches per chunk, seconds from the first parse to the last chunk on
+    its card, peak GB per card); a mesh's PCM is gathered onto its first
+    card after the clock stops."""
+    from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder
+    dec = BatchedDecoder(len(streams), FLAGS_51_TO_20, bias=384.0,
+                         mesh=mesh, emit_int16=True, parser=parser)
+    for i, s in enumerate(streams):
+        dec.feed(i, s)
+    sync_all()
+    base = reset_peaks()
+    chunks, per_chunk = [], []
+    t0 = time.perf_counter()
+    for _ in range(NCHUNKS):
+        before = kernel_counts()
+        r = dec.decode_available(max_frames=CHUNK_FRAMES)
+        assert r is not None, "mesh path ran dry"
+        pcm, valid = r
+        per_chunk.append({k: v - before[k]
+                          for k, v in kernel_counts().items()})
+        assert valid.all() and tuple(pcm.shape) == (
+            len(streams), CHUNK_FRAMES * 6, 2, 256), tuple(pcm.shape)
+        chunks.append(pcm)
+    sync_all()
+    dt = time.perf_counter() - t0
+    peaks = peaks_gb(base)
+    if mesh is not None:
+        chunks = [c.gather(mesh.row_devices[0]) for c in chunks]
+    return chunks, per_chunk, dt, peaks
+
+
+def mesh_transcode(chunks, mesh):
+    """Transcoder(mesh=...) (None: one card) over the transcode phase's
+    chunks, reference mode, native parser; -> (each lane's bytes, kernel
+    launches per chunk, seconds, peak GB per card)."""
+    from ac3acm_tpu_torch.parallel.transcode import Transcoder
+    tc = Transcoder(len(chunks[0]), 192000, 2, mesh=mesh)
+    outs, per_chunk = [b""] * len(chunks[0]), []
+    sync_all()
+    base = reset_peaks()
+    t0 = time.perf_counter()
+    for data in chunks:
+        before = kernel_counts()
+        outs = [a + b for a, b in zip(outs, tc.step_frames(
+            data, TC_CHUNK_FRAMES))]
+        per_chunk.append({k: v - before[k]
+                          for k, v in kernel_counts().items()})
+        assert tc.ok.all()
+    sync_all()
+    return outs, per_chunk, time.perf_counter() - t0, peaks_gb(base)
+
+
+def mesh_runs(run, mesh, tag):
+    """run(None), then run(mesh) for its time and memory, then run(mesh)
+    again with every count set to 0 just before it and every B1F, K1 and
+    gather call recorded; -> (the one-card run, the recorded mesh run, the
+    timed mesh run, the counts of the recorded run, its steady calls, its
+    gather calls)."""
+    one = run(None)
+    torch.cuda.empty_cache()
+    timed = run(mesh)
+    torch.cuda.empty_cache()
+    rec = []
+    zero_kernel_counts()
+    with record_steady() as steady:
+        gathers = record_gathers(lambda: rec.append(run(mesh)))
+    counts = kernel_counts()
+    log(f"mesh {tag}: one card {one[2]:.3f} s, mesh {timed[2]:.3f} s "
+        f"(recorded run {rec[0][2]:.3f} s); launches per chunk "
+        f"{[{k: c[k] for k in c if c[k]} for c in rec[0][1]]}; peak GB "
+        f"per card one card {one[3]}, mesh {timed[3]}")
+    return one, rec[0], timed, counts, steady, gathers
+
+
+def phase_mesh():
+    """The lane split over a mesh's 'data' axis; -> (launches of each
+    kernel in the recorded sharded runs, worst |kernel - plain| by
+    kernel)."""
+    from ac3acm_tpu_torch.ops.filterbank import filterbank
+    from ac3acm_tpu_torch.parallel.mesh import make_mesh
+    from ac3acm_tpu_torch.parallel.pipeline import tp_filterbank
+    count = torch.cuda.device_count()
+    data = MESH_DATA_ONE_CARD if count == 1 else count
+    mesh = make_mesh(data=data, devices=mesh_devices(data))
+    if count == 1:
+        log(f"mesh: one card, so the mesh names cuda:0 {data} times (the "
+            f"card repeated): every line of the split runs, the {data} "
+            f"shards one after another on it; {mesh}")
+    else:
+        log(f"mesh: {count} distinct cards, one data row each; {mesh}")
+    streams = lane_streams(MAIN_BATCH, CHUNK_FRAMES * NCHUNKS)
+    audio_s = MAIN_BATCH * CHUNK_FRAMES * NCHUNKS * 1536 / 48000.0
+    launches, worst, errs, wires = {}, {}, {}, {}
+    for mode, parser, want in (
+            ("reference", "native", ("B1F",)),
+            ("fast", "native", ("K1",)),
+            ("fast", "raw", ("extract_fields", "extract_i16_table"))):
+        tag = f"{parser} {mode}"
+        with accuracy(mode):
+            one, rec, timed, counts, steady, gathers = mesh_runs(
+                lambda m: mesh_decode(streams, parser, m), mesh, tag)
+        never = ("B1", "K1") if mode == "reference" else ("B1", "B1F")
+        for c in rec[1]:
+            assert all(c[k] >= data for k in want), (tag, rec[1])
+            assert all(c[k] == 0 for k in never), (tag, rec[1])
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        err = max(max(max_lsb(a, b) for a, b in zip(run[0], one[0]))
+                  for run in (rec, timed))
+        if mode == "reference":
+            assert all(torch.equal(a, b) for run in (rec, timed)
+                       for a, b in zip(run[0], one[0])), tag
+        assert err <= 1, (tag, err)
+        check_gather_calls(gathers, f"mesh {tag}", errs, wires)
+        for k, v in check_steady_calls(steady, f"mesh {tag}").items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        log(f"mesh {tag}: {MAIN_BATCH} lanes x {NCHUNKS} chunks x "
+            f"{CHUNK_FRAMES} frames over data={data}: PCM vs one card max "
+            f"{err} LSB ({'bitwise' if mode == 'reference' else '<= 1'}); "
+            f"{audio_s / timed[2]:.0f}x realtime sharded, "
+            f"{audio_s / one[2]:.0f}x on one card; launches {counts}")
+        del one, rec, timed, steady, gathers
+        torch.cuda.empty_cache()
+    chunks = tc_chunks(TC_BATCH)
+    tc_audio = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
+    one, rec, timed, counts, steady, _ = mesh_runs(
+        lambda m: mesh_transcode(chunks, m), mesh, "transcode")
+    for c in rec[1]:
+        assert c["B1F"] >= data and c["K1"] == 0 and c["B1"] == 0, rec[1]
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    same = rec[0] == one[0] and timed[0] == one[0]
+    log(f"mesh transcode (config 5): {TC_BATCH} lanes x {TC_NCHUNKS} chunks "
+        f"x {TC_CHUNK_FRAMES} frames over data={data}: bytes == one card "
+        f"{same}; {tc_audio / timed[2]:.0f}x realtime sharded, "
+        f"{tc_audio / one[2]:.0f}x on one card")
+    assert same
+    for k, v in check_steady_calls(steady, "mesh transcode").items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    del one, rec, timed, steady
+    torch.cuda.empty_cache()
+    # tp_filterbank: the contraction split over 'model'
+    rng = np.random.default_rng(5)
+    B, C, K = MESH_TP_SHAPE
+    d, m = MESH_TP_GRID
+    tmesh = make_mesh(d, m, devices=mesh_devices(d * m))
+    dev = tmesh.row_devices[0]
+    coeffs = torch.from_numpy((rng.standard_normal((B, C, K)) * 1e-3)
+                              .astype(np.float32)).to(dev)
+    delay = torch.from_numpy((rng.standard_normal((B, C, 128)) * 1e-3)
+                             .astype(np.float32)).to(dev)
+    blksw = torch.from_numpy(rng.random((B, C)) < 0.3).to(dev)
+    bias = torch.full((B, C), 384.0, device=dev)
+    args = (coeffs, delay, blksw, bias)
+    ref = filterbank(*args)
+    got = [g.gather(dev) for g in tp_filterbank(tmesh, *args)]
+    exact, bound = filterbank_f64(*args)
+    for name, outs in (("tp_filterbank", got), ("filterbank", ref)):
+        for o, x, b in zip(outs, exact, bound):
+            over = float(((o.double() - x).abs() - b).max())
+            assert over <= 0.0, (name, over)
+    tp_err = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+
+    def host_ms(fn, reps=5):
+        fn()
+        sync_all()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync_all()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    log(f"mesh tp_filterbank {d}x{m} at {list(MESH_TP_SHAPE)} (30% short "
+        f"rows): out and delay within the f32 rounding bound of the float64 "
+        f"product, as the one-card filterbank's are; max |diff| between the "
+        f"two {tp_err[0]:.3g} / {tp_err[1]:.3g}; "
+        f"{host_ms(lambda: tp_filterbank(tmesh, *args)):.3f} ms a call "
+        f"(host clock, all cards synchronized), one-card filterbank "
+        f"{host_ms(lambda: filterbank(*args)):.3f} ms")
+    del got, ref, args, coeffs, delay, blksw, bias
+    for k, v in errs.items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    log(f"mesh launches over the recorded sharded runs: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches, worst
+
+
 def main():
     phase_card()
     dev = torch.device("cuda")
@@ -2978,6 +3246,15 @@ def main():
         raw_launches[entry] += tc_launches[entry]
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
                     for k, v in tc_errs.items()})
+    torch.cuda.empty_cache()
+    mesh_launches, mesh_errs = phase_mesh()
+    launches += mesh_launches["K1"]
+    b1f_launches += mesh_launches["B1F"]
+    b1_launches += mesh_launches["B1"]
+    for entry, _, _ in GATHER_KERNELS:
+        raw_launches[entry] += mesh_launches[entry]
+    py_errs.update({k: max(v, py_errs.get(k, 0.0))
+                    for k, v in mesh_errs.items()})
     torch.cuda.empty_cache()
     b1q_launches, b1q_path_err, fixed_xrt = phase_fixed()
     cli_xrt = phase_cli()

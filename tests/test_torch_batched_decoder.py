@@ -137,10 +137,11 @@ def test_dense_parser_bitwise():
 
 
 def test_unported_paths_refuse(fast):
-    """What is still not ported raises instead of guessing: a mesh
-    (multi-GPU, ROADMAP A12) with every parser."""
+    """A mesh slot given anything but a Mesh raises TypeError with every
+    parser instead of guessing (tests/test_torch_mesh.py decodes on a
+    mesh)."""
     for parser in ("native", "raw", "python", "raw_py"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(TypeError, match="Mesh"):
             BatchedDecoder(2, FLAGS, mesh=object(), parser=parser,
                            device="cpu")
 
@@ -348,8 +349,9 @@ def test_parse_threads_do_not_race():
 def test_positional_order_keeps_the_mesh_slot():
     """The JAX package's positional order (batch, flags, level, bias, mesh,
     emit_int16, ...) binds mesh to mesh: the positional call decodes the
-    same int16 PCM as the keyword call, and a mesh other than None raises
-    in every entry point (multi-GPU is not ported)."""
+    same int16 PCM as the keyword call, and a mesh slot given anything
+    but a Mesh raises TypeError in every entry point, by position or by
+    keyword."""
     from ac3acm_tpu_torch.parallel.pipeline import (batched_pipeline,
                                                     raw_batched_pipeline)
     es = _es()[:4 * FRAME]
@@ -375,7 +377,7 @@ def test_positional_order_keeps_the_mesh_slot():
                  lambda: batched_pipeline(fmt, mesh=object()),
                  lambda: raw_batched_pipeline(fmt, object()),
                  lambda: raw_batched_pipeline(fmt, mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
 
 

@@ -230,14 +230,15 @@ def test_mixed_formats_raise(fast):
 
 
 def test_unported_paths_raise(fast, monkeypatch):
-    """A mesh (multi-GPU, ROADMAP A12) still raises on both raw parsers;
-    the Python parsers are ported and decode.  Short blocks (the block
+    """A mesh slot given anything but a Mesh raises TypeError on both raw
+    parsers (tests/test_torch_mesh.py decodes on a mesh); the Python
+    parsers are ported and decode.  Short blocks (the block
     scan) decode: the raw PCM equals the native parser's bitwise, and the
     Python parsers' PCM theirs.  Reference accuracy (the order-exact
     IMDCT) decodes: float output at bias 0 equals the reference decoder's
     bit for bit."""
     for parser in ("raw", "raw_py"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(TypeError, match="Mesh"):
             BatchedDecoder(1, FLAGS51, mesh=object(), parser=parser,
                            device="cpu")
     es = streamgen.gen_stream(16, 3, False, nframes=2, want_blksw=True)
