@@ -462,27 +462,43 @@ def steady_ok(fmt: StreamFormat, blocks) -> bool:
     return bool((np.asarray(blocks["coeff"])[..., :nf] != 0.0).all())
 
 
-def block_pipeline(fmt: StreamFormat, exact: bool | None = None):
-    """(carry, blocks) -> (carry, pcm [nblk, nch_out, 256]) for one stream.
-
-    carry = (delay [6, 128] f32, downmixed 0-d bool) tensors; blocks: the
-    _stack_blocks dict with a leading nblk axis (numpy arrays or tensors;
-    they go to the carry's device).  The block scan ``_pipeline_body``
-    with a lane axis of 1, in place of the JAX package's jit; the Decoder
-    calls it once a frame.  exact (default: the package ACCURACY policy)
-    selects the order-exact transform (B1 on the card)."""
-    if exact is None:
-        exact = default_exact()
-
+def _one_lane(body):
+    """A lanes-first chunk body as (carry, blocks) -> (carry, pcm) of one
+    stream: carry = (delay [6, 128] f32, downmixed 0-d bool) tensors;
+    blocks with a leading nblk axis (numpy arrays or tensors; they go to
+    the carry's device) take a lane axis of 1."""
     def run(carry, blocks):
         delay, downmixed = carry
         lanes = {k: torch.as_tensor(v, device=delay.device)[None]
                  for k, v in blocks.items()}
-        (delay, downmixed), pcm = _pipeline_body(
-            fmt, (delay[None], downmixed[None]), lanes, exact=bool(exact))
+        (delay, downmixed), pcm = body((delay[None], downmixed[None]), lanes)
         return (delay[0], downmixed[0]), pcm[0]
 
     return run
+
+
+def steady_pipeline(fmt: StreamFormat, long_only: bool = False,
+                    premixed: bool = False, exact: bool = False):
+    """(carry, blocks) -> (carry, pcm [nblk, nch_out, 256]) for one stream:
+    the scan-free ``_pipeline_steady`` with a lane axis of 1 (see
+    _one_lane), in place of the JAX package's jit.  Valid on chunks that
+    pass steady_ok; exact=False (the JAX package's default here) takes
+    the fast transform."""
+    return _one_lane(lambda carry, blocks: _pipeline_steady(
+        fmt, carry, blocks, long_only=long_only, premixed=premixed,
+        exact=bool(exact)))
+
+
+def block_pipeline(fmt: StreamFormat, exact: bool | None = None):
+    """(carry, blocks) -> (carry, pcm [nblk, nch_out, 256]) for one stream:
+    the block scan ``_pipeline_body`` with a lane axis of 1 (see
+    _one_lane), in place of the JAX package's jit; the Decoder calls it
+    once a frame.  exact (default: the package ACCURACY policy) selects
+    the order-exact transform (B1 on the card)."""
+    if exact is None:
+        exact = default_exact()
+    return _one_lane(lambda carry, blocks: _pipeline_body(
+        fmt, carry, blocks, exact=bool(exact)))
 
 
 def fixed_block_pipeline(fmt: StreamFormat):

@@ -6,8 +6,8 @@ coordinates, mantissa codes and dither draws out of the bits on the
 device.  Three entries, each with its own launch counter:
 
   extract_fields         per-row byte buffers [N, MB]      launches_fields
-  extract_fields_shared  16-bit fields of one shared byte
-                         table [TB]                        launches_shared
+  extract_fields_shared  fields of one shared byte table
+                         [TB] (width 16 by default)        launches_shared
   extract_i16_table      one shared int16 table, by index  launches_i16
 
 On CUDA tensors each launches the hand-written kernel of
@@ -82,11 +82,13 @@ def extract_fields_ref(rows, offsets, widths):
     return _fields_ref(rows, offsets.to(torch.int64), widths)
 
 
-def extract_fields_shared_ref(table, offsets, unit=1):
+def extract_fields_shared_ref(table, offsets, widths=None, unit=1):
     """Plain version of extract_fields_shared."""
+    if widths is None:
+        widths = torch.full(offsets.shape, 16, dtype=torch.uint8,
+                            device=offsets.device)
     return _fields_ref(table[None, :], offsets.to(torch.int64) * unit,
-                       torch.full(offsets.shape, 16, dtype=torch.uint8,
-                                  device=offsets.device))
+                       widths)
 
 
 def extract_i16_table_ref(table, offsets):
@@ -195,16 +197,17 @@ def extract_fields(data, offsets, widths):
     return out
 
 
-def extract_fields_shared(table, offsets, unit=1):
-    """16-bit fields from ONE shared byte table for every row: table [TB]
-    uint8; offsets [N, S] int32 or int16, in steps of `unit` bits (1: bit
-    offsets; 16: the field index of a table of 16-bit fields) -> [N, S]
-    int16."""
+def extract_fields_shared(table, offsets, widths=None, unit=1):
+    """Fields from ONE shared byte table for every row: table [TB] uint8;
+    offsets [N, S] int32 or int16, in steps of `unit` bits (1: bit
+    offsets; 16: the field index of a table of 16-bit fields); widths
+    [N, S] int32 or uint8 (0..16), or None for width 16 everywhere ->
+    [N, S] int16."""
     global launches_shared
-    _check_fields(table, offsets, None, unit, shared=True)
+    _check_fields(table, offsets, widths, unit, shared=True)
     if table.device.type == "cpu":
-        return extract_fields_shared_ref(table, offsets, unit)
-    out = _fields(table, offsets, None, unit, shared=True)
+        return extract_fields_shared_ref(table, offsets, widths, unit)
+    out = _fields(table, offsets, widths, unit, shared=True)
     launches_shared += 1
     return out
 

@@ -31,8 +31,11 @@ def _apply(s, idx_vals):
     return s
 
 
-def downmix(planes, acmod: int, output: int, bias, slev_zero: bool = False):
-    """a52_downmix (downmix.c:480-619) with exact add ordering."""
+def downmix(planes, acmod: int, output: int, bias, clev_unused=None,
+            slev_zero: bool = False):
+    """a52_downmix (downmix.c:480-619) with exact add ordering.
+    clev_unused keeps the JAX package's fifth slot; neither mixer reads
+    it."""
     out = output & _CM
     key = (acmod, out)
     s = planes

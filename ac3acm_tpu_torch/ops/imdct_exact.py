@@ -423,19 +423,44 @@ def get_variant(variant: str) -> dict:
     _256 of every row; bias broadcasts against the output) and
     filterbank(coeffs, delay, blksw, bias) (bias broadcasts against the
     rows), each the variant's split (its kernel on a CUDA tensor) then
-    its overlap-add."""
+    its overlap-add.  "float" also has imdct512_z(data) and imdct256_z
+    (data [..., 256] -> (z [..., 256], d [..., 128]), every row long or
+    every row short), the split alone."""
     if variant not in ("float", "fixed"):
         raise ValueError(f"variant must be float|fixed, got {variant!r}")
     split, ola, fb = ((split_fb_exact, _ola_float, filterbank_exact)
                       if variant == "float" else
                       (split_fb_fixed, _ola_fixed, filterbank_fixed))
-    return {
+    out = {
         "imdct512": lambda data, delay, bias: _filterbank(
             split, ola, data, delay, False, bias),
         "imdct256": lambda data, delay, bias: _filterbank(
             split, ola, data, delay, True, bias),
         "filterbank": fb,
     }
+    if variant == "float":
+        out["imdct512_z"] = lambda data: _split_rows(data, False)
+        out["imdct256_z"] = lambda data: _split_rows(data, True)
+    return out
+
+
+def _split_rows(data, short: bool):
+    """split_fb_exact with every row long (blksw None) or every row short."""
+    data = data.contiguous()
+    return split_fb_exact(data, torch.ones(data.shape[:-1], dtype=torch.bool,
+                                           device=data.device)
+                          if short else None)
+
+
+def imdct512_exact(data, delay, bias):
+    """a52_imdct_512 of every row: data [..., 256], delay [..., 128] ->
+    (out [..., 256], new delay [..., 128]) float32 (get_variant)."""
+    return get_variant("float")["imdct512"](data, delay, bias)
+
+
+def imdct256_exact(data, delay, bias):
+    """a52_imdct_256 of every row, as imdct512_exact."""
+    return get_variant("float")["imdct256"](data, delay, bias)
 
 
 def _bind(lib):

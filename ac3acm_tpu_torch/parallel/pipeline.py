@@ -21,7 +21,8 @@ and unpacks, allocates and dequantizes on the device (ops.unpack_device,
 with the bitfield kernels of ops.bitgather) before the same decode
 bodies; in reference mode a steady chunk of a premixable format is
 premixed on the device (models.decoder.premix_blocks_device) and takes
-B1F.
+B1F, and a direct call with pallas=True premixes it so in fast mode and
+takes K1.
 
 ``mesh`` (parallel.mesh.make_mesh) keeps the JAX package's position in
 every entry point's signature.  With a mesh, the lane axis of every
@@ -36,7 +37,7 @@ reference mode, K1, K2-K4 and the block scan work lane by lane.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -148,7 +149,8 @@ def _fused_run(fmt: StreamFormat, exact: bool = False,
 
 def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
                      steady: bool = False, long_only: bool = False,
-                     premixed: bool = False, exact: bool | None = None,
+                     premixed: bool = False, pallas: bool | None = None,
+                     exact: bool | None = None, *,
                      fused: bool | None = None):
     """Returns fn: (carry, blocks) -> (carry, pcm).
 
@@ -162,16 +164,19 @@ def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
     long_only=True additionally skips the short-block transform.
     steady=False selects the block scan (any chunk; full planes).
 
-    exact (default: the package ACCURACY policy; an explicit fused=True
+    exact (default: the package ACCURACY policy; an explicit pallas=True
     is a fast-mode request) selects the order-exact filterbank,
     bit-identical to the reference float build.
 
-    fused=None (default) sends every eligible chunk through a fused
+    pallas=None (default) sends every eligible chunk through a fused
     kernel: in reference mode every steady premixed chunk through the
     fused order-exact tail (B1F), in fast mode every steady + long_only +
     premixed + int16 chunk through the fused steady kernel (K1).
-    fused=False forces the plain steady body (A/B comparisons); fused=True
-    asks for K1 and asserts its eligibility (so it implies fast mode).
+    pallas=False forces the plain steady body (A/B comparisons);
+    pallas=True asks for K1 and asserts its eligibility (so it implies
+    fast mode).  The slot is the JAX package's, whose fused kernel is a
+    Pallas one; fused= is the port's keyword for the same choice, and
+    giving both with different values raises ValueError.
 
     mesh (parallel.mesh.Mesh): fn splits the lanes of carry and blocks
     over its 'data' axis (operands already placed there stay), runs the
@@ -179,14 +184,19 @@ def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
     carry and pcm as parallel.mesh.Sharded, split the same way.
     """
     check_mesh(mesh)
+    if pallas is not None and fused is not None and \
+            bool(pallas) != bool(fused):
+        raise ValueError(f"pallas={pallas} and fused={fused} ask for "
+                         "different bodies; pass one of them")
+    kernel = fused if pallas is None else pallas
     if exact is None:
-        exact = False if fused else default_exact()
+        exact = False if kernel else default_exact()
     eligible = steady and long_only and premixed and emit_int16 and not exact
-    if fused:
+    if kernel:
         assert eligible, "the fused kernel requires steady+long_only+" \
                          "premixed+int16 in fast mode"
         run = _fused_run(fmt)
-    elif fused is None and (eligible or (exact and steady and premixed)):
+    elif kernel is None and (eligible or (exact and steady and premixed)):
         run = _fused_run(fmt, exact=exact, emit_int16=emit_int16,
                          long_only=long_only)
     else:
@@ -210,8 +220,9 @@ def batched_pipeline(fmt: StreamFormat, mesh=None, emit_int16: bool = False,
 def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
                          emit_int16: bool = False, steady: bool = False,
                          long_only: bool = False, cpl_fc: int = -1,
-                         exp_pts: int = 6, alloc_pts: int = 6,
-                         emax: int = 256, exact: bool | None = None):
+                         pallas: bool = False, exp_pts: int = 6,
+                         alloc_pts: int = 6, exact: bool | None = None,
+                         emax: int = 256):
     """Raw-H2D decode: fn (carry, frames_u8, meta, bias) -> (carry, pcm).
 
     The host ships raw AC-3 frame bytes [B, F, MB] plus per-block side
@@ -222,20 +233,31 @@ def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
     to int16.  carry = (unpack carry dict, (delay, downmixed)).
 
     cpl_fc / exp_pts / alloc_pts / emax select the unpack's RowPlan (see
-    ops.unpack_device); exact (default: the package ACCURACY policy)
-    selects the order-exact filterbank.
+    ops.unpack_device); exact (default: the package ACCURACY policy; an
+    explicit pallas=True is a fast-mode request) selects the order-exact
+    filterbank.
 
-    In reference mode a steady chunk of a premixable format (a reducing or
-    an identity mix) is premixed on the device (premix_blocks_device) and
-    decoded by the fused order-exact tail (B1F), as the JAX package's raw
-    pallas=True body does with its fused kernel.  Fast mode keeps the
-    plain steady body.  mesh: as for batched_pipeline (the unpack carry
-    too is split over 'data'); clock is for a one-device step only."""
+    A steady chunk of a premixable format (a reducing or an identity mix)
+    can be premixed on the device (premix_blocks_device) and decoded by a
+    fused tail: pallas=True takes the fused steady kernel (K1, fast mode,
+    int16; it asserts steady, long_only, emit_int16, a premixable format
+    and not exact), as the JAX package's raw pallas=True body does with
+    its Pallas kernel.  Otherwise reference mode takes the fused
+    order-exact tail (B1F) on such a chunk and fast mode the plain steady
+    body.  mesh: as for batched_pipeline (the unpack carry too is split
+    over 'data'); clock is for a one-device step only."""
     check_mesh(mesh)
     if exact is None:
-        exact = default_exact()
+        exact = False if pallas else default_exact()
+    premixable = fmt.nf_out < fmt.nfchans or fmt.identity_mix
     tail = None
-    if exact and steady and (fmt.nf_out < fmt.nfchans or fmt.identity_mix):
+    if pallas:
+        assert not exact, "the raw fused steady tail is a fast-mode body"
+        assert steady and long_only and emit_int16 and premixable, \
+            "the raw fused steady tail requires steady+long_only+int16 " \
+            "and a premixable format"
+        tail = _fused_run(fmt)
+    elif exact and steady and premixable:
         tail = _fused_run(fmt, exact=True, emit_int16=emit_int16,
                           long_only=long_only)
 
@@ -376,16 +398,22 @@ def tp_filterbank(mesh, coeffs, delay, blksw, bias):
 
 @dataclass
 class StreamLane:
+    # parser="python" | "raw_py": the lane's host.parse.A52Parser (None
+    # for the native parsers)
+    parser: A52Parser | None
     buf: bytes = b""
     pos: int = 0
+    ok: bool = True          # the JAX package's lane-mask slot; unread
     # parsed-but-not-yet-emitted frames (uneven lane feeds leave a
     # remainder here; the next decode_available resumes with it):
     # parser="native" frame slices, "python" FrameData (None: a bad
     # frame), "raw_py" (bytes, recs, fmt) triples.  parser="raw" keeps its
     # remainder as arrays (_raw_chunk)
-    pending: list = field(default_factory=list)
-    # parser="python" | "raw_py": the lane's host.parse.A52Parser
-    parser: A52Parser | None = None
+    pending: list = None
+
+    def __post_init__(self):
+        if self.pending is None:
+            self.pending = []
 
 
 class BatchedDecoder:
@@ -444,7 +472,9 @@ class BatchedDecoder:
             raise ValueError("pass a mesh or a device, not both")
         else:
             self.device = mesh.row_devices[0]
-        self.lanes = [StreamLane() for _ in range(batch)]
+        py = parser in ("python", "raw_py")
+        self.lanes = [StreamLane(A52Parser(sideinfo_only=parser == "raw_py")
+                                 if py else None) for _ in range(batch)]
         self._parser_kind = parser
         self.flags = flags
         self.level = level
@@ -466,9 +496,6 @@ class BatchedDecoder:
             # parsed-but-not-yet-emitted frames, per lane (see _raw_chunk)
             self._raw_pending = None
             self._raw_npend = np.zeros(batch, np.int64)
-        else:
-            for lane in self.lanes:
-                lane.parser = A52Parser(sideinfo_only=parser == "raw_py")
         if parser in ("raw", "raw_py"):
             self._raw_carry = self._place(init_unpack_carry(
                 batch, "cpu" if mesh is not None else self.device))

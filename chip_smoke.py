@@ -516,8 +516,11 @@ def phase_check_field_edges(dev):
     L1, as the shared table is), fields on a row's last bits, past its
     end and at negative offsets, widths 0 and 16; the int32 and narrow
     wires on the same slots give identical fields; the shared form with
-    unit=16 equals unit=1 at 16*d, on the orbit's size and a 262,144-byte
-    table."""
+    unit=16 equals unit=1 at 16*d, on the orbit's size, a 262,144-byte
+    table and the widest table int16 field indices reach (65,534 B), and
+    takes a widths array of mixed widths 0..16 (0 included) on both width
+    wires, at bit offsets and with unit=16, with int16 offsets too where
+    the table allows them."""
     from ac3acm_tpu_torch.ops import bitgather as BG
     rng = np.random.default_rng(9)
     cases = 0
@@ -566,7 +569,7 @@ def phase_check_field_edges(dev):
             same(BG.extract_fields(dv, o32, w32), want, (MB, S, "data view"))
     # the shared form: the orbit's size and a wider table; unit=16
     # against unit=1
-    for TB in (131070, 262144):
+    for TB in (65534, 131070, 262144):
         table = torch.from_numpy(rng.integers(0, 256, TB,
                                               dtype=np.uint8)).to(dev)
         for N, S in ((3, 9), (300, 8 * 211 + 5)):
@@ -584,13 +587,33 @@ def phase_check_field_edges(dev):
             same(BG.extract_fields_shared(table, bits),
                  BG.extract_fields_shared_ref(table, bits),
                  (TB, N, S, "bit offsets"))
+            # the widths slot: mixed widths, 0 included
+            w = rng.integers(0, 17, (N, S)).astype(np.int32)
+            w[:, ::5] = 0
+            w[:, 1::5] = 16
+            w32 = torch.from_numpy(w).to(dev)
+            want_b = BG.extract_fields_shared_ref(table, bits, w32)
+            want_d = BG.extract_fields_shared_ref(table, d_t, w32, unit=16)
+            assert torch.equal(want_d, BG.extract_fields_shared_ref(
+                table, d_t * 16, w32))
+            for wd in (torch.int32, torch.uint8):
+                ww = w32.to(wd)
+                same(BG.extract_fields_shared(table, bits, ww), want_b,
+                     (TB, N, S, wd, "widths, bit offsets"))
+                same(BG.extract_fields_shared(table, d_t, ww, unit=16),
+                     want_d, (TB, N, S, wd, "widths, unit 16"))
+                if TB <= 65534:
+                    d16 = d_t.clamp(-32768, 32767).to(torch.int16)
+                    same(BG.extract_fields_shared(table, d16, ww, unit=16),
+                         want_d, (TB, N, S, wd, "widths, int16 unit 16"))
     log(f"check extract_fields / extract_fields_shared edges: {cases} cases "
         f"(rows of 1, 13, 1001, 1792, 3840 B x 1, 7, 9, 299, 7104 slots "
         f"and of 50,001 B, read through L1; int32 and int16/uint8 wires, "
         f"unaligned offset, width and data views; fields on, past and "
-        f"before the row's ends, widths 0 and 16; orbit-size and "
-        f"262,144-byte tables, 3 and 300 rows, unit 16 vs 1) bitwise equal "
-        f"to the plain versions")
+        f"before the row's ends, widths 0 and 16; 65,534-byte, orbit-size "
+        f"and 262,144-byte tables, 3 and 300 rows, unit 16 vs 1, mixed "
+        f"widths 0..16 on both width wires) bitwise equal to the plain "
+        f"versions")
 
 
 def b1_rows(rng, R):
@@ -1190,8 +1213,9 @@ def phase_raw_gathers():
 
 
 def phase_raw_main(native_plain):
-    """BatchedDecoder(parser="raw") on the main path's lanes; -> the
-    gathers' launch counts over its run."""
+    """BatchedDecoder(parser="raw") on the main path's lanes; -> (the
+    gathers' launch counts over its run, its int16 PCM [lanes, blocks, 2,
+    256] on the card)."""
     from ac3acm_tpu_torch.host.native import (DenseBatchParser,
                                               SideinfoBatchParser)
     from ac3acm_tpu_torch.parallel.pipeline import StageClock
@@ -1236,16 +1260,15 @@ def phase_raw_main(native_plain):
         assert c["extract_fields"] >= 1 and c["extract_i16_table"] >= 1, \
             f"a gather skipped a chunk: launches per chunk {counts}"
     assert peak <= PEAK_MEM_LIMIT, f"peak device memory {peak} B"
-    raw = torch.cat(chunks, dim=1).to(torch.int32)
+    raw = torch.cat(chunks, dim=1)
     del chunks, dec
     nat = torch.cat(native_plain, dim=1)[:, :raw.shape[1]]
-    err = int((raw - nat.to(torch.int32)).abs().max())
+    err = max_lsb(raw, nat)
     del nat
     assert err <= 1, f"raw vs native plain path: {err} LSB"
     want = golden_i16(GOLDEN)
     oerr = int(np.abs(raw[0, :48].cpu().numpy() - want).max())
     assert oerr <= 1, f"raw lane 0 vs reference oracle: {oerr} LSB"
-    del raw
 
     # the first chunk again, stage by stage (host clock, synchronized):
     # its dequantized planes vs the native dense parser's, and where a
@@ -1275,7 +1298,114 @@ def phase_raw_main(native_plain):
         f"frame (frame bytes + side info); peak device memory "
         f"{peak / 1e9:.2f} GB")
     assert fmism == 0 and bmism == 0
-    return launches
+    return launches, raw
+
+
+def phase_raw_k1(raw_pcm):
+    """raw_batched_pipeline(pallas=True) -- the raw chunk unpacked, premixed
+    on the card (premix_blocks_device) and decoded by K1 -- beside
+    pallas=False (the plain fast steady tail) on the same chunks: the
+    main path's lanes, chunks as BatchedDecoder(parser="raw") assembles
+    them, already on the card.  Every chunk's PCM within PCM_LSB_TOL of
+    the plain tail's and of phase_raw_main's decoder (raw_pcm), the carry
+    after the last chunk by value, every K1 call held to its plain
+    version, K1 once a chunk; x-realtime of the device half of both
+    routes and the device time of each tail alone.  -> (K1 launches on
+    the route's run, max |diff| of the recorded K1 calls in LSB)."""
+    from ac3acm_tpu_torch.models.decoder import (_pipeline_steady,
+                                                 premix_blocks_device)
+    from ac3acm_tpu_torch.ops import fused_steady as FS
+    from ac3acm_tpu_torch.ops.filterbank import convert_to_int16
+    from ac3acm_tpu_torch.ops.unpack_device import (init_unpack_carry,
+                                                    prune_raw_meta)
+    from ac3acm_tpu_torch.parallel import pipeline as PL
+    dev = torch.device("cuda")
+    nframes = RAW_CHUNK_FRAMES * NCHUNKS
+    dec = raw_decoder(lane_streams(MAIN_BATCH, nframes))
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    chunks = []
+    for _ in range(NCHUNKS):
+        fmt, fu8, meta, ok = dec._raw_chunk(RAW_CHUNK_FRAMES)
+        assert ok.all()
+        meta = prune_raw_meta(meta)
+        plan = dec._raw_plan(fmt, meta)
+        assert plan["steady"] and plan["long_only"], plan
+        bias = np.full((MAIN_BATCH, 6 * RAW_CHUNK_FRAMES), 384.0, np.float32)
+        chunks.append((plan, on(fu8), {k: on(v) for k, v in meta.items()},
+                       on(bias)))
+    del dec
+    audio_s = MAIN_BATCH * nframes * 1536 / 48000.0
+
+    def route(pallas):
+        carry = (init_unpack_carry(MAIN_BATCH, dev),
+                 PL.init_batched_carry(MAIN_BATCH, device=dev))
+        pcms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for plan, fu8, meta, bias in chunks:
+            fn = PL.raw_batched_pipeline(fmt, None, True, pallas=pallas,
+                                         exact=None if pallas else False,
+                                         **plan)
+            carry, pcm = fn(carry, fu8, dict(meta), bias)
+            pcms.append(pcm)
+        torch.cuda.synchronize()
+        return carry, pcms, audio_s / (time.perf_counter() - t0)
+
+    plain_carry, plain, _ = route(False)
+    with record_steady() as calls:
+        FS.launches = 0                       # the route's own run
+        carry, fused, _ = route(True)
+        launches = FS.launches
+    assert launches == NCHUNKS and len(calls) == NCHUNKS, (launches,
+                                                           len(calls))
+    assert all(k == "K1" for k, _ in calls), [k for k, _ in calls]
+    worst = check_steady_calls(calls, "raw K1 tail")["K1"]
+    del calls
+    errs = [max_lsb(a, b) for a, b in zip(fused, plain)]
+    derr = max_lsb(torch.cat(fused, dim=1), raw_pcm)
+    assert max(errs) <= FS.PCM_LSB_TOL and derr <= FS.PCM_LSB_TOL, \
+        (errs, derr)
+    (u, (d, m)), (pu, (pd, pm)) = carry, plain_carry
+    cerr = float((d - pd).abs().max())
+    assert cerr <= FS.CARRY_ATOL and torch.equal(m, pm), cerr
+    for k in u:
+        assert torch.equal(u[k], pu[k]), k
+    del fused, plain, carry, plain_carry
+    # x-realtime of the device half, the two routes in turns
+    rt = {True: [], False: []}
+    for pallas in (False, True, True, False):
+        rt[pallas].append(route(pallas)[2])
+    # the tails alone on the first chunk's unpacked blocks (CUDA events)
+    plan, fu8, meta, bias = chunks[0]
+    clock = PL.StageClock(dev)
+    carry0 = (init_unpack_carry(MAIN_BATCH, dev),
+              PL.init_batched_carry(MAIN_BATCH, device=dev))
+    PL.raw_batched_pipeline(fmt, None, True, exact=False, **plan)(
+        carry0, fu8, dict(meta), bias, clock=clock)
+    blocks = clock.kept.pop("blocks")
+    dcarry = carry0[1]
+    k1_tail = PL._fused_run(fmt)
+    ms_k1 = cuda_ms(lambda: k1_tail(dcarry,
+                                    premix_blocks_device(fmt, blocks)))
+    ms_premix = cuda_ms(lambda: premix_blocks_device(fmt, blocks))
+    ms_plain = cuda_ms(lambda: convert_to_int16(_pipeline_steady(
+        fmt, dcarry, blocks, long_only=True, exact=False)[1]))
+    del blocks, chunks
+    xrt = {k: float(np.mean(v)) for k, v in rt.items()}
+    log(f"raw K1 tail: raw_batched_pipeline(pallas=True) on {MAIN_BATCH} "
+        f"lanes x {NCHUNKS} chunks x {RAW_CHUNK_FRAMES} frames; K1 launches "
+        f"{launches} (one a chunk); K1 route vs plain tail per chunk "
+        f"{errs} LSB, vs BatchedDecoder(parser=\"raw\") max {derr} LSB; "
+        f"delay carry max |diff| {cerr:.3g}; recorded K1 calls vs plain "
+        f"max {worst} LSB; device half (chunks on the card), x-realtime in "
+        f"turns plain, K1, K1, plain: K1 route "
+        f"{', '.join(f'{v:.0f}x' for v in rt[True])} (mean "
+        f"{xrt[True]:.0f}x), plain tail "
+        f"{', '.join(f'{v:.0f}x' for v in rt[False])} (mean "
+        f"{xrt[False]:.0f}x); tail alone at a chunk (CUDA events, median of "
+        f"7): premix + K1 {ms_k1:.3f} ms (the premix alone "
+        f"{ms_premix:.3f} ms), plain steady tail + int16 {ms_plain:.3f} ms")
+    return launches, worst
 
 
 def phase_raw_coupling():
@@ -3216,7 +3346,11 @@ def main():
         torch.cuda.empty_cache()
         gathers = phase_raw_gathers()
         torch.cuda.empty_cache()
-        raw_launches = phase_raw_main(native_plain)
+        raw_launches, raw_pcm = phase_raw_main(native_plain)
+        torch.cuda.empty_cache()
+        raw_k1_launches, raw_k1_err = phase_raw_k1(raw_pcm)
+        launches += raw_k1_launches
+        del raw_pcm
         torch.cuda.empty_cache()
         raw_launches["extract_fields_shared"] = phase_raw_coupling()
     torch.cuda.empty_cache()
@@ -3268,7 +3402,8 @@ def main():
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
         replaces="ac3acm_tpu/ops/pallas_steady.py:210",
-        launches=launches, max_abs_err=max(err, py_errs["K1"]), **times)]
+        launches=launches, max_abs_err=max(err, py_errs["K1"], raw_k1_err),
+        **times)]
     for entry, kname, line in GATHER_KERNELS:
         kernels.append(dict(
             name=kname, route="cuda",

@@ -104,6 +104,36 @@ def test_extract_fields_shared_matches_jax(per_tile):
     np.testing.assert_array_equal(_u16(got), jax_out)
 
 
+@pytest.mark.parametrize("width_dtype", [torch.int32, torch.uint8])
+def test_extract_fields_shared_widths_matches_jax(width_dtype):
+    """The third slot is JAX's widths: a positional call with mixed widths
+    0..16 (0 included) at bit-level offsets equals JAX's same call and
+    the oracle, in either width wire; unit=16 reads the same fields at
+    the field index; widths of the wrong dtype or shape are refused."""
+    rng = np.random.default_rng(13)
+    table, offs = _shared_case(rng, JBG.TPG * JBG.TS)
+    offs += rng.integers(0, 8, offs.shape).astype(np.int32)
+    widths = rng.integers(0, 17, offs.shape).astype(np.int32)
+    widths[:, :17] = np.arange(17)
+    t, o = torch.from_numpy(table), torch.from_numpy(offs)
+    w = torch.from_numpy(widths).to(width_dtype)
+    got = BG.extract_fields_shared(t, o, w).numpy()
+    jax_out = _u16(JBG.extract_fields_shared(
+        jnp.asarray(table), jnp.asarray(offs), jnp.asarray(widths)))
+    want = JBG.reference_extract(np.tile(table, (offs.shape[0], 1)), offs,
+                                 widths)
+    assert (want[widths == 0] == 0).all() and (want[widths > 0] != 0).any()
+    np.testing.assert_array_equal(_u16(got), want)
+    np.testing.assert_array_equal(_u16(got), jax_out)
+    o16 = torch.from_numpy(offs // 16 * 16)
+    assert torch.equal(BG.extract_fields_shared(t, o16 // 16, w, unit=16),
+                       BG.extract_fields_shared(t, o16, w))
+    with pytest.raises(TypeError, match="widths"):
+        BG.extract_fields_shared(t, o, w.long())
+    with pytest.raises(ValueError, match="widths"):
+        BG.extract_fields_shared(t, o, w[:, :-1])
+
+
 def test_wrappers_refuse_what_the_kernels_refuse():
     """dtype and shape are checked on CPU tensors too, so drift that the
     card would refuse (int64 widths, say) fails the CPU tests first.  The

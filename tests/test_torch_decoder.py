@@ -91,6 +91,30 @@ def test_downmix_upmix_bitwise(acmod):
         _bitwise(mine.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("acmod", [JT.A52_2F1R, JT.A52_3F1R, JT.A52_3F2R])
+def test_downmix_clev_slot_positional(acmod):
+    """The fifth slot is JAX's clev_unused: downmix(planes, acmod, output,
+    bias, None, True) binds slev_zero=True in both packages, bitwise, and
+    differs from slev_zero=False where the surrounds feed the mix."""
+    rng = np.random.default_rng(40 + acmod)
+    planes = (rng.standard_normal((5, 2, 256)) * 0.3).astype(np.float32)
+    bias = np.float32(0.25)
+    moved = 0
+    for output in range(11):
+        ref = JM.downmix(jnp.asarray(planes), acmod, output,
+                         jnp.asarray(bias), None, True)
+        mine = PM.downmix(torch.from_numpy(planes), acmod, output,
+                          torch.tensor(bias), None, True)
+        _bitwise(mine.numpy(), np.asarray(ref))
+        _bitwise(mine.numpy(), PM.downmix(torch.from_numpy(planes), acmod,
+                                          output, torch.tensor(bias),
+                                          slev_zero=True).numpy())
+        moved += not np.array_equal(mine.numpy(), PM.downmix(
+            torch.from_numpy(planes), acmod, output,
+            torch.tensor(bias)).numpy())
+    assert moved
+
+
 def test_premix_blocks_bitwise():
     rng = np.random.default_rng(5)
     blocks = {"freq": (rng.standard_normal((3, 12, 6, 256)) * 0.1
@@ -205,6 +229,35 @@ def test_pipeline_steady_matches_jax(branch, long_only):
     ji = JF.convert_to_int16(jp)
     assert np.abs(pi.numpy().astype(np.int64)
                   - np.asarray(ji, np.int64)).max() <= 1
+
+
+@pytest.mark.parametrize("branch", ["reduce_lfe", "pass_premixed",
+                                    "time_upmix_chanbias"])
+def test_steady_pipeline_matches_jax(branch):
+    """steady_pipeline(fmt, long_only, premixed) -- one stream, JAX's
+    default exact=False -- equals JAX's within the FP32 bound, and is the
+    lanes-first _pipeline_steady's lane, bitwise."""
+    spec, premixed = BRANCHES[branch]
+    jfmt, fmt = JD.StreamFormat(*spec), PD.StreamFormat(*spec)
+    rng = np.random.default_rng(23)
+    blocks = _steady_blocks(fmt, premixed, False, rng, B=1)
+    delay = (rng.standard_normal((1, 6, 128)) * 0.05).astype(np.float32)
+    one = {k: v[0] for k, v in blocks.items()}
+    (jd, jm), jp = JD.steady_pipeline(jfmt, False, premixed)(
+        (jnp.asarray(delay[0]), jnp.asarray(False)), one)
+    (md, mm), mp = PD.steady_pipeline(fmt, False, premixed)(
+        (torch.from_numpy(delay[0]), torch.tensor(False)), one)
+    assert mp.shape == jp.shape == (12, fmt.nch_out, 256)
+    np.testing.assert_allclose(mp.numpy(), np.asarray(jp), rtol=0,
+                               atol=FP32_ATOL)
+    np.testing.assert_allclose(md.numpy(), np.asarray(jd), rtol=0,
+                               atol=FP32_ATOL)
+    assert mm.shape == () and bool(mm) == bool(jm)
+    (ld, lm), lp = PD._pipeline_steady(
+        fmt, (torch.from_numpy(delay), torch.tensor([False])),
+        {k: torch.from_numpy(v) for k, v in blocks.items()},
+        premixed=premixed)
+    assert torch.equal(mp, lp[0]) and torch.equal(md, ld[0])
 
 
 def test_stream_format_and_steady_ok_agree():

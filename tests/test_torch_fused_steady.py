@@ -99,6 +99,78 @@ def test_fused_branch_matches_jax(name, downmixed0, monkeypatch):
         np.testing.assert_array_equal(cp[0][:, 5], delay[:, 5])
 
 
+@pytest.fixture
+def count_k1(monkeypatch):
+    """Counts the pipeline's calls of fused_steady (on the CPU the
+    wrapper's launch counter stays put)."""
+    from ac3acm_tpu_torch.parallel import pipeline as PP
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return FS.fused_steady(*args)
+
+    monkeypatch.setattr(PP, "fused_steady", counted)
+    return calls
+
+
+def test_positional_slots_bind_as_in_jax(count_k1):
+    """A JAX-style positional call (fmt, mesh, emit_int16, steady,
+    long_only, premixed, pallas, exact) binds the same arguments in both
+    packages: (..., True, False, False) is the plain fast body, no K1
+    call, within PCM_LSB_TOL of JAX's same call; (..., True, True) is K1,
+    one call a chunk, with exact left to mean fast."""
+    spec = FORMATS["5.1to2.0+LFE"]
+    jfmt, fmt = JFormat(*spec), StreamFormat(*spec)
+    rng = np.random.default_rng(17)
+    B = 3
+    chunks = _chunks(fmt.nch_out, rng, B=B)
+    delay = (rng.standard_normal((B, 6, 128)) * 0.01).astype(np.float32)
+    downmixed = np.full((B,), True)
+    outs = {}
+    for slots in ((False, False), (True,)):
+        jfn = jax_pipeline(jfmt, None, True, True, True, True, False, False)
+        fn = batched_pipeline(fmt, None, True, True, True, True, *slots)
+        carry = (torch.from_numpy(delay), torch.from_numpy(downmixed))
+        jcarry = (jnp.asarray(delay), jnp.asarray(downmixed))
+        before = len(count_k1)
+        for blocks in chunks:
+            carry, pcm = fn(carry, {k: torch.from_numpy(v)
+                                    for k, v in blocks.items()})
+            jcarry, jpcm = jfn(jcarry, blocks)
+            assert np.abs(pcm.numpy().astype(np.int64)
+                          - np.asarray(jpcm, np.int64)).max() \
+                <= FS.PCM_LSB_TOL, slots
+        outs[slots] = len(count_k1) - before
+        np.testing.assert_allclose(carry[0].numpy(), np.asarray(jcarry[0]),
+                                   rtol=0, atol=FS.CARRY_ATOL)
+    assert outs == {(False, False): 0, (True,): len(chunks)}
+
+
+def test_pallas_and_fused_are_one_choice(count_k1):
+    """pallas (JAX's slot) and fused (the port's keyword) spell the same
+    choice: either alone picks the body, the same value twice is taken,
+    different values raise ValueError."""
+    fmt = StreamFormat(*FORMATS["5.1to2.0"])
+    kw = dict(emit_int16=True, steady=True, long_only=True, premixed=True)
+    for pallas, fused in ((True, False), (False, True)):
+        with pytest.raises(ValueError, match="pallas"):
+            batched_pipeline(fmt, pallas=pallas, fused=fused, **kw)
+    blocks = {k: torch.from_numpy(v) for k, v in
+              _chunks(fmt.nch_out, np.random.default_rng(3), B=2,
+                      nchunks=1)[0].items()}
+    carry = (torch.zeros((2, 6, 128)), torch.ones(2, dtype=torch.bool))
+    for choice, calls in (({"pallas": True}, 1), ({"fused": True}, 1),
+                          ({"pallas": True, "fused": True}, 1),
+                          ({"pallas": False}, 0), ({"fused": False}, 0),
+                          ({"pallas": False, "fused": False}, 0)):
+        before = len(count_k1)
+        batched_pipeline(fmt, exact=False, **choice, **kw)(carry, blocks)
+        assert len(count_k1) - before == calls, choice
+    with pytest.raises(AssertionError, match="fast mode"):
+        batched_pipeline(fmt, pallas=True, exact=True, **kw)
+
+
 def test_fused_steady_ref_matches_jax_kernel(monkeypatch):
     """The plain version alone vs the JAX kernel wrapper (interpret mode)
     on golden-scale inputs at the lane/plane layout the pipeline uses."""

@@ -194,6 +194,36 @@ def test_reference_dispatch_matches_jax(jax_exact_callback, count_b1f, name,
             np.testing.assert_array_equal(mm.numpy(), jm)
 
 
+def test_positional_none_slots_are_reference_mode(jax_exact_callback,
+                                                  count_b1f):
+    """A JAX-style positional call (fmt, mesh, emit_int16, steady,
+    long_only, premixed, pallas=None, exact=None) is reference mode in both
+    packages (the default ACCURACY): B1F once, PCM and carry equal to
+    JAX's same call by value."""
+    from ac3acm_tpu.parallel import pipeline as JP
+    assert PD.default_exact() and JD.default_exact()
+    spec = FORMATS["5.1to2.0+LFE"]
+    jfmt, fmt = JD.StreamFormat(*spec), PD.StreamFormat(*spec)
+    rng = np.random.default_rng(71)
+    B, n = 3, 6
+    blocks = _chunk(fmt, True, rng, B, n)
+    delay = (rng.standard_normal((B, 6, 128)) * 0.05).astype(np.float32)
+    downmixed = np.array([True, False, True])
+    JP._pipeline_cached.cache_clear()     # built with the routed split
+    (jd, jm), jp = JP.batched_pipeline(jfmt, None, True, True, True, True,
+                                       None, None)(
+        (jnp.asarray(delay), jnp.asarray(downmixed)), blocks)
+    JP._pipeline_cached.cache_clear()
+    (md, mm), mp = PP.batched_pipeline(fmt, None, True, True, True, True,
+                                       None, None)(
+        (torch.from_numpy(delay), torch.from_numpy(downmixed)),
+        {k: torch.from_numpy(v) for k, v in blocks.items()})
+    assert len(count_b1f) == 1
+    _same(mp.numpy(), np.asarray(jp), "pcm")
+    _same(md.numpy(), np.asarray(jd), "delay")
+    np.testing.assert_array_equal(mm.numpy(), np.asarray(jm))
+
+
 @pytest.mark.parametrize("name", ["5.1to2.0", "5.1to2.0+LFE", "2.0pass",
                                   "5.1pass+LFE"])
 def test_premix_blocks_device_matches_host_and_jax(name):

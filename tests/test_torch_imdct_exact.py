@@ -107,6 +107,29 @@ def test_plain_split_matches_jax(jax_split):
         _same(mine[1].numpy(), ref[1], name + " d")
 
 
+@pytest.mark.parametrize("size", ["512", "256"])
+def test_imdct_exact_entries_match_jax(size):
+    """imdct512_exact / imdct256_exact (data, delay, bias) and the float
+    variant's imdct*_z equal JAX's by value; get_variant("float") has
+    JAX's five keys and "fixed" its three."""
+    rng = np.random.default_rng(int(size))
+    x = _rows(7, 24)
+    delay = (rng.standard_normal((24, 128)) * 0.05).astype(np.float32)
+    bias = np.float32(0.375)
+    jo, jd = getattr(JE, f"imdct{size}_exact")(x, delay, bias)
+    xt, dt = torch.from_numpy(x), torch.from_numpy(delay)
+    po, pd = getattr(PE, f"imdct{size}_exact")(xt, dt, torch.tensor(bias))
+    _same(po.numpy(), jo, f"imdct{size}_exact out")
+    _same(pd.numpy(), jd, f"imdct{size}_exact delay")
+    for variant in ("float", "fixed"):
+        assert PE.get_variant(variant).keys() == \
+            JE.get_variant(variant).keys(), variant
+    jz, jzd = JE.get_variant("float")[f"imdct{size}_z"](x)
+    pz, pzd = PE.get_variant("float")[f"imdct{size}_z"](xt)
+    _same(pz.numpy(), jz, f"imdct{size}_z z")
+    _same(pzd.numpy(), jzd, f"imdct{size}_z d")
+
+
 def test_split_leading_axes_and_plain_twin():
     """The wrapper keeps the leading axes, runs the plain version on the
     CPU (no kernel launch) and the two short-block halves use the
@@ -191,6 +214,29 @@ def test_pipeline_steady_exact_matches_jax(jax_exact_callback, branch,
     _same(mp.numpy(), jp, "pcm")
     _same(md.numpy(), jd, "delay")
     np.testing.assert_array_equal(mm.numpy(), np.asarray(jm))
+
+
+@pytest.mark.parametrize("branch", ["reduce_lfe", "pass_premixed"])
+def test_steady_pipeline_exact_matches_jax(jax_exact_callback, branch):
+    """steady_pipeline(fmt, long_only, premixed, exact=True), one stream
+    with short blocks, equals JAX's by value (JAX's lru_cache is passed
+    by, so its program is built with the split routed as above)."""
+    spec, premixed = BRANCHES[branch]
+    jfmt, fmt = JD.StreamFormat(*spec), PD.StreamFormat(*spec)
+    rng = np.random.default_rng(33)
+    blocks = _steady_blocks(fmt, premixed, False, rng, B=1, n=6)
+    blocks["bias"] = rng.standard_normal((1, 6)).astype(np.float32)
+    one = {k: v[0] for k, v in blocks.items()}
+    delay = (rng.standard_normal((6, 128)) * 0.05).astype(np.float32)
+    (jd, jm), jp = JD.steady_pipeline.__wrapped__(jfmt, False, premixed,
+                                                  True)(
+        (jnp.asarray(delay), jnp.asarray(True)), one)
+    (md, mm), mp = PD.steady_pipeline(fmt, False, premixed, True)(
+        (torch.from_numpy(delay), torch.tensor(True)), one)
+    assert mp.shape == (6, fmt.nch_out, 256)
+    _same(mp.numpy(), jp, "pcm")
+    _same(md.numpy(), jd, "delay")
+    assert bool(mm) == bool(jm)
 
 
 # the shared-memory layouts of csrc/imdct_exact.cu (B1 and B1F), as its
