@@ -1,6 +1,7 @@
 // Order-exact IMDCT for Hopper (sm_90a): B1, the float (z, d) split; B1Q,
-// the same split in the fixed-point (int32 Q30) sample type; and B1F, the
-// fused steady tail built on the same transform code.
+// the same split in the fixed-point (int32 Q30) sample type; B1F, the
+// fused steady tail built on the same transform code; and B1QS, the
+// fixed-point decode's whole block chain on B1Q's transform code.
 //
 // The function of ac3acm_tpu_torch/ops/imdct_exact.py:split_fb_exact, the
 // counterpart of ac3acm_tpu/ops/imdct_exact.py:imdct512_z / imdct256_z
@@ -60,13 +61,61 @@
 // instructions, 14,744 a long row at the fewest (1,724 MULs of 7 each,
 // 2,676 adds; IMUL and IMAD issue to the FMA pipe beside the INT pipe):
 // chip_smoke.py computes the bound, PERF.md keeps the times.  A simple
-// kernel: B1's
-// schedule, layouts and one warp a row, nothing fused; the fixed path
-// calls it with 1 to 5 rows at a time, so there the launch and its host
-// wrapper, not the kernel, set the time.
+// kernel: B1's schedule, layouts and one warp a row, nothing fused.  It
+// serves the public split (ops/imdct_exact.py:split_fb_fixed,
+// filterbank_fixed, get_variant("fixed")) and no longer the fixed path's
+// chain, which B1QS runs.
+//
+// B1QS: the fixed decode's whole block chain of one stream in one launch
+// (ops/fixed_chain.py:fixed_chain, what models/decoder.py:
+// fixed_block_pipeline calls once a frame).  The counterpart of
+// ac3acm_tpu/models/decoder.py:526 (fixed_block_pipeline, a lax.scan of
+// _block_step under jit; XLA there, no pallas_call) with the Q30 split of
+// ac3acm_tpu/ops/imdct_exact.py:256,294.  Per block, step for step as
+// _block_step: the stereo rematrix; the LFE row (long, the stream's bias,
+// delay[5]); the time path (delay_t = downmixed ? U.delay : delay, each
+// channel's own blksw, the bias zeroed where chanbias sets the bit, a
+// zero-coefficient channel giving the bias and keeping delay_t, then
+// D.out + c.bias); for a reducing mix the frequency path on D.freq
+// (delay_f = downmixed ? delay : D.delay, blksw[0] on all five rows), and
+// uniform = all(blksw[:nf] == blksw[0]) picking the path and setting
+// downmixed.  Every step past the split is int32 arithmetic, whose adds
+// wrap mod 2^32 and so associate and commute: each mixer is exactly the
+// affine map M.planes + c.bias with M in {-1, 0, 1} [5, 5], which the
+// wrapper derives from the port's own downmix/upmix on identity planes
+// and passes by value (FixedMix), so a format switch needs no new build.
+// (The float build's mixers are not affine maps bit for bit: the order of
+// the adds sets the rounding there.)
+//
+// Design: one CTA (18 warps), since a call is one chain.  The split of a
+// row does not read the carry, so groups of up to 6 blocks go in two
+// phases: A, every row the chain will read split into shared memory, one
+// warp a row (B1Q's long/short row code; blksw alone picks the path, so
+// only the chosen path's 5 rows and the LFE are split, 36 rows a group:
+// 55,296 B of (z, d), with the per-warp IFFT buffers and tables 84,392 B
+// of dynamic shared memory); B, the chain block by block, every
+// thread on samples and delay entries, the delay [6, 128] and downmixed
+// in shared memory and registers from the first block of the call to the
+// last, two __syncthreads a block.  Nothing but the blocks and the carry
+// comes in; the PCM and the new carry go out to fresh tensors.
+// Bound (the function's, at the card's rates): its bytes, every input
+// read once and the PCM and carry written once (57,008 B a 2.0 frame,
+// about 17 ns at 3.35 TB/s), outweigh its integer instructions (36 rows
+// of the split and the overlap-add, 491,472 a 2.0 frame, about 15 ns at
+// the card's issue rate): the rows' splits do not depend on one another
+// and phase B runs per sample, so the function needs no one SM.  The
+// one-CTA design's own floor is those instructions at one SM's issue
+// rate, about 1.9 us a 2.0 frame (66 rows, both paths split, 3.8 us);
+// chip_smoke.py prints both.  At one call a frame the call with no
+// blocks (the launch and the prologue's staging) is of the same order,
+// so neither is the point of this kernel: it takes the ~1,150 eager
+// operations and 12 B1Q launches a frame the chain made before down to
+// one launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -688,6 +737,262 @@ imdct_fixed_kernel(const int* __restrict__ coeffs,
                          order, sched, xbuf, rebuf, imbuf, dbuf);
 }
 
+
+// ---------------------------------------------------------------------------
+// B1QS: the fixed-point block chain of one stream (see the header).
+
+constexpr int CHAIN_WARPS = 18;        // 36 row slots: two rounds of warps
+constexpr int CHAIN_GROUP = 6;         // blocks split per phase A
+constexpr int CHAIN_SLOTS = CHAIN_GROUP * 6;  // 5 path rows + LFE a block
+
+// the mixers of one StreamFormat (ops/fixed_chain.py:_Mix, byte for byte):
+// out[o] = sum_c down[o][c] * in[c] + cbias[o] * bias (mod 2^32), the
+// upmix likewise without a bias; the format's static facts beside them
+struct FixedMix {
+    int8_t down[25];
+    int8_t up[25];
+    int32_t cbias[5];
+    int32_t nf, nf_out, lfe_out, remat, chanbias;
+};
+
+// dynamic shared memory of the chain, in ints, in this order
+enum : int {
+    CH_Z = 0,                                   // z of each slot (XS)
+    CH_D = CH_Z + CHAIN_SLOTS * 256,            // d of each slot (DS)
+    CH_RE = CH_D + CHAIN_SLOTS * 128,           // IFFT re/im, per warp
+    CH_IM = CH_RE + CHAIN_WARPS * 128,
+    CH_DELAY = CH_IM + CHAIN_WARPS * 128,       // the carried delay [6][128]
+    CH_DSEL = CH_DELAY + 6 * 128,               // the delay a block sees
+    CH_WIN = CH_DSEL + 6 * 128,                 // the Q30 window [256]
+    CH_TAB = CH_WIN + 256,
+    CH_ORDER = CH_TAB + TAB_SIZE,
+    CH_SCHED = CH_ORDER + 128,
+    CH_MIX = CH_SCHED + SCHED_SIZE,             // down, up (as ints), cbias
+    CH_INTS = CH_MIX + 25 + 25 + 5
+};
+static_assert(CH_RE % 4 == 0 && CH_IM % 4 == 0, "re/im take int4 loads");
+
+__device__ __forceinline__ unsigned wrap_mul(int m, int v)
+{
+    return (unsigned)m * (unsigned)v;
+}
+
+// plane c of a block's coefficients at bin j, the stereo rematrix applied
+__device__ __forceinline__ int coef(const int* __restrict__ f,
+                                    const uint8_t* __restrict__ rm, int c,
+                                    int j, bool remat)
+{
+    if (remat && c < 2 && rm[j]) {
+        const unsigned s0 = (unsigned)f[j], s1 = (unsigned)f[256 + j];
+        return (int)(c == 0 ? s0 + s1 : s0 - s1);
+    }
+    return f[c * 256 + j];
+}
+
+// the fixed overlap-add of output j: MUL(fold(d)[j], win[255 - j])
+// -+ MUL(z[j], win[j]) + bias, the sign (- on the even outputs of a long
+// block, on the first half of a short one) applied after its MUL
+__device__ __forceinline__ int ola_fixed(const int* z, const int* d,
+                                         const int* win, int j, bool shrt,
+                                         int bias)
+{
+    const int df = j < 128 ? d[j] : d[255 - j];
+    const unsigned m = (unsigned)FixedOps::mul(z[XS(j)], win[j]);
+    const unsigned o = (unsigned)FixedOps::mul(df, win[255 - j]);
+    const bool neg = shrt ? j < 128 : (j & 1) == 0;
+    return (int)((neg ? o - m : o + m) + (unsigned)bias);
+}
+
+__global__ void __launch_bounds__(CHAIN_WARPS * 32)
+fixed_chain_kernel(const int* __restrict__ freq,
+                   const uint8_t* __restrict__ blksw,
+                   const float* __restrict__ coeff,
+                   const uint8_t* __restrict__ remat,
+                   const int* __restrict__ bias,
+                   const int* __restrict__ delay_in,
+                   const uint8_t* __restrict__ dmx_in,
+                   const int* __restrict__ tab_g,
+                   const int* __restrict__ order_g,
+                   const int* __restrict__ win_g, int* __restrict__ pcm,
+                   int* __restrict__ delay_out, uint8_t* __restrict__ dmx_out,
+                   int n, const FixedMix mix)
+{
+    extern __shared__ __align__(16) int sm[];
+    __shared__ int freqp[CHAIN_GROUP];
+    int* const tab = sm + CH_TAB;
+    int* const order = sm + CH_ORDER;
+    int* const sched = sm + CH_SCHED;
+    int* const win = sm + CH_WIN;
+    int* const delay = sm + CH_DELAY;
+    int* const dsel = sm + CH_DSEL;
+    int* const mdown = sm + CH_MIX;
+    int* const mup = mdown + 25;
+    int* const mcb = mup + 25;
+    const int tid = threadIdx.x, nthr = blockDim.x;
+    for (int t = tid; t < TAB_SIZE; t += nthr)
+        tab[t] = tab_g[t];
+    for (int t = tid; t < 128; t += nthr)
+        order[t] = order_g[t];
+    for (int t = tid; t < SCHED_SIZE; t += nthr)
+        sched[t] = SCHED[t];
+    for (int t = tid; t < 256; t += nthr)
+        win[t] = win_g[t];
+    for (int t = tid; t < 6 * 128; t += nthr)
+        delay[t] = delay_in[t];
+    if (tid == 0) {
+#pragma unroll
+        for (int i = 0; i < 25; ++i) {
+            mdown[i] = mix.down[i];
+            mup[i] = mix.up[i];
+        }
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+            mcb[i] = mix.cbias[i];
+    }
+    const int nf = mix.nf, nfo = mix.nf_out, lfe = mix.lfe_out;
+    const int nch = nfo + lfe;
+    const bool rmx = mix.remat != 0, reduces = nfo < nf;
+    bool downmixed = dmx_in[0] != 0;
+    __syncthreads();
+
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int g0 = 0; g0 < n; g0 += CHAIN_GROUP) {
+        const int G = min(CHAIN_GROUP, n - g0);
+        // the path of each block: blksw alone decides it
+        if (tid < G) {
+            const uint8_t* bs = blksw + (long long)(g0 + tid) * 5;
+            bool uniform = true;
+            for (int c = 1; c < nf; ++c)
+                uniform = uniform && ((bs[c] != 0) == (bs[0] != 0));
+            freqp[tid] = reduces && uniform;
+        }
+        __syncthreads();
+
+        // phase A: the split of every row the chain will read, one warp a
+        // row; slot r < 5 is the block's path row r (time: coded channel r;
+        // frequency: output r of the mixed planes), slot 5 the LFE
+        for (int s = warp; s < G * 6; s += CHAIN_WARPS) {
+            const int b = s / 6, r = s - b * 6;
+            if (r == 5 && !lfe)
+                continue;
+            const long long blk = g0 + b;
+            const int* f = freq + blk * 6 * 256;
+            const uint8_t* rm = remat + blk * 256;
+            const bool fp = freqp[b] != 0;
+            int* x = sm + CH_Z + s * 256;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                const int j = lane + 32 * k;
+                int v;
+                if (r == 5) {
+                    v = f[5 * 256 + j];
+                } else if (!fp) {
+                    v = coef(f, rm, r, j, rmx);
+                } else {
+                    unsigned acc = 0;
+#pragma unroll
+                    for (int c = 0; c < 5; ++c)
+                        acc += wrap_mul(mdown[r * 5 + c], coef(f, rm, c, j,
+                                                               rmx));
+                    v = (int)acc;
+                }
+                x[XS(j)] = v;
+            }
+            __syncwarp();
+            const bool sh = r < 5 && blksw[blk * 5 + (fp ? 0 : r)] != 0;
+            int* re = sm + CH_RE + warp * 128;
+            int* im = sm + CH_IM + warp * 128;
+            int* dd = sm + CH_D + s * 128;
+            if (sh)
+                short_row<FixedOps>(x, re, im, dd, tab, order, sched, lane);
+            else
+                long_row<FixedOps>(x, re, im, dd, tab, order, sched, lane);
+            __syncwarp();
+        }
+        __syncthreads();
+
+        // phase B: the chain, block by block, the carry in shared memory
+        for (int b = 0; b < G; ++b) {
+            const long long blk = g0 + b;
+            const bool fp = freqp[b] != 0;
+            const int bv = bias[blk];
+            // the delay this block's rows see: time path delay_t =
+            // downmixed ? U.delay : delay; frequency path delay_f =
+            // downmixed ? delay : D.delay; the LFE's own
+            for (int t = tid; t < 6 * 128; t += nthr) {
+                const int c = t >> 7, k = t & 127;
+                int v = delay[t];
+                if (c < 5 && (fp ? !downmixed : downmixed)) {
+                    const int* m = (fp ? mdown : mup) + c * 5;
+                    unsigned acc = 0;
+#pragma unroll
+                    for (int q = 0; q < 5; ++q)
+                        acc += wrap_mul(m[q], delay[q * 128 + k]);
+                    v = (int)acc;
+                }
+                dsel[t] = v;
+            }
+            __syncthreads();
+            const int* zb = sm + CH_Z + b * 6 * 256;
+            const int* db = sm + CH_D + b * 6 * 128;
+            const uint8_t* bs = blksw + blk * 5;
+            const float* cf = coeff + blk * 5;
+            int* out = pcm + blk * nch * 256;
+            for (int j = tid; j < 256; j += nthr) {
+                if (lfe)
+                    out[j] = ola_fixed(zb + 5 * 256, dsel + 5 * 128, win, j,
+                                       false, bv);
+                int* o = out + lfe * 256;
+                if (fp) {
+                    const bool sh = bs[0] != 0;
+                    for (int p = 0; p < nfo; ++p)
+                        o[p * 256 + j] = ola_fixed(zb + p * 256,
+                                                   dsel + p * 128, win, j,
+                                                   sh, bv);
+                } else {
+                    int tout[5];
+#pragma unroll
+                    for (int c = 0; c < 5; ++c)
+                        tout[c] = cf[c] == 0.0f
+                                      ? bv
+                                      : ola_fixed(zb + c * 256,
+                                                  dsel + c * 128, win, j,
+                                                  bs[c] != 0,
+                                                  (mix.chanbias >> c) & 1
+                                                      ? 0 : bv);
+                    for (int p = 0; p < nfo; ++p) {
+                        unsigned acc = wrap_mul(mcb[p], bv);
+#pragma unroll
+                        for (int c = 0; c < 5; ++c)
+                            acc += wrap_mul(mdown[p * 5 + c], tout[c]);
+                        o[p * 256 + j] = (int)acc;
+                    }
+                }
+            }
+            // the new delay: the rows' d (DS), a zero-coefficient channel
+            // of the time path keeping delay_t, the LFE's plane only when
+            // it is decoded
+            for (int t = tid; t < 6 * 128; t += nthr) {
+                const int c = t >> 7, k = t & 127;
+                if (c == 5) {
+                    if (lfe)
+                        delay[t] = db[5 * 128 + DS(k)];
+                } else if (!fp && cf[c] == 0.0f) {
+                    delay[t] = dsel[t];
+                } else {
+                    delay[t] = db[c * 128 + DS(k)];
+                }
+            }
+            __syncthreads();
+            downmixed = fp;
+        }
+    }
+    for (int t = tid; t < 6 * 128; t += nthr)
+        delay_out[t] = delay[t];
+    if (tid == 0)
+        dmx_out[0] = downmixed ? 1 : 0;
+}
+
 }  // namespace
 
 extern "C" int imdct_exact_launch(const void* coeffs, const void* blksw,
@@ -764,6 +1069,45 @@ extern "C" int fused_steady_exact_launch(const void* freq, const void* blksw,
         (const float*)freq, (const uint8_t*)blksw, (const float*)d0,
         (const float*)bias, (const float*)tab, (const int*)order,
         (const float*)win, pcm, (float*)dlast, n, P, seg_len, nseg, items);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int fixed_chain_mix_size() { return (int)sizeof(FixedMix); }
+
+extern "C" int fixed_chain_launch(const void* freq, const void* blksw,
+                                  const void* coeff, const void* remat,
+                                  const void* bias, const void* delay_in,
+                                  const void* dmx_in, const void* tab,
+                                  const void* order, const void* win,
+                                  void* pcm, void* delay_out, void* dmx_out,
+                                  int n, const void* mix, void* stream)
+{
+    if (n < 0)
+        return (int)cudaErrorInvalidValue;
+    const int smem = CH_INTS * (int)sizeof(int);
+    // above the 48 KB a launch gets unasked (a refused launch never
+    // runs); the attribute lasts as long as the process, so it is set at
+    // a device's first launch (one bit a device, 64 devices)
+    static std::atomic<unsigned long long> smem_set{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess)
+        return (int)e;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+    if (!(smem_set.load() & bit) || !bit) {
+        e = cudaFuncSetAttribute(fixed_chain_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+        if (e != cudaSuccess)
+            return (int)e;
+        smem_set.fetch_or(bit);
+    }
+    fixed_chain_kernel<<<1, CHAIN_WARPS * 32, smem, (cudaStream_t)stream>>>(
+        (const int*)freq, (const uint8_t*)blksw, (const float*)coeff,
+        (const uint8_t*)remat, (const int*)bias, (const int*)delay_in,
+        (const uint8_t*)dmx_in, (const int*)tab, (const int*)order,
+        (const int*)win, (int*)pcm, (int*)delay_out, (uint8_t*)dmx_out, n,
+        *(const FixedMix*)mix);
     return (int)cudaGetLastError();
 }
 

@@ -304,8 +304,9 @@ class SampleDecoder:
     backend="device" (the default; kind="fixed" only): the native
     parse-only pre-pass (ac3h_sdec_parse_fixed: dequantized Q30 planes,
     rematrixed) on the host, then models.decoder.fixed_block_pipeline on
-    `device` (None: the CUDA card, raising without one; "cpu" runs the
-    plain PyTorch versions), bit for bit the native fixed backend.
+    `device` a frame at a time (None: the CUDA card, raising without one,
+    where each frame is one launch of kernel B1QS; "cpu" runs its plain
+    PyTorch version), bit for bit the native fixed backend.
     backend="native": the whole decode in C++ on the host, either kind.
     The JAX package names its device backend "tpu"; here that name raises.
     kind="double" stays a host backend, as in the JAX package (no double
@@ -342,6 +343,7 @@ class SampleDecoder:
                           else self.lib.ac3h_sdec_frame_double)
         self._ct = C.c_int32 if self._k == 0 else C.c_double
         self._dev_carry = None
+        self._dev_buffers = None
 
     def __del__(self):
         if getattr(self, "_d", None):
@@ -378,47 +380,65 @@ class SampleDecoder:
             return np.zeros((0, 0, 256), self._np)
         return np.concatenate(out_blocks, axis=0)
 
+    def _device_buffers(self):
+        """The device path's buffers, made once a decoder: the parse's
+        output arrays, tensor views of the three that go to the device
+        each frame, and the constant remat and bias already there."""
+        if self._dev_buffers is None:
+            import torch
+            dev = self.device
+            arrays = {"freq": np.zeros((6, 6, 256), np.int32),
+                      "blksw": np.zeros((6, 5), np.uint8),
+                      "czero": np.zeros((6, 5), np.uint8),
+                      "coeff": np.zeros((6, 5), np.float32),
+                      "meta": np.zeros(6, np.int32)}
+            views = {"freq": torch.from_numpy(arrays["freq"]),
+                     "blksw": torch.from_numpy(arrays["blksw"]).view(
+                         torch.bool),
+                     "coeff": torch.from_numpy(arrays["coeff"])}
+            const = {"remat": torch.zeros((6, 256), dtype=torch.bool,
+                                          device=dev),
+                     "bias": torch.zeros(6, dtype=torch.int32, device=dev)}
+            args = [C.c_void_p(arrays[k].ctypes.data)
+                    for k in ("freq", "blksw", "czero", "meta")]
+            self._dev_buffers = arrays, views, const, args
+        return self._dev_buffers
+
     def _decode_stream_device(self, es: bytes, flags: int, level: float):
         """LIBA52_FIXED on the device: the native parse-only pre-pass
         (dequantize to Q30, rematrix), then the int32 filterbank and
-        downmix (models.decoder.fixed_block_pipeline) a frame at a time,
-        the carry on the device between frames and calls; bit for bit the
-        native fixed backend."""
+        downmix (models.decoder.fixed_block_pipeline: one B1QS launch a
+        frame on the card) a frame at a time, as in the JAX package, the
+        carry on the device between frames and calls; bit for bit the
+        native fixed backend.  The host work a frame is the parse, one
+        subtract into the coefficient flags and three copies straight to
+        the device; the PCM comes back in one copy at the end."""
         import torch
         from ..models.decoder import (StreamFormat, fixed_block_pipeline,
                                       init_fixed_carry)
-        freq = np.zeros((6, 6, 256), np.int32)
-        blksw = np.zeros((6, 5), np.uint8)
-        czero = np.zeros((6, 5), np.uint8)
-        meta = np.zeros(6, np.int32)
+        dev = self.device
+        arrays, views, const, args = self._device_buffers()
+        czero, coeff, meta = arrays["czero"], arrays["coeff"], arrays["meta"]
         if self._dev_carry is None:
-            self._dev_carry = init_fixed_carry(self.device)
-        remat = torch.zeros((6, 256), dtype=torch.bool, device=self.device)
-        bias = torch.zeros(6, dtype=torch.int32, device=self.device)
+            self._dev_carry = init_fixed_carry(dev)
         outs = []
         for frame in _frames(es):
-            r = self.lib.ac3h_sdec_parse_fixed(
-                self._d, frame, flags, level,
-                C.c_void_p(freq.ctypes.data), C.c_void_p(blksw.ctypes.data),
-                C.c_void_p(czero.ctypes.data), C.c_void_p(meta.ctypes.data))
-            if r != 0:
+            if self.lib.ac3h_sdec_parse_fixed(self._d, frame, flags, level,
+                                              *args) != 0:
                 continue
+            np.subtract(np.float32(1), czero, out=coeff)
             fmt = StreamFormat(acmod=int(meta[0]), output=int(meta[1]),
                                slev_zero=bool(meta[3]),
                                chanbias=int(meta[2]))
-            blocks = {
-                "freq": torch.from_numpy(freq.copy()),
-                "blksw": torch.from_numpy(blksw.astype(bool)),
-                "coeff": torch.from_numpy(1.0 - czero.astype(np.float32)),
-                "remat": remat,
-                "bias": bias,
-            }
+            # a CPU device shares the parser's buffers, which the next
+            # parse rewrites only after this frame's (synchronous) decode
+            blocks = {k: v.to(dev) for k, v in views.items()}
             self._dev_carry, pcm = fixed_block_pipeline(fmt)(
-                self._dev_carry, blocks)
+                self._dev_carry, {**blocks, **const})
             outs.append(pcm)
         if not outs:
             return np.zeros((0, 0, 256), self._np)
-        return np.concatenate([o.cpu().numpy() for o in outs], axis=0)
+        return torch.cat(outs).cpu().numpy()
 
 
 def _frames(es: bytes):

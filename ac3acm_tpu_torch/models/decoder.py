@@ -15,9 +15,9 @@ The batched bodies take the lane axis explicitly: tensors are
 [B, n, ...] (lanes, blocks), the carry is (delay [B, 6, 128] f32,
 downmixed [B] bool).  One stream (``block_pipeline``, ``Decoder``) runs
 the block scan with a lane axis of 1; ``_block_step`` is one block of it,
-written out: the fixed-point decode (``fixed_block_pipeline``, int32 Q30)
-runs it block by block with its own filterbank, and the tests hold a scan
-of it to the block scan.
+written out: the plain version of the fixed-point decode's kernel B1QS
+(``fixed_block_pipeline``, int32 Q30) runs it block by block with its
+own filterbank, and the tests hold a scan of it to the block scan.
 """
 from __future__ import annotations
 
@@ -508,29 +508,29 @@ def fixed_block_pipeline(fmt: StreamFormat):
     The same _block_step orchestration as the float scan (the path
     decision, the downmix/upmix fixups of the carried delay, zero-coeff
     channels), block after block, with the order-exact Q30 filterbank
-    (ops.imdct_exact.filterbank_fixed: the split on B1Q on the card, the
-    reference's MUL, a52_internal.h:144-150).  The host pre-pass (native
-    ac3h_sdec_parse_fixed) has dequantized and rematrixed, so blocks carry
-    remat False; the fixed build's bias is always 0 (BIASV,
+    (the reference's MUL, a52_internal.h:144-150).  On a CUDA carry the
+    whole chain is one launch of kernel B1QS (ops.fixed_chain.fixed_chain:
+    every block's splits, Q30 overlap-adds, fixups and mixes, the carry in
+    shared memory; no B1Q launch, no eager _block_step); on a CPU carry
+    its plain version runs _block_step block by block.  The host pre-pass
+    (native ac3h_sdec_parse_fixed) has dequantized and rematrixed, so
+    blocks carry remat False; the fixed build's bias is always 0 (BIASV,
     native/ac3sample.inc).
 
-    blocks: freq int32 [n, 6, 256], blksw bool [n, 5], coeff 0/1 [n, 5],
-    remat bool [n, 256] (False), bias int32 [n] (zeros), numpy arrays or
-    tensors (they go to the carry's device).
+    blocks: freq int32 [n, 6, 256], blksw bool [n, 5], coeff 0/1 [n, 5]
+    (compared with 0 as _block_step does; float32 goes to the kernel as
+    it is), remat bool [n, 256] (False), bias int32 [n] (zeros), numpy
+    arrays or tensors (they go to the carry's device).
     carry: (delay int32 [6, 128], downmixed 0-d bool)."""
-    from ..ops.imdct_exact import filterbank_fixed
+    from ..ops import fixed_chain as FC
 
     def run(carry, blocks):
         dev = carry[0].device
         blocks = {k: torch.as_tensor(v, device=dev)
                   for k, v in blocks.items()}
-        outs = []
-        for i in range(blocks["freq"].shape[0]):
-            carry, pcm = _block_step(fmt, carry,
-                                     {k: v[i] for k, v in blocks.items()},
-                                     filterbank=filterbank_fixed)
-            outs.append(pcm)
-        return carry, torch.stack(outs)
+        if blocks["coeff"].dtype != torch.float32:
+            blocks["coeff"] = (blocks["coeff"] != 0).to(torch.float32)
+        return FC.fixed_chain(fmt, carry, blocks)
 
     return run
 

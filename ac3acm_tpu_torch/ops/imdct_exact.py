@@ -43,7 +43,10 @@ truncates with arithmetic shifts, so MUL(-a, w) != -MUL(a, w) (MUL(-1,
 fixed overlap-add ``filterbank_fixed`` subtracts MUL(z, w) where the
 reference does (a +-1 sign vector applied after the MUL, exact mod 2^32).
 ``get_variant("float" | "fixed")`` gives the JAX package's entry points
-(``imdct512``, ``imdct256``, ``filterbank``) of either variant.
+(``imdct512``, ``imdct256``, ``filterbank``) of either variant.  The
+fixed decode path (models.decoder.fixed_block_pipeline) runs none of
+these on the card: kernel B1QS (ops.fixed_chain) takes its whole block
+chain, on B1Q's transform code.
 
 Integers: the plain fixed version keeps its values in int64 congruent mod
 2^32 to the reference's uint32 ones (integer adds are exact, and their
@@ -412,7 +415,10 @@ def filterbank_fixed(coeffs, delay, blksw, bias):
     [..., 128] int32 Q30, blksw and bias (int32) broadcast to the rows ->
     (out [..., 256], new delay [..., 128]) int32.  The transform is
     split_fb_fixed (B1Q on a CUDA tensor); the overlap-add runs eagerly
-    (_ola_fixed), bit for bit the -DLIBA52_FIXED reference."""
+    (_ola_fixed), bit for bit the -DLIBA52_FIXED reference.  The fixed
+    decode path does not call it on the card: its whole block chain is
+    kernel B1QS (ops.fixed_chain), whose plain version runs this
+    function's plain twin."""
     return _filterbank(split_fb_fixed, _ola_fixed, coeffs, delay, blksw,
                        torch.as_tensor(bias)[..., None])
 
@@ -464,8 +470,9 @@ def imdct256_exact(data, delay, bias):
 
 
 def _bind(lib):
-    """argtypes of csrc/imdct_exact.cu's entries: B1, B1Q and B1F (the
-    fused steady tail of ops.fused_steady_exact) share the library."""
+    """argtypes of csrc/imdct_exact.cu's entries: B1, B1Q, B1F (the fused
+    steady tail of ops.fused_steady_exact) and B1QS (the fixed block chain
+    of ops.fixed_chain) share the library."""
     p, i = C.c_void_p, C.c_int
     for ar in (FLOAT, FIXED):
         fn = getattr(lib, ar.entry)
@@ -474,6 +481,10 @@ def _bind(lib):
     lib.fused_steady_exact_launch.restype = C.c_int
     lib.fused_steady_exact_launch.argtypes = [p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, p]
+    lib.fixed_chain_launch.restype = C.c_int
+    lib.fixed_chain_launch.argtypes = [p] * 13 + [i, p, p]
+    lib.fixed_chain_mix_size.restype = C.c_int
+    lib.fixed_chain_mix_size.argtypes = []
     lib.imdct_exact_error_string.restype = C.c_char_p
     lib.imdct_exact_error_string.argtypes = [C.c_int]
 

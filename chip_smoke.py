@@ -9,8 +9,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
   2. build     the native host library (g++) and every CUDA kernel (nvcc),
                started together, each build timed; no kernel spills, and
                the SASS (cuobjdump) of the order-exact kernels B1 and B1F
-               holds no FFMA (every product rounds on its own; B1Q, the
-               fixed-point entry of the same source, is integer)
+               holds no FFMA (every product rounds on its own; B1Q and
+               B1QS, the fixed-point entries of the same source, are
+               integer)
   3. check     the fused steady kernel (K1) against its plain PyTorch
                version on the card: at the bench shape (4096 lanes x 64
                frames of the golden 5.1 stream, premixed to 2 planes);
@@ -144,12 +145,28 @@ Phases, each fatal on failure (nothing is caught and passed over):
                786,432 rows, long and 30% short, on edge rows (full-range
                int32, INT32_MIN/MAX, zeros, one non-zero bin) and ragged
                row counts; an unaligned view raises; its times at 786,432
-               rows and at the fixed path's 5-row call beside its bound
+               rows and at a 5-row call beside its bound.  B1QS (the fixed
+               block chain, one launch a call) equal to its plain version
+               (the eager _block_step loop, lane-batched with
+               torch.func.vmap) BITWISE in PCM, delay and downmixed: the
+               5.1 golden to every output the fixed backend takes, the
+               stereo golden, a short-block stream, the 5.1 -> 2.0 switch
+               across two calls, synthetic n = 1..13 (full-range int32,
+               mixed blksw, zero-coefficient channels, all short, carries
+               with downmixed True and False), and the JAX digest's cases
+               (B1QS_DIGEST); n = 0 and refusals; its device time a frame,
+               the call with no blocks (prologue and launch), the
+               wrapper's host time, the plain version, the bound (the
+               card's rates) and the one-CTA design's floor (one SM's
+               integer issue)
  22. fixed     SampleDecoder("fixed") on the card: 512 frames of the 5.1
                golden to stereo and to 3F2R|LFE, and the 5.1 -> 2.0
                switch with DRC off, each int32 bitwise the native fixed
-               backend's; B1Q on every frame, B1, B1F and K1 never; every
-               B1Q call's output equal to the plain version of its inputs
+               backend's; B1QS once a frame, B1Q, B1, B1F and K1 never;
+               every B1QS call's output equal to the plain version of its
+               inputs; the ATen operations a frame.  Then B1Q's own path,
+               get_variant("fixed")'s imdct512, imdct256 and filterbank,
+               bitwise the plain split's
  23. cli       python -m ac3acm_tpu_torch.cli as subprocesses on 128 frames:
                decode to wav on the card (float and fixed) byte-equal to
                --backend native; encode of that wav equal to Encoder's
@@ -157,8 +174,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
  24. driver    CodecDriver streams on the card equal to Ac3ToPcmStream and
                PcmToAc3Stream on the same bytes
  25. profile   utils.trace.profile() around 32 frames of the fixed decode:
-               the Chrome trace names B1Q's kernel; the device busy share
-               (the union of kernel intervals over the traced window)
+               the Chrome trace names B1QS's kernel once a frame and B1Q's
+               never; the device busy share (the union of kernel
+               intervals over the traced window)
  26. mesh      the lane split over a mesh's 'data' axis (parallel/mesh.py):
                on one card make_mesh(data=4, devices=["cuda:0"] * 4), the
                card named four times (every line of the split, the shards
@@ -1822,19 +1840,22 @@ def check_steady_calls(calls, tag):
 
 
 def kernel_counts():
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
-            "B1Q": IE.launches_fixed,
+            "B1Q": IE.launches_fixed, "B1QS": FC.launches_fixed_chain,
             **{k: v for k, v in gather_counts().items()}}
 
 
 def zero_kernel_counts():
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
+    FC.launches_fixed_chain = 0
     zero_gather_counts()
 
 
@@ -2719,16 +2740,18 @@ def phase_transcode():
     return launches, worst, rt
 
 
-def fixed_planes(path, flags):
-    """ac3h_sdec_parse_fixed over a golden's frames: the Q30 planes the
-    fixed device path feeds B1Q, [frames * 36, 256] int32 (6 blocks x 6
-    channel slots a frame), and each row's short-block flag."""
+def fixed_frames(path, flags, nframes=None):
+    """ac3h_sdec_parse_fixed over a golden's frames (DRC on): the fixed
+    device path's blocks, one (StreamFormat, blocks) a frame, numpy:
+    freq int32 [6, 6, 256], blksw bool [6, 5], coeff float32 0/1 [6, 5],
+    remat False [6, 256], bias zeros [6]."""
     import ctypes as C
     from ac3acm_tpu_torch.host.native import get_lib
+    from ac3acm_tpu_torch.models.decoder import StreamFormat
     lib = get_lib()
     d = lib.ac3h_sdec_new(0)
-    rows, flags_out = [], []
-    for fb in golden_frames(path):
+    out = []
+    for fb in golden_frames(path)[:nframes]:
         freq = np.zeros((6, 6, 256), np.int32)
         blksw = np.zeros((6, 5), np.uint8)
         czero = np.zeros((6, 5), np.uint8)
@@ -2737,10 +2760,24 @@ def fixed_planes(path, flags):
             d, fb, flags, float(1 << 26), C.c_void_p(freq.ctypes.data),
             C.c_void_p(blksw.ctypes.data), C.c_void_p(czero.ctypes.data),
             C.c_void_p(meta.ctypes.data)) == 0
-        rows.append(freq.reshape(36, 256))
-        flags_out.append(np.concatenate([blksw, np.zeros((6, 1), np.uint8)],
-                                        1).reshape(36).astype(bool))
+        fmt = StreamFormat(acmod=int(meta[0]), output=int(meta[1]),
+                           slev_zero=bool(meta[3]), chanbias=int(meta[2]))
+        out.append((fmt, {"freq": freq, "blksw": blksw.astype(bool),
+                          "coeff": 1.0 - czero.astype(np.float32),
+                          "remat": np.zeros((6, 256), bool),
+                          "bias": np.zeros(6, np.int32)}))
     lib.ac3h_sdec_free(d, 0)
+    return out
+
+
+def fixed_planes(path, flags):
+    """The Q30 planes the fixed device path's transform reads, [frames *
+    36, 256] int32 (6 blocks x 6 channel slots a frame), and each row's
+    short-block flag (the LFE slot long)."""
+    frames = fixed_frames(path, flags)
+    rows = [b["freq"].reshape(36, 256) for _, b in frames]
+    flags_out = [np.concatenate([b["blksw"], np.zeros((6, 1), bool)],
+                                1).reshape(36) for _, b in frames]
     return np.concatenate(rows), np.concatenate(flags_out)
 
 
@@ -2849,47 +2886,351 @@ def phase_times_b1q(tiled):
                 bound_ms_5_rows=small["bound_ms"])
 
 
-@contextlib.contextmanager
-def record_b1q():
-    """The inputs and outputs of every split_fb_fixed call the fixed path
-    makes (each still launches B1Q once), cloned on the card."""
-    from ac3acm_tpu_torch.ops import imdct_exact as IE
-    orig = IE.split_fb_fixed
+# B1QS: the fixed block chain.  The JAX digest's cases take the formats
+# of the fixed parse of the 5.1 golden to 2F2R, mono and 3F2R|LFE and of
+# the stereo golden to 2.0 (acmod, output, slev_zero, chanbias); the
+# digest is sha256 over each case's PCM, delay and downmixed
+# (b1qs_digest), recomputed from the JAX package by
+# tests/test_torch_fixed_chain.py
+B1QS_DIGEST_FORMATS = ((7, 6, False, 7), (7, 1, False, 31),
+                       (7, 23, False, 0), (2, 2, True, 0))
+B1QS_DIGEST_BLOCKS = 7
+B1QS_DIGEST = (
+    "6f4e4dc168a4acae006d606f6c3cff136d9cdde8fe74ab537c4fb2c4d4331658")
+# integer instructions of one short row of the Q30 IMDCT, counted as
+# B1Q_LONG_ROW_OPS: 1,560 MULs (pre-twiddle 512, 10 ifft8 x 4, the
+# passes 144 + 112 + 240, post-twiddle 512) at 7 each and 2,336 adds
+B1Q_SHORT_ROW_OPS = 1560 * 7 + 2336
+# one output of the Q30 overlap-add: two MULs at 7 and two adds
+OLA_SAMPLE_OPS = 2 * 7 + 2
+
+
+def b1qs_blocks(rng, n, kind):
+    """Synthetic chain blocks (numpy): "full" full-range int32 planes
+    (adds wrap), blksw at random (mixed, seldom uniform), channel 2
+    without coefficients and others at random, random remat and bias;
+    "short" every block short, "long" every block long with channel 4
+    without coefficients, both Q30-scale, remat off, bias 0."""
+    if kind == "full":
+        freq = rng.integers(-2 ** 31, 2 ** 31, (n, 6, 256), dtype=np.int64)
+        blksw = rng.random((n, 5)) < 0.5
+        coeff = (rng.random((n, 5)) < 0.8).astype(np.float32)
+        coeff[:, 2] = 0.0
+        remat = rng.random((n, 256)) < 0.5
+        bias = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64)
+    else:
+        freq = rng.standard_normal((n, 6, 256)) * 2 ** 27
+        blksw = np.full((n, 5), kind == "short")
+        coeff = np.ones((n, 5), np.float32)
+        if kind == "long":
+            coeff[:, 4] = 0.0
+        remat = np.zeros((n, 256), bool)
+        bias = np.zeros(n)
+    return {"freq": freq.astype(np.int32), "blksw": blksw, "coeff": coeff,
+            "remat": remat, "bias": bias.astype(np.int32)}
+
+
+def b1qs_carry(rng, downmixed):
+    """A full-range delay and the given downmixed flag (numpy)."""
+    return (rng.integers(-2 ** 31, 2 ** 31, (6, 128),
+                         dtype=np.int64).astype(np.int32),
+            np.array(bool(downmixed)))
+
+
+def b1qs_digest_cases():
+    """The JAX digest's inputs: one case a format of B1QS_DIGEST_FORMATS,
+    B1QS_DIGEST_BLOCKS blocks each (a group of 6 and a tail) ->
+    [((acmod, output, slev_zero, chanbias), carry, blocks)], numpy."""
+    rng = np.random.default_rng(2026)
+    return [(spec, b1qs_carry(rng, dmx),
+             b1qs_blocks(rng, B1QS_DIGEST_BLOCKS, kind))
+            for spec, kind, dmx in zip(B1QS_DIGEST_FORMATS,
+                                       ("full", "short", "full", "long"),
+                                       (True, False, False, True))]
+
+
+def b1qs_digest(outs):
+    """sha256 over each case's ((delay, downmixed), pcm) in order: the
+    int32 PCM and delay, then one byte for downmixed."""
+    import hashlib
+    h = hashlib.sha256()
+    for (delay, downmixed), pcm in outs:
+        h.update(np.ascontiguousarray(np.asarray(pcm), np.int32).tobytes())
+        h.update(np.ascontiguousarray(np.asarray(delay), np.int32).tobytes())
+        h.update(bytes([bool(np.asarray(downmixed))]))
+    return h.hexdigest()
+
+
+def on_card(carry, blocks, dev):
+    return (tuple(torch.as_tensor(x, device=dev) for x in carry),
+            {k: torch.as_tensor(v, device=dev) for k, v in blocks.items()})
+
+
+def b1qs_plain(fmt, calls):
+    """Every call (carry, blocks, ((delay, downmixed), pcm)) of one format
+    and one block count against the plain version (fixed_chain_ref, the
+    eager _block_step loop on the card), all of them in one pass with a
+    lane axis (torch.func.vmap), bitwise -> max |diff| (0)."""
+    import functools
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    carry = tuple(torch.stack([c[0][i] for c in calls]) for i in range(2))
+    blocks = {k: torch.stack([c[1][k] for c in calls]) for k in calls[0][1]}
+    (d, m), p = torch.func.vmap(functools.partial(FC.fixed_chain_ref, fmt))(
+        carry, blocks)
+    gd, gm, gp = (torch.stack([c[2][0][0] for c in calls]),
+                  torch.stack([c[2][0][1] for c in calls]),
+                  torch.stack([c[2][1] for c in calls]))
+    err = max(int((p.long() - gp.long()).abs().max()),
+              int((d.long() - gd.long()).abs().max()))
+    assert torch.equal(p, gp) and torch.equal(d, gd) and torch.equal(m, gm), \
+        (fmt, err, m.tolist(), gm.tolist())
+    return float(err)
+
+
+def b1qs_group(calls):
+    """Recorded calls (fmt, carry, blocks, out) -> {(fmt, n): [(carry,
+    blocks, out)]}."""
+    groups = {}
+    for fmt, carry, blocks, out in calls:
+        groups.setdefault((fmt, blocks["freq"].shape[0]), []).append(
+            (carry, blocks, out))
+    return groups
+
+
+def phase_check_b1qs(dev):
+    """B1QS (the fixed block chain, csrc/imdct_exact.cu:fixed_chain_kernel)
+    against its plain version BITWISE (pcm, delay and downmixed): the 5.1
+    golden's real Q30 blocks (ac3h_sdec_parse_fixed) to every output the
+    fixed backend takes, 13 blocks each (two groups and a tail); the
+    stereo golden and the short-block hazard stream to 2.0; the 5.1 ->
+    2.0 switch, the carry crossing two calls; synthetic blocks with n
+    from 1 to 13 (full-range int32 planes, mixed blksw, zero-coefficient
+    channels, all short, all long; carries with downmixed True and
+    False, full-range delays) in four formats; the JAX digest's cases,
+    whose sha256 must equal B1QS_DIGEST; n = 0 gives the carry back;
+    bad inputs raise.  -> max |diff|."""
+    from ac3acm_tpu_torch.models.decoder import StreamFormat
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
     calls = []
 
-    def call(coeffs, blksw=None):
-        z, d = orig(coeffs, blksw)
-        blk = (torch.zeros(coeffs.shape[:-1], dtype=torch.bool,
-                           device=coeffs.device) if blksw is None else blksw)
-        calls.append((coeffs.reshape(-1, 256).clone(),
-                      blk.reshape(-1).clone(), z.reshape(-1, 256).clone(),
-                      d.reshape(-1, 128).clone()))
-        return z, d
+    def run(fmt, carry, blocks):
+        carry, blocks = on_card(carry, blocks, dev)
+        out = FC.fixed_chain(fmt, carry, blocks)
+        calls.append((fmt, carry, blocks, out))
+        return out
 
-    IE.split_fb_fixed = call
+    def stack(frames):
+        return {k: np.concatenate([b[k] for _, b in frames])
+                for k in frames[0][1]}
+
+    init = (np.zeros((6, 128), np.int32), np.array(True))
+    real = []
+    for flags in (2, 10, 1, 3, 4, 6, 5, 7 | 16):
+        frames = fixed_frames(GOLDEN, flags | 32, 3)
+        blocks = {k: v[:13] for k, v in stack(frames).items()}
+        run(frames[0][0], init, blocks)
+        real.append(frames[0][0])
+    for path in (STEREO_GOLDEN, os.path.join(HERE, "tests", "golden",
+                                             "blksw20_hazard.ac3")):
+        frames = fixed_frames(path, FLAGS_51_TO_20, 2)
+        run(frames[0][0], init, stack(frames))
+    # the switch: two calls, the second from the first one's carry
+    b51 = fixed_frames(GOLDEN, FLAGS_51_TO_20, 1)[0]
+    st = fixed_frames(STEREO_GOLDEN, FLAGS_51_TO_20, 1)[0]
+    carry, _ = run(b51[0], init, b51[1])
+    (sw_d, sw_m), sw_p = run(st[0], carry, st[1])
+    carry, _ = FC.fixed_chain_ref(b51[0], *on_card(init, b51[1], dev))
+    (rd, rm), rp = FC.fixed_chain_ref(st[0], carry,
+                                      on_card((), st[1], dev)[1])
+    assert torch.equal(sw_p, rp) and torch.equal(sw_d, rd) and \
+        torch.equal(sw_m, rm), "the 5.1 -> 2.0 switch"
+    rng = np.random.default_rng(12)
+    edge_formats = (StreamFormat(7, 2, False, 31), StreamFormat(2, 2, True, 0),
+                    StreamFormat(7, 23, False, 0), StreamFormat(6, 1, True, 1))
+    for n in range(1, 14):
+        fmt = edge_formats[n % 4]
+        for kind in ("full", "short", "long"):
+            for dmx in (True, False):
+                run(fmt, b1qs_carry(rng, dmx), b1qs_blocks(rng, n, kind))
+    digest_outs = []
+    for spec, carry, blocks in b1qs_digest_cases():
+        (d, m), p = run(StreamFormat(*spec), carry, blocks)
+        digest_outs.append(((d.cpu().numpy(), m.cpu().numpy()),
+                            p.cpu().numpy()))
+    digest = b1qs_digest(digest_outs)
+    worst = 0.0
+    for (fmt, _), group in b1qs_group(calls).items():
+        worst = max(worst, b1qs_plain(fmt, group))
+    # n = 0: the carry back and no PCM
+    carry, blocks = on_card(init, {k: v[:0] for k, v in
+                                   b1qs_blocks(rng, 1, "long").items()}, dev)
+    (d, m), p = FC.fixed_chain(real[0], carry, blocks)
+    assert torch.equal(d, carry[0]) and bool(m) and p.shape == (0, 2, 256)
+    # refusals: a wrong dtype, a strided view, an unaligned view
+    carry, blocks = on_card(init, b1qs_blocks(rng, 2, "long"), dev)
+    flat = torch.zeros(2 * 6 * 256 + 1, dtype=torch.int32, device=dev)
+    for key, bad, err in (
+            ("freq", blocks["freq"].long(), TypeError),
+            ("blksw", blocks["blksw"].to(torch.uint8), TypeError),
+            ("coeff", blocks["coeff"].double(), TypeError),
+            ("freq", blocks["freq"].transpose(1, 2).contiguous().transpose(
+                1, 2), ValueError),
+            ("freq", flat[1:].view(2, 6, 256), ValueError),
+            ("bias", blocks["bias"][:1], ValueError),
+            ("remat", blocks["remat"].cpu(), ValueError)):
+        try:
+            FC.fixed_chain(real[0], carry, {**blocks, key: bad})
+            raise AssertionError(f"bad {key} was accepted")
+        except err:
+            pass
+    log(f"check fixed_chain (B1QS): {len(calls)} calls equal to the plain "
+        f"version bitwise in pcm, delay and downmixed (the 5.1 golden to "
+        f"{len(real)} outputs x 13 blocks, the stereo golden and the "
+        f"short-block hazard stream to 2.0, the 5.1 -> 2.0 switch across "
+        f"two calls, synthetic n = 1..13 x full-range / all short / all "
+        f"long x downmixed True / False in 4 formats, the JAX digest's "
+        f"{len(digest_outs)} cases), max |diff| {worst}; digest {digest} "
+        f"== JAX's {digest == B1QS_DIGEST}; n = 0 returns the carry; bad "
+        f"dtypes, a strided, an unaligned and a short input and a CPU "
+        f"tensor raise")
+    assert digest == B1QS_DIGEST, digest
+    return worst
+
+
+def device_ms(fn, warmup=2, reps=7):
+    """Median milliseconds of fn()'s device work alone: the card is held
+    busy (torch.cuda._sleep) while the host enqueues fn, so its launch
+    overhead on the host does not open gaps between the events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+def b1qs_bound(fmt, blocks):
+    """The least time of one B1QS call on these inputs: the larger of its
+    bytes (every input read once, the PCM and the carry written once) at
+    the card's memory rate and its integer instructions at the card's
+    issue rate (PEAK_ISSUE: the rows' splits do not depend on one another
+    and the overlap-add and mixes run per sample, so the function needs
+    no one SM).  The instructions are the split of the rows the chain
+    reads (each block's path rows, long or short as its blksw says, and
+    the LFE long) and the overlap-add of the planes it emits or carries.
+    Beside it, the one-CTA design's floor: the same instructions at one
+    SM's issue rate.
+    -> (bound_ms, "bytes" | "operations", instructions, one_cta_floor_ms)."""
+    bs, nf, nfo = blocks["blksw"], fmt.nfchans, fmt.nf_out
+    ops = 0
+    for blk in bs:
+        uniform = bool((blk[:nf] == blk[0]).all())
+        rows = ([bool(blk[0])] * 5 if nfo < nf and uniform
+                else [bool(x) for x in blk])
+        ops += sum(B1Q_SHORT_ROW_OPS if r else B1Q_LONG_ROW_OPS
+                   for r in rows)
+        ops += (B1Q_LONG_ROW_OPS + 256 * OLA_SAMPLE_OPS) * fmt.lfe_out
+        ops += 256 * OLA_SAMPLE_OPS * (nfo if nfo < nf and uniform else 5)
+    n = len(bs)
+    nbytes = (sum(np.asarray(v).nbytes for v in blocks.values())
+              + 2 * (6 * 128 * 4 + 1) + n * fmt.nch_out * 256 * 4)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_ISSUE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", ops, ops / (PEAK_ISSUE / 132) * 1e3)
+
+
+def phase_times_b1qs(dev):
+    """B1QS on one frame (6 blocks) of the 5.1 golden to 2.0 and to
+    3F2R|LFE: the kernel's device time (device_ms), the wrapper's host
+    time a call, the call with no blocks (the kernel's prologue and the
+    launch: the carry alone), the plain version, the bound and the
+    one-CTA design's floor.  No PyTorch call computes the chain:
+    library_ms is null."""
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    init = (np.zeros((6, 128), np.int32), np.array(True))
+    out = {}
+    for flags in (FLAGS_51_TO_20, 7 | 16 | 32):
+        fmt, blocks = fixed_frames(GOLDEN, flags, 1)[0]
+        carry, tb = on_card(init, blocks, dev)
+        ms = device_ms(lambda: FC.fixed_chain(fmt, carry, tb))
+        empty = {k: v[:0] for k, v in tb.items()}
+        launch_ms = device_ms(lambda: FC.fixed_chain(fmt, carry, empty))
+        reps = 200
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            FC.fixed_chain(fmt, carry, tb)
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: FC.fixed_chain_ref(fmt, carry, tb),
+                           warmup=1, reps=3)
+        bound_ms, bound_by, ops, floor_ms = b1qs_bound(fmt, blocks)
+        log(f"time fixed_chain (B1QS) [one frame of the 5.1 golden to "
+            f"{fmt.output}, 6 blocks]: kernel_ms {ms:.4f} (device time); "
+            f"the call with no blocks (prologue and launch) "
+            f"{launch_ms:.4f} ms; wrapper {host_ms:.4f} ms a call on the "
+            f"host; plain_ms {plain_ms:.3f}; bound_ms {bound_ms:.3e} -> "
+            f"{bound_by} ({ops} integer instructions at the card's "
+            f"{PEAK_ISSUE:.4e}/s; {bound_ms / ms:.4%} of the kernel's "
+            f"time); the one-CTA design's floor {floor_ms:.6f} ms (the "
+            f"same instructions at one SM's {PEAK_ISSUE / 132:.4e}/s; "
+            f"{floor_ms / ms:.2%}); library_ms null (no PyTorch call "
+            f"computes the chain)")
+        out[fmt.output] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               one_cta_floor_ms=floor_ms,
+                               launch_ms=launch_ms, host_ms=host_ms)
+    res = dict(out[2])
+    res["ms_3f2r_lfe"] = out[7 | 16]["ms"]
+    return res
+
+
+@contextlib.contextmanager
+def record_b1qs():
+    """The inputs and outputs of every fixed_chain call the fixed path
+    makes (each still launches B1QS once), cloned on the card."""
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    orig = FC.fixed_chain
+    calls = []
+
+    def call(fmt, carry, blocks):
+        out = orig(fmt, carry, blocks)
+        (d, m), p = out
+        calls.append((fmt, tuple(x.clone() for x in carry),
+                      {k: v.clone() for k, v in blocks.items()},
+                      ((d.clone(), m.clone()), p.clone())))
+        return out
+
+    FC.fixed_chain = call
     try:
         yield calls
     finally:
-        IE.split_fb_fixed = orig
+        FC.fixed_chain = orig
 
 
-def check_b1q_calls(calls):
-    """Every recorded B1Q call's outputs (from the run itself) against the
-    plain version of its inputs, bitwise, all calls in one plain pass
-    (rows are independent) -> (rows, max |diff|)."""
-    from ac3acm_tpu_torch.ops import imdct_exact as IE
-    x, blk, z, d = (torch.cat([c[i] for c in calls]) for i in range(4))
-    zr, dr = IE.split_fb_fixed_ref(x, blk)
-    err = max(int((z.long() - zr.long()).abs().max()),
-              int((d.long() - dr.long()).abs().max()))
-    assert torch.equal(z, zr) and torch.equal(d, dr), err
-    return x.shape[0], float(err)
+def check_b1qs_calls(calls):
+    """Every recorded B1QS call's outputs (from the run itself) against the
+    plain version of its inputs, bitwise, one lane-batched plain pass a
+    (format, block count) -> max |diff|."""
+    worst = 0.0
+    for (fmt, _), group in b1qs_group(calls).items():
+        worst = max(worst, b1qs_plain(fmt, group))
+    return worst
 
 
 def fixed_run(es, flags, drc=True):
     """SampleDecoder("fixed") on the card over es, its counts set to 0
     just before; -> (pcm, the native fixed backend's pcm, seconds, kernel
-    counts, B1Q calls)."""
+    counts, B1QS calls)."""
     from ac3acm_tpu_torch.host.native import SampleDecoder
     dev, nat = SampleDecoder("fixed"), SampleDecoder("fixed",
                                                      backend="native")
@@ -2897,7 +3238,7 @@ def fixed_run(es, flags, drc=True):
         dev.set_drc_enabled(False)
         nat.set_drc_enabled(False)
     torch.cuda.synchronize()
-    with record_b1q() as calls:
+    with record_b1qs() as calls:
         zero_kernel_counts()
         t0 = time.perf_counter()
         pcm = dev.decode_stream(es, flags)                  # numpy: synced
@@ -2906,12 +3247,30 @@ def fixed_run(es, flags, drc=True):
     return pcm, nat.decode_stream(es, flags), dt, counts, calls
 
 
+def fixed_ops_per_frame(nframes=32):
+    """ATen operations a frame of SampleDecoder("fixed") on the card (5.1
+    -> 2.0), counted by a TorchDispatchMode over nframes frames, and its
+    B1QS launches a frame."""
+    from ac3acm_tpu_torch.host.native import SampleDecoder
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    es = cycle(golden_frames(GOLDEN), nframes)
+    dec = SampleDecoder("fixed")
+    dec.decode_stream(cycle(golden_frames(GOLDEN), 2), FLAGS_51_TO_20)
+    clock = OpClock()
+    before = FC.launches_fixed_chain
+    with clock.mode:
+        dec.decode_stream(es, FLAGS_51_TO_20)
+    return (clock.n / nframes,
+            (FC.launches_fixed_chain - before) / nframes)
+
+
 def phase_fixed():
     """The fixed-point path (SampleDecoder("fixed"), device backend) on the
     card: 512 frames of the 5.1 golden to stereo and to 3F2R|LFE, the 5.1
     -> 2.0 switch with DRC off; each int32 bitwise the native fixed
-    backend's; B1Q on every frame, B1, B1F and K1 never; every B1Q call
-    held to its plain version.  -> (B1Q launches, max |diff|)."""
+    backend's; B1QS once a frame, B1Q, B1, B1F and K1 never; every B1QS
+    call held to its plain version; the eager operations a frame.
+    -> (B1QS launches, max |diff|, x-realtime by run, ops a frame)."""
     b51, st = golden_frames(GOLDEN), golden_frames(STEREO_GOLDEN)
     runs = (("5.1 -> 2.0", cycle(b51, FIXED_FRAMES), 2 | 32, True),
             ("5.1 -> 3F2R|LFE", cycle(b51, FIXED_FRAMES), 7 | 16 | 32, True),
@@ -2928,18 +3287,61 @@ def phase_fixed():
         log(f"fixed path {tag}: SampleDecoder('fixed') on the card, {nfr} "
             f"frames {dt:.3f} s -> {xrt[tag]:.2f}x realtime; int32 "
             f"{tuple(pcm.shape)} == the native fixed backend {same}; "
-            f"launches B1Q {counts['B1Q']} ({len(calls)} calls recorded), "
-            f"B1 {counts['B1']}, B1F {counts['B1F']}, K1 {counts['K1']}")
+            f"launches B1QS {counts['B1QS']} ({len(calls)} calls recorded), "
+            f"B1Q {counts['B1Q']}, B1 {counts['B1']}, B1F {counts['B1F']}, "
+            f"K1 {counts['K1']}")
         assert same, tag
-        assert counts["B1Q"] >= nfr and counts["B1Q"] == len(calls), counts
-        assert counts["B1"] == counts["B1F"] == counts["K1"] == 0, counts
-        launches += counts["B1Q"]
-        rows, err = check_b1q_calls(calls)
+        assert counts["B1QS"] == nfr == len(calls), counts
+        assert counts["B1Q"] == counts["B1"] == counts["B1F"] \
+            == counts["K1"] == 0, counts
+        launches += counts["B1QS"]
+        err = check_b1qs_calls(calls)
         worst = max(worst, err)
-        log(f"fixed path {tag}: every B1Q call's output ({len(calls)} calls, "
-            f"{rows} rows) == the plain version of its inputs, max |diff| "
-            f"{err}")
-    return launches, worst, xrt
+        log(f"fixed path {tag}: every B1QS call's pcm, delay and downmixed "
+            f"({len(calls)} calls) == the plain version of its inputs, max "
+            f"|diff| {err}")
+    ops, per_frame = fixed_ops_per_frame()
+    log(f"fixed path: {ops:g} ATen operations and {per_frame:g} B1QS "
+        f"launch a frame (5.1 -> 2.0, a TorchDispatchMode over 32 frames)")
+    assert per_frame == 1
+    return launches, worst, xrt, ops
+
+
+def phase_fixed_variant(dev):
+    """B1Q's path now: the fixed variant's public entry points
+    (get_variant("fixed"): imdct512, imdct256, filterbank) on the card,
+    counts set to 0 just before; each equal bitwise to the same call on
+    the split's plain version.  -> (B1Q launches, max |diff|)."""
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    frames = fixed_frames(GOLDEN, FLAGS_51_TO_20, 1)
+    freq = torch.from_numpy(frames[0][1]["freq"][0, :5]).to(dev)
+    rng = np.random.default_rng(21)
+    delay = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (5, 128),
+                                          dtype=np.int64).astype(np.int32)
+                             ).to(dev)
+    blksw = torch.tensor([False, True, False, True, True], device=dev)
+    bias = torch.zeros((), dtype=torch.int32, device=dev)
+    v = IE.get_variant("fixed")
+    cases = (("imdct512", (freq, delay, bias), False),
+             ("imdct256", (freq, delay, bias), True),
+             ("filterbank", (freq, delay, blksw, bias), blksw))
+    zero_kernel_counts()
+    outs = [v[name](*args) for name, args, _ in cases]
+    counts = kernel_counts()
+    worst = 0.0
+    for (name, args, blk), (o, d) in zip(cases, outs):
+        ro, rd = IE._filterbank(IE.split_fb_fixed_ref, IE._ola_fixed,
+                                freq, delay, blk, bias[..., None])
+        err = max(int((o.long() - ro.long()).abs().max()),
+                  int((d.long() - rd.long()).abs().max()))
+        assert torch.equal(o, ro) and torch.equal(d, rd), (name, err)
+        worst = max(worst, float(err))
+    log(f"fixed variant (B1Q's path): get_variant('fixed') imdct512, "
+        f"imdct256 and filterbank on the card equal to the plain split's "
+        f"bitwise, max |diff| {worst}; launches B1Q {counts['B1Q']}, B1QS "
+        f"{counts['B1QS']}")
+    assert counts["B1Q"] == len(cases) and counts["B1QS"] == 0, counts
+    return counts["B1Q"], worst
 
 
 def meter_xrt(stderr):
@@ -3030,11 +3432,27 @@ def phase_driver():
     assert same and pcm.shape == (16 * 1536, 2) and out[:2] == b"\x0b\x77"
 
 
+def busy_share(events):
+    """A Chrome trace's device busy share: the union of its kernels'
+    intervals over the traced window (from the trace's first event to its
+    last end).  -> (share, busy us, window us, kernels)."""
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if "ts" in e and e.get("ph") == "X"]
+    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "kernel" and e.get("ph") == "X")
+    busy, end = 0.0, -1e30
+    for a, b in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0, t1 = min(a for a, _ in spans), max(b for _, b in spans)
+    return busy / (t1 - t0), busy, t1 - t0, len(kern)
+
+
 def phase_profile():
     """profile() around 32 frames of the fixed decode on the card: the
-    Chrome trace must exist and name B1Q's kernel; the device busy share
-    is the union of the kernels' intervals over the traced window (from
-    the trace's first event to its last end).  -> busy share."""
+    Chrome trace must exist and name B1QS's kernel once a frame (B1Q's
+    never); the device busy share is busy_share's.  -> busy share."""
     import glob
     import tempfile
     from ac3acm_tpu_torch.host.native import SampleDecoder
@@ -3050,25 +3468,19 @@ def phase_profile():
         files = glob.glob(os.path.join(tmp, "*.json"))
         assert len(files) == 1, files
         events = json.load(open(files[0]))["traceEvents"]
-    spans = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
-             if "ts" in e and e.get("ph") == "X"]
-    kern = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                  if e.get("cat") == "kernel" and e.get("ph") == "X")
     names = {e["name"] for e in events if e.get("cat") == "kernel"}
-    assert any("imdct_fixed_kernel" in n for n in names), sorted(names)[:20]
-    busy, end = 0.0, -1e30
-    for a, b in kern:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    t0, t1 = min(a for a, _ in spans), max(b for _, b in spans)
-    share = busy / (t1 - t0)
-    b1q = sum(1 for e in events if e.get("cat") == "kernel"
-              and "imdct_fixed_kernel" in e.get("name", ""))
+    assert any("fixed_chain_kernel" in n for n in names), sorted(names)[:20]
+    share, busy, window, nkern = busy_share(events)
+    per = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                  and k in e.get("name", ""))
+           for k in ("fixed_chain_kernel", "imdct_fixed_kernel")}
+    assert per == {"fixed_chain_kernel": PROFILE_FRAMES,
+                   "imdct_fixed_kernel": 0}, per
     log(f"profile: {PROFILE_FRAMES} frames of the fixed decode traced; "
-        f"{len(kern)} kernels ({len(names)} names, B1Q "
-        f"'imdct_fixed_kernel' {b1q} times), window "
-        f"{(t1 - t0) / 1e3:.3f} ms, kernels busy {busy / 1e3:.3f} ms -> "
+        f"{nkern} kernels ({len(names)} names; B1QS "
+        f"'fixed_chain_kernel' {per['fixed_chain_kernel']} times, B1Q "
+        f"'imdct_fixed_kernel' {per['imdct_fixed_kernel']}), window "
+        f"{window / 1e3:.3f} ms, kernels busy {busy / 1e3:.3f} ms -> "
         f"device busy share {share:.2%}, idle {1 - share:.2%}")
     return share
 
@@ -3341,6 +3753,8 @@ def main():
     b1q_times = phase_times_b1q(b1q_rows)
     del b1q_rows
     torch.cuda.empty_cache()
+    b1qs_err = phase_check_b1qs(dev)
+    b1qs_times = phase_times_b1qs(dev)
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
         torch.cuda.empty_cache()
@@ -3390,14 +3804,16 @@ def main():
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
                     for k, v in mesh_errs.items()})
     torch.cuda.empty_cache()
-    b1q_launches, b1q_path_err, fixed_xrt = phase_fixed()
+    b1qs_launches, b1qs_path_err, fixed_xrt, fixed_ops = phase_fixed()
+    b1q_launches, b1q_path_err = phase_fixed_variant(dev)
     cli_xrt = phase_cli()
     phase_driver()
     busy = phase_profile()
     log(f"x-realtime: fixed path (SampleDecoder on the card) "
         f"{fixed_xrt['5.1 -> 2.0']:.2f}x; cli decode (the meter) float "
         f"{cli_xrt['float']:.3f}x, fixed {cli_xrt['fixed']:.3f}x; "
-        f"device busy share of the traced fixed decode {busy:.2%}")
+        f"device busy share of the traced fixed decode {busy:.2%}; "
+        f"{fixed_ops:g} ATen operations and one B1QS launch a fixed frame")
     kernels = [dict(
         name="fused_steady", route="cuda",
         source="ac3acm_tpu_torch/csrc/fused_steady.cu",
@@ -3433,6 +3849,14 @@ def main():
                  "(XLA; no pallas_call)",
         launches=b1q_launches, max_abs_err=max(b1q_err, b1q_path_err),
         **b1q_times))
+    kernels.append(dict(
+        name="fixed_chain (B1QS)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/imdct_exact.cu",
+        replaces="ac3acm_tpu/models/decoder.py:526 (the fixed lax.scan) + "
+                 "ac3acm_tpu/ops/imdct_exact.py:256,294 (XLA; no "
+                 "pallas_call)",
+        launches=b1qs_launches, max_abs_err=max(b1qs_err, b1qs_path_err),
+        **b1qs_times))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

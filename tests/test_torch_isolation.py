@@ -35,7 +35,8 @@ def test_import_every_module_without_jax():
         " 'ac3acm_tpu_torch.cli', 'ac3acm_tpu_torch.io.driver',"
         " 'ac3acm_tpu_torch.io.demux', 'ac3acm_tpu_torch.io.sinks',"
         " 'ac3acm_tpu_torch.utils.meter',"
-        " 'ac3acm_tpu_torch.parallel.mesh'}\n"
+        " 'ac3acm_tpu_torch.parallel.mesh',"
+        " 'ac3acm_tpu_torch.ops.fixed_chain'}\n"
         "assert new <= set(names), names\n"
         "assert len(names) >= 35, names\n"
         "print(len(names))\n")
@@ -144,3 +145,15 @@ def test_cpu_tensors_take_the_plain_version():
     z, d = IE.split_fb_fixed(torch.zeros((3, 256), dtype=torch.int32))
     assert (IE.launches, IE.launches_fixed) == before
     assert z.dtype == torch.int32 and not bool(z.any())
+    from ac3acm_tpu_torch.models.decoder import StreamFormat, init_fixed_carry
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    before = FC.launches_fixed_chain
+    blocks = {"freq": torch.zeros((2, 6, 256), dtype=torch.int32),
+              "blksw": torch.zeros((2, 5), dtype=torch.bool),
+              "coeff": torch.ones((2, 5)),
+              "remat": torch.zeros((2, 256), dtype=torch.bool),
+              "bias": torch.zeros(2, dtype=torch.int32)}
+    (delay, downmixed), pcm = FC.fixed_chain(
+        StreamFormat(7, 2, False, 31), init_fixed_carry("cpu"), blocks)
+    assert FC.launches_fixed_chain == before
+    assert pcm.shape == (2, 2, 256) and not bool(pcm.any())
