@@ -11,7 +11,8 @@ ac3enc.cpp), batched over streams:
     2-Lipschitz array below the group minima, one cumulative minimum each
     way),
   * the SNR-offset hill climb (ac3enc.cpp:918-975) replayed exactly by a
-    binary search over the monotone bit cost (ops.alloc.bits_for_snro),
+    binary search over the monotone bit cost, and the bap at the chosen
+    offset (ops.snr_search: kernel E1 on the card),
   * quantization (ac3enc.cpp:1149-1190) elementwise on int64 words that
     wrap to int32 where the reference's ints do.
 
@@ -31,6 +32,7 @@ import torch
 from .. import tables as T
 from ..ops import alloc as AL
 from ..ops.mdct import extract_exponents, mdct512, window_norm_block
+from ..ops.snr_search import snr_search
 from ..utils.device import resolve_device
 
 EXP_NEW = 1
@@ -41,7 +43,8 @@ ACMOD_BY_NCH = (1, 2, 3, 6, 7, 7)      # ac3enc.cpp:1029-1036
 # runs max(1, CORE_ROWS // B) frames a call (the core does not depend on
 # the carry, so any grouping gives the same bytes).  Fewer, larger calls
 # launch fewer small ops; peak memory grows with the rows (on an H100, 5.1
-# at 16,384 rows: 24.5 GB; chip_smoke.py's encode phase times the forms)
+# at 16,384 rows: about 25 GB; chip_smoke.py's encode phase times the
+# forms and gives each stage's peak)
 CORE_ROWS = 16384
 
 
@@ -324,45 +327,6 @@ def _masking(cfg: EncoderConfig, enc_exp):
     return psd, mask
 
 
-def _snr_search(cfg: EncoderConfig, psd, mask, frame_bits):
-    """The reference's SNR-offset walk replayed by binary search: -> (M
-    [N]: the largest coarse offset whose fine offset 0 fits, -1 if none;
-    fstar [N]: the largest fitting fine offset at M).
-
-    The bit cost is monotone in snroffset, so the reference's down/up-4/
-    up-1 hill climb (ac3enc.cpp:918-975) lands at M whenever its down
-    pass finds a fit, and the fine pass at max{f : fits(M, f)}: 7 + 5
-    single-offset cost evaluations."""
-    live = _mask_tables(cfg, psd.device)[0]
-    floor = int(T.FLOORTAB[4])
-    avail = _frame_constants(cfg)[1] - frame_bits
-    N = psd.shape[0]
-    dev = psd.device
-
-    def fits(c, f):
-        snro = (((c - 15) << 4) + f) << 2
-        bits = AL.bits_for_snro(psd, live, mask, snro[:, None, None, None],
-                                floor).sum(dim=-1)
-        return avail - bits >= 0
-
-    lo = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    hi = torch.full((N,), 63, dtype=torch.int32, device=dev)
-    zero = torch.zeros_like(lo)
-    for _ in range(7):                    # ceil(log2(65))
-        mid = (lo + hi + 1) >> 1
-        ok = fits(mid, zero)
-        lo = torch.where(ok, mid, lo)
-        hi = torch.where(ok, hi, mid - 1)
-    flo = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    fhi = torch.full((N,), 15, dtype=torch.int32, device=dev)
-    for _ in range(5):                    # ceil(log2(17))
-        fmid = (flo + fhi + 1) >> 1
-        ok = fits(lo, fmid)
-        flo = torch.where(ok, fmid, flo)
-        fhi = torch.where(ok, fhi, fmid - 1)
-    return lo, torch.clamp(flo, min=0)
-
-
 def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     """(cur, prev) -> frame-fields dict over a flat leading batch.
 
@@ -387,16 +351,14 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     mark("masking curve")
     fbw_new = (strat[:, :, :nf] != T.EXP_REUSE).sum(dim=(1, 2),
                                                     dtype=torch.int32)
-    frame_bits = _frame_constants(cfg)[0] + exp_bits + 8 * fbw_new
-    M, fstar = _snr_search(cfg, psd, mask, frame_bits)
-    mark("SNR search")
-    snro = (((M - 15) << 4) + fstar) << 2
-    ends = _mask_tables(cfg, cur.device)[1].expand(strat.shape)
-    bap = AL.bap_from_mask(psd, mask, snro[:, None, None, None],
-                           int(T.FLOORTAB[4]), torch.zeros_like(ends), ends)
+    fixed, total = _frame_constants(cfg)
+    avail = total - (fixed + exp_bits + 8 * fbw_new)
+    M, fstar, bap = snr_search(psd, mask, avail,
+                               _mask_tables(cfg, cur.device)[1])
+    mark("SNR search + bap")
     qmant = quantize(coef, enc_exp, exp_samples, bap)
-    mark("bap + quantize")
-    return dict(bap=bap.to(torch.int8), qmant=qmant,
+    mark("quantize")
+    return dict(bap=bap, qmant=qmant,
                 enc_exp=(enc_exp & 0xFF).to(torch.uint8), strat=strat,
                 M=M, fsnroffst=fstar, new_last=cur[:, 5])
 

@@ -111,26 +111,41 @@ Phases, each fatal on failure (nothing is caught and passed over):
                meta, frame bytes and int16, K2 and K4 on every chunk (64
                lanes), K3 on coupled lanes (4 lanes); every gather and
                B1F call of the raw_py runs held to its plain version
- 17. enc digest the encoder's integer primitives (window + normalize, MDCT,
+ 17. E1        the SNR-offset search and bap kernel (E1, csrc/snr_search.cu)
+               equal to its plain version BITWISE in M, fstar and bap on
+               crafted cases (1 to 6 channels with and without the LFE,
+               bins past 252, none, 32-bin edges; budgets that force M =
+               -1 with and without a fine fit, M = 63, fstar 0 and 15,
+               exact ties, a ceiling that per-channel or per-frame grouping
+               would miss), each launched twice; one row, 1,000 rows, none
+               (no launch); refusals.  In the encode phases below: every
+               core call launches E1 once and the eager rate model
+               (bits_for_snro, and bap_from_mask outside a raw decode)
+               never; every E1 call of one device-alone run of configs 3
+               and 4 and of the transcode's first chunk held to its plain
+               version bitwise; its time at each config's core call
+               beside its byte bound, its design's floor and the plain
+               version
+ 18. enc digest the encoder's integer primitives (window + normalize, MDCT,
                exponents, quantize at shift counts -40..60, av_log2) on
                edge cases, card equal to CPU bitwise; then
                BatchedEncoder(pack="device") and pack="native" on 8 lanes
                x 4 frames (two calls, the carry crossing them) of seeded
                PCM (tones, noise, silence, full scale) in six formats: the
                sha256 of each equal to the JAX encoder's (ENC_DIGESTS)
- 18. encode    the JAX benchmark's configs 3 (4096 lanes x 8 frames, 2.0,
+ 19. encode    the JAX benchmark's configs 3 (4096 lanes x 8 frames, 2.0,
                192 kbit/s) and 4 (2048 x 8, 5.1, 640 kbit/s) on
                bench.py:_encode_pcm's content: device pack == native pack
                on every frame; x-realtime end to end (int16 PCM on the host
                in, bytes on the host out) and on the device alone; peak
-               memory; each stage's CUDA-event time, ATen op count and
-               least bytes; the core's frame grouping both ways; the host
-               packer alone
- 19. single enc Encoder over 512 frames (x-realtime); a 17-frame call
+               memory; each stage's CUDA-event time, ATen op count,
+               least bytes and peak allocated memory; the core's frame
+               grouping both ways; the host packer alone
+ 20. single enc Encoder over 512 frames (x-realtime); a 17-frame call
                (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
                PcmToAc3Stream fed in ragged pieces == the a52 encode API;
                a round trip through Decoder() above 12 dB SNR
- 20. transcode Transcoder(4096, 192000, 2) over the golden 5.1 lanes, 2
+ 21. transcode Transcoder(4096, 192000, 2) over the golden 5.1 lanes, 2
                chunks x 4 frames, reference mode, parser "native" (f32 and
                compact) and "raw", and 256 coupled raw lanes: B1F (and on
                the raw paths K2 and K4, on the coupled one K3) on every
@@ -139,7 +154,7 @@ Phases, each fatal on failure (nothing is caught and passed over):
                JAX Transcoder's (TC_DIGEST); raw == native; the f32 bytes
                of 64 lanes == BatchedDecoder int16 -> BatchedEncoder;
                x-realtime of step_frames and of dispatch_frames/finish
- 21. B1Q       the Q30 order-exact IMDCT kernel (B1Q, the fixed-point
+ 22. B1Q       the Q30 order-exact IMDCT kernel (B1Q, the fixed-point
                sample type) equal to its plain version BITWISE on the 5.1
                golden's real Q30 planes (ac3h_sdec_parse_fixed) tiled to
                786,432 rows, long and 30% short, on edge rows (full-range
@@ -159,7 +174,7 @@ Phases, each fatal on failure (nothing is caught and passed over):
                wrapper's host time, the plain version, the bound (the
                card's rates) and the one-CTA design's floor (one SM's
                integer issue)
- 22. fixed     SampleDecoder("fixed") on the card: 512 frames of the 5.1
+ 23. fixed     SampleDecoder("fixed") on the card: 512 frames of the 5.1
                golden to stereo and to 3F2R|LFE, and the 5.1 -> 2.0
                switch with DRC off, each int32 bitwise the native fixed
                backend's; B1QS once a frame, B1Q, B1, B1F and K1 never;
@@ -167,17 +182,17 @@ Phases, each fatal on failure (nothing is caught and passed over):
                inputs; the ATen operations a frame.  Then B1Q's own path,
                get_variant("fixed")'s imdct512, imdct256 and filterbank,
                bitwise the plain split's
- 23. cli       python -m ac3acm_tpu_torch.cli as subprocesses on 128 frames:
+ 24. cli       python -m ac3acm_tpu_torch.cli as subprocesses on 128 frames:
                decode to wav on the card (float and fixed) byte-equal to
                --backend native; encode of that wav equal to Encoder's
                bytes; info --check-crc; x-realtime from the CLI's meter
- 24. driver    CodecDriver streams on the card equal to Ac3ToPcmStream and
+ 25. driver    CodecDriver streams on the card equal to Ac3ToPcmStream and
                PcmToAc3Stream on the same bytes
- 25. profile   utils.trace.profile() around 32 frames of the fixed decode:
+ 26. profile   utils.trace.profile() around 32 frames of the fixed decode:
                the Chrome trace names B1QS's kernel once a frame and B1Q's
                never; the device busy share (the union of kernel
                intervals over the traced window)
- 26. mesh      the lane split over a mesh's 'data' axis (parallel/mesh.py):
+ 27. mesh      the lane split over a mesh's 'data' axis (parallel/mesh.py):
                on one card make_mesh(data=4, devices=["cuda:0"] * 4), the
                card named four times (every line of the split, the shards
                in turn); with more cards one entry per card.  The main
@@ -193,7 +208,7 @@ Phases, each fatal on failure (nothing is caught and passed over):
                within the f32 rounding bound (any order of the 256-term
                sums) of the float64 product; x-realtime sharded beside
                one-device, launches per kernel, peak memory
- 27. report    one JSON line listing every kernel, then the device line
+ 28. report    one JSON line listing every kernel, then the device line
 
 Exits non-zero, printing no result, when no CUDA device is present.
 """
@@ -320,7 +335,8 @@ def phase_build():
     jobs = {"native host (g++)": native._build,
             "fused_steady (nvcc)": lambda: _cuda.build("fused_steady"),
             "bitgather (nvcc)": lambda: _cuda.build("bitgather"),
-            "imdct_exact (nvcc)": lambda: _cuda.build("imdct_exact")}
+            "imdct_exact (nvcc)": lambda: _cuda.build("imdct_exact"),
+            "snr_search (nvcc)": lambda: _cuda.build("snr_search")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -1844,8 +1860,10 @@ def kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops import snr_search as SS
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
             "B1Q": IE.launches_fixed, "B1QS": FC.launches_fixed_chain,
+            "E1": SS.launches_snr_search,
             **{k: v for k, v in gather_counts().items()}}
 
 
@@ -1854,8 +1872,9 @@ def zero_kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops import snr_search as SS
     IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
-    FC.launches_fixed_chain = 0
+    FC.launches_fixed_chain = SS.launches_snr_search = 0
     zero_gather_counts()
 
 
@@ -2230,8 +2249,8 @@ TC_DIGEST = ("edb3f6e9b6fc932dbdeed9350fce642750f143c17b125085ebfcdf9e080a6edf")
 TC_DIGEST_LANES = 8
 # encoder stages in the order frame_core and pack_frames_device mark them
 ENC_STAGES = ("block layout", "window + normalize", "MDCT",
-              "exponents + strategy + coding", "masking curve", "SNR search",
-              "bap + quantize", "csnr carry", "pack: tokens",
+              "exponents + strategy + coding", "masking curve",
+              "SNR search + bap", "quantize", "csnr carry", "pack: tokens",
               "pack: offsets", "pack: deposit", "pack: CRC")
 
 
@@ -2298,10 +2317,15 @@ def tc_digest(outs):
 
 
 class EventClock:
-    """mark(name) records a CUDA event; seconds() sums the time between
-    each mark and the one before under the later mark's name."""
+    """mark(name) records a CUDA event and the peak of device memory
+    allocated since the mark before (the allocator's own count: no
+    synchronize needed); ms() sums the time between each mark and the one
+    before under the later mark's name, peak holds the largest peak by
+    that name."""
 
     def __init__(self):
+        self.peak = {}
+        torch.cuda.reset_peak_memory_stats()
         self.events = [(None, self._event())]
 
     @staticmethod
@@ -2312,6 +2336,9 @@ class EventClock:
 
     def mark(self, name):
         self.events.append((name, self._event()))
+        self.peak[name] = max(self.peak.get(name, 0),
+                              torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
 
     def ms(self):
         torch.cuda.synchronize()
@@ -2355,14 +2382,309 @@ def stage_least_bytes(rows, nch, frame_bytes):
         "MDCT": bc * (2 * s16 + c32),
         "exponents + strategy + coding": bc * (c32 + b8),
         "masking curve": bc * (b8 + m16),
-        "SNR search": bc * (b8 + m16),
-        "bap + quantize": bc * (c32 + b8 + m16 + b8 + q16),
+        "SNR search + bap": bc * (b8 + m16 + b8),
+        "quantize": bc * (c32 + b8 + b8 + q16),
         "csnr carry": 0,
         "pack: tokens": bc * (b8 + q16 + b8),
         "pack: offsets": 0,
         "pack: deposit": rows * frame_bytes,
         "pack: CRC": 2 * rows * frame_bytes,
     }
+
+
+# E1 (the SNR search + bap) on crafted cases: the live bins of each
+# channel (the encoder's 223 a full-band channel and 7 the LFE, for 1 to 6
+# channels with the last one the LFE or not, then edges: bins past 252,
+# none, 32-bin group boundaries) with the LFE flag of the masking curve;
+# the budget kinds each case's rows get (e1_budgets), rows a kind
+E1_LAYOUTS = tuple(((223,) * (n - lfe) + (7,) * lfe, bool(lfe))
+                   for n in range(1, 7) for lfe in (0, 1)) + (
+    ((256,), False), ((253, 0), False), ((224, 225, 32, 33, 1, 7), True))
+E1_KINDS = ("free", "none", "neg_fine", "coarse_tie", "fine_tie", "f15",
+            "ceiling", "random")
+E1_ROWS_A_KIND = 4
+# E1's design, per row and candidate (12 of them, then the bap pass): the
+# integer instructions a 32-bin slot takes (the threshold's shared load,
+# the subtract, the shift, two clamps, the table address, the cost word's
+# shared load, two adds) and a band (the curve's load, two subtracts, the
+# max, the and, the add, the store); the function's own least work is one
+# class a live bin (subtract, shift, two clamps, the table read)
+E1_SLOT_OPS, E1_BAND_OPS, E1_CLASS_OPS = 9, 7, 5
+
+
+def e1_psd(rng, rows, nb):
+    """psd [rows, 6, ch, 256] int32 (3072 - 128 * exponent on the live
+    bins, 0 past them): even rows a per-channel level with +-4 of noise
+    and a tilt, odd rows exponents uniform in [0, 24]."""
+    nb = np.asarray(nb)
+    ch = len(nb)
+    level = rng.integers(0, 25, (rows, 1, ch, 1))
+    tilt = np.arange(256) // rng.integers(16, 64, (rows, 1, ch, 1))
+    exp = np.clip(level + tilt + rng.integers(-4, 5, (rows, 6, ch, 256)),
+                  0, 24)
+    exp[1::2] = rng.integers(0, 25, exp[1::2].shape)
+    live = np.arange(256) < nb[:, None]
+    return np.where(live, 3072 - 128 * exp, 0).astype(np.int32)
+
+
+def e1_grouped_bits(bap, nb, per="block"):
+    """bap [rows, 6, ch, 256] -> mantissa bits [rows] (int64) with the
+    grouped classes' ceilings taken per block after the channel sum (the
+    encoder's, ac3enc.cpp:764-810), or per (block, channel) or per frame
+    (the two granularities a kernel could get wrong)."""
+    from ac3acm_tpu_torch import tables as T
+    nb = np.asarray(nb)
+    live = np.arange(256) < nb[:, None]
+    nk = np.stack([((bap == k) & live).sum(-1) for k in range(16)],
+                  -1).astype(np.int64)                     # [rows,6,ch,16]
+    nk = {"block": nk.sum(2), "channel": nk, "frame": nk.sum((1, 2))}[per]
+    k = np.arange(16)
+    lin = np.where(k == 3, 3, np.where(k >= 5, T.BAP_BITS[k], 0))
+    bits = (5 * ((nk[..., 1] + 2) // 3) + 7 * ((nk[..., 2] + 2) // 3)
+            + 7 * ((nk[..., 4] + 1) // 2) + (nk * lin).sum(-1))
+    return bits.reshape(len(bap), -1).sum(-1)
+
+
+def e1_budgets(rng, nb, bap_at):
+    """avail int32 [rows] for E1_ROWS_A_KIND rows of each of E1_KINDS, in
+    that order; bap_at(snro int32 [rows]) -> that offset's bap (numpy):
+
+      free        2^30: M = 63, fstar = 15
+      none        -1: nothing fits, M = -1 and fstar = 0
+      neg_fine    the bits at (c = -1, f in 1..15): M = -1 when (0, 0)
+                  does not fit, the fine search at c = -1 still finds f
+      coarse_tie  the bits at (c, 0): an exact tie, fstar = 0 when (c, 1)
+                  costs more
+      fine_tie    the bits at (c, f in 1..14): an exact tie in the fine pass
+      f15         the bits at (c, 15): fstar = 15 when (c + 1, 0) costs more
+      ceiling     even rows the bits at (c, 0), where ceilings taken per
+                  (block, channel) overshoot; odd rows at (c, 0) with the
+                  ceilings taken per frame, which the per-block count
+                  overshoots
+      random      uniform between the bits at (-1, 0) and at (63, 15)"""
+    n = E1_ROWS_A_KIND * len(E1_KINDS)
+    kind = np.repeat(np.arange(len(E1_KINDS)), E1_ROWS_A_KIND)
+    c = rng.integers(0, 64, n)
+    f = rng.integers(1, 15, n)
+
+    def bits(c, f, per="block"):
+        snro = ((np.broadcast_to(c, (n,)) - 15) * 16 + f) * 4
+        return e1_grouped_bits(bap_at(snro.astype(np.int32)), nb, per)
+
+    low, high = bits(-1, 0), bits(63, 15)
+    by = {"free": np.full(n, 1 << 30), "none": np.full(n, -1),
+          "neg_fine": bits(-1, f), "coarse_tie": bits(c, 0),
+          "fine_tie": bits(c, f), "f15": bits(c, 15),
+          "ceiling": np.where(np.arange(n) % 2 == 0, bits(c, 0),
+                              bits(c, 0, "frame")),
+          "random": rng.integers(low, high + 1)}
+    return np.choose(kind, [by[k] for k in E1_KINDS]).astype(np.int32)
+
+
+def e1_mask(psd, nb, lfe):
+    """The encoder's masking curve (models/encoder.py:_masking at 48 kHz)
+    of psd [rows, 6, ch, 256] with live bins nb [ch] (tensors), the last
+    channel the LFE if lfe."""
+    from ac3acm_tpu_torch import tables as T
+    from ac3acm_tpu_torch.ops import alloc as AL
+    lead = psd.shape[:3]
+    is_lfe = torch.zeros(len(nb), dtype=torch.bool, device=psd.device)
+    is_lfe[-1] = lfe
+    bnd = AL.band_psd(psd, nb.expand(lead))
+    exc = AL.excitation(bnd, int(T.FGAINTAB[4]), int(T.SGAINTAB[1]),
+                        int(T.FDECAYTAB[1]), int(T.SDECAYTAB[2]),
+                        is_lfe.expand(lead))
+    hth = torch.as_tensor(T.HTH[:, 0].astype(np.int32), device=psd.device)
+    return AL.masking_curve(bnd, exc, int(T.DBKNEETAB[2]), hth)
+
+
+def e1_case(nb, lfe, seed, dev):
+    """One crafted E1 case on dev: (psd, mask, avail, nb) tensors, the
+    rows E1_ROWS_A_KIND of each budget kind in E1_KINDS' order."""
+    from ac3acm_tpu_torch.ops import alloc as AL
+    from ac3acm_tpu_torch.ops.snr_search import FLOOR
+    rng = np.random.default_rng(seed)
+    rows = E1_ROWS_A_KIND * len(E1_KINDS)
+    psd = torch.from_numpy(e1_psd(rng, rows, nb)).to(dev)
+    nbt = torch.tensor(nb, dtype=torch.int32, device=dev)
+    mask = e1_mask(psd, nbt, lfe)
+    ends = nbt.expand(psd.shape[:3])
+
+    def bap_at(snro):
+        s = torch.from_numpy(snro).to(dev)[:, None, None, None]
+        return AL.bap_from_mask(psd, mask, s, FLOOR, torch.zeros_like(ends),
+                                ends).cpu().numpy()
+
+    avail = torch.from_numpy(e1_budgets(rng, nb, bap_at)).to(dev)
+    return psd, mask, avail, nbt
+
+
+def e1_same(call):
+    """One recorded snr_search call (psd, mask, avail, nb, (M, fstar,
+    bap)) against snr_search_ref on the same inputs and device, bitwise
+    -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops.snr_search import snr_search_ref
+    *args, got = call
+    want = snr_search_ref(*args)
+    err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), err
+    return float(err)
+
+
+@contextlib.contextmanager
+def e1_watch(record=False):
+    """While active: the frame core's calls, E1's launches, and the calls
+    of the eager rate model (ops.alloc.bits_for_snro and bap_from_mask);
+    with record, every snr_search call's inputs and outputs, cloned.
+    Yields a dict that holds them (launches when the block ends)."""
+    from ac3acm_tpu_torch.models import encoder as PE
+    from ac3acm_tpu_torch.ops import alloc as AL
+    from ac3acm_tpu_torch.ops import snr_search as SS
+    w = dict(core=0, bits_for_snro=0, bap_from_mask=0, calls=[])
+    orig = (PE.frame_core, AL.bits_for_snro, AL.bap_from_mask, PE.snr_search)
+
+    def counted(key, fn):
+        def call(*a, **k):
+            w[key] += 1
+            return fn(*a, **k)
+        return call
+
+    def search(*args):
+        out = orig[3](*args)
+        if record:
+            w["calls"].append(tuple(t.clone() for t in args)
+                              + (tuple(t.clone() for t in out),))
+        return out
+
+    PE.frame_core = counted("core", orig[0])
+    AL.bits_for_snro = counted("bits_for_snro", orig[1])
+    AL.bap_from_mask = counted("bap_from_mask", orig[2])
+    PE.snr_search = search
+    before = SS.launches_snr_search
+    try:
+        yield w
+    finally:
+        PE.frame_core, AL.bits_for_snro, AL.bap_from_mask, PE.snr_search = \
+            orig
+        w["launches"] = SS.launches_snr_search - before
+
+
+def e1_assert(w, tag, decoder_allocates=False):
+    """Every core call of a watched run launched E1 once, and the eager
+    rate model never ran (bap_from_mask may, where the raw decode half of
+    a transcode allocates its own bits) -> E1's launches."""
+    assert w["core"] >= 1 and w["launches"] == w["core"], (tag, w["core"],
+                                                           w["launches"])
+    assert w["bits_for_snro"] == 0, (tag, w["bits_for_snro"])
+    assert decoder_allocates or w["bap_from_mask"] == 0, (tag, w)
+    return w["launches"]
+
+
+def e1_bound(psd, nb):
+    """E1 on psd [N, 6, ch, 256]'s rows with live bins nb [ch]: (bound_ms,
+    "bytes" | "operations", the design's floor ms).  The function's least
+    bytes, at the narrowest type that holds each (stage_least_bytes'
+    convention) and for the live bins only (bins < nb, which are all E1
+    loads): an exponent a byte in and a class a byte out a live bin, the
+    curve int16 over the bands the live bins reach, avail in and M, fstar
+    out (int32), nb; its least operations, one class a live bin, at the
+    card's issue rate; the design's floor, its 13 passes (E1_SLOT_OPS a
+    32-bin slot, E1_BAND_OPS a band) at the same rate."""
+    from ac3acm_tpu_torch import tables as T
+    N, _, ch, _ = psd.shape
+    nb = [int(n) for n in nb.tolist()]
+    live = 6 * sum(nb)
+    bands = 6 * sum(int(T.MASKTAB[min(n, 253) - 1]) + 1 for n in nb if n)
+    slots = 6 * sum(-(-n // 32) * 32 for n in nb)
+    nbytes = N * (2 * live + 2 * bands + 3 * 4) + ch * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = N * live * E1_CLASS_OPS / PEAK_ISSUE * 1e3
+    floor = N * 13 * (slots * E1_SLOT_OPS + 6 * ch * 50 * E1_BAND_OPS)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", floor / PEAK_ISSUE * 1e3)
+
+
+def e1_times(call):
+    """E1 and its plain version on one recorded core call's inputs:
+    kernel_ms (device time, median of 7 after 2 warm-ups), plain_ms, the
+    bound and the design's floor.  No PyTorch call computes the search:
+    library_ms is null."""
+    from ac3acm_tpu_torch.ops import snr_search as SS
+    args = call[:4]
+    ms = device_ms(lambda: SS.snr_search(*args))
+    plain_ms = cuda_ms(lambda: SS.snr_search_ref(*args), warmup=1, reps=3)
+    bound_ms, bound_by, floor_ms = e1_bound(args[0], args[3])
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, design_floor_ms=floor_ms)
+
+
+def phase_check_e1(dev):
+    """E1 (csrc/snr_search.cu) against its plain version BITWISE (M,
+    fstar, bap) on the crafted cases (every layout of E1_LAYOUTS, every
+    budget kind), twice each (the same bytes); one row, a ragged 1,000-row
+    call and a call of no rows; bad inputs raise.  -> max |diff|."""
+    from ac3acm_tpu_torch.ops import snr_search as SS
+    worst, seen = 0.0, {}
+    for i, (nb, lfe) in enumerate(E1_LAYOUTS):
+        args = e1_case(nb, lfe, 1300 + i, dev)
+        out = SS.snr_search(*args)
+        worst = max(worst, e1_same(args + (out,)))
+        again = SS.snr_search(*args)
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), nb
+        M, fstar = (t.cpu().numpy().reshape(len(E1_KINDS), -1)
+                    for t in out[:2])
+        for k, name in enumerate(E1_KINDS):
+            seen.setdefault(name, set()).update(
+                zip(M[k].tolist(), fstar[k].tolist()))
+    assert (63, 15) in seen["free"] and seen["none"] == {(-1, 0)}, seen
+    assert any(m == -1 and f > 0 for m, f in seen["neg_fine"]), seen
+    rng = np.random.default_rng(13)
+    for rows in (1, 1000):
+        nb = (223, 223, 223, 7)
+        psd = torch.from_numpy(e1_psd(rng, rows, nb)).to(dev)
+        nbt = torch.tensor(nb, dtype=torch.int32, device=dev)
+        mask = e1_mask(psd, nbt, True)
+        avail = torch.from_numpy(rng.integers(0, 60000, rows).astype(
+            np.int32)).to(dev)
+        args = (psd, mask, avail, nbt)
+        worst = max(worst, e1_same(args + (SS.snr_search(*args),)))
+    # budgets within 3,000 of INT32_MIN: avail - bits wraps in int32
+    near = torch.from_numpy((np.iinfo(np.int32).min + rng.integers(
+        0, 3000, len(avail))).astype(np.int32)).to(dev)
+    out = SS.snr_search(psd, mask, near, nbt)
+    worst = max(worst, e1_same((psd, mask, near, nbt, out)))
+    assert bool((out[0] > -1).any()), "no budget near INT32_MIN wrapped"
+    before = SS.launches_snr_search
+    M, fstar, bap = SS.snr_search(psd[:0], mask[:0], avail[:0], nbt)
+    assert M.shape == (0,) and bap.shape == (0, 6, 4, 256)
+    assert SS.launches_snr_search == before, "a call of no rows launched"
+    flat = torch.zeros(psd.numel() + 4, dtype=torch.int32, device=dev)
+    for i, bad, err in (
+            (0, psd.long(), TypeError),
+            (1, mask.transpose(0, 1).contiguous().transpose(0, 1), ValueError),
+            (1, flat[1:1 + mask.numel()].view(mask.shape), ValueError),
+            (2, avail[:-1], ValueError),
+            (3, nbt.cpu(), ValueError),
+            (3, nbt[:3], ValueError)):
+        bad_args = list(args)
+        bad_args[i] = bad
+        try:
+            SS.snr_search(*bad_args)
+            raise AssertionError(f"bad argument {i} was accepted")
+        except err:
+            pass
+    log(f"check snr_search (E1): {len(E1_LAYOUTS)} crafted layouts x "
+        f"{len(E1_KINDS)} budget kinds x {E1_ROWS_A_KIND} rows (each "
+        f"launched twice, the same bytes), one row, 1,000 rows and 1,000 "
+        f"budgets near INT32_MIN (wrapping), equal to the plain version bitwise in M, fstar and bap, max |diff| "
+        f"{worst}; (M, fstar) reached: free {sorted(seen['free'])[:3]}, "
+        f"none {sorted(seen['none'])}, M = -1 with a fine fit "
+        f"{sorted(p for p in seen['neg_fine'] if p[0] == -1)[:3]}, f15 "
+        f"{sorted(p for p in seen['f15'] if p[1] == 15)[:3]}; no rows: no "
+        f"launch; a wrong dtype, a strided, an unaligned, a short, a CPU "
+        f"and a narrow input raise")
+    return worst
 
 
 def enc_extremes(seed=0):
@@ -2486,11 +2808,15 @@ def enc_bench_pcm(channels, nframes, lanes):
 def phase_enc_main():
     """Configs 3 and 4: device pack == native pack on every frame;
     x-realtime end to end and on the device alone; peak memory; the stage
-    table; the core's frame grouping both ways.  -> {label: numbers}."""
+    table; the core's frame grouping both ways.  E1 once a core call in the
+    end-to-end runs and the eager rate model never; every E1 call of one
+    device-alone run held to its plain version; E1's times at each core
+    call's shape.  -> ({label: numbers}, E1's launches in the end-to-end
+    runs, its worst |diff|, {label: E1's times})."""
     from ac3acm_tpu_torch.host import pack as PK
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
-    report = {}
+    report, e1_times_by, e1_launches, e1_err = {}, {}, 0, 0.0
     for label, B, F, nch, kbps in ENC_MAIN:
         pcm = enc_bench_pcm(nch, F, B)
         audio_s = B * F * 1536 / 48000.0
@@ -2501,14 +2827,19 @@ def phase_enc_main():
             enc = BatchedEncoder(B, 48000, kbps * 1000, nch, pack=pack)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            zero_kernel_counts()
             t0 = time.perf_counter()
-            outs[pack] = enc.encode_frames(pcm)
+            with e1_watch() as watch:
+                outs[pack] = enc.encode_frames(pcm)
             dts[pack] = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
+            e1_launches += e1_assert(watch, f"encode {label} pack={pack}")
             log(f"encode {label} pack={pack}: {B} lanes x {F} frames, "
                 f"{nch} ch {kbps} kbit/s, int16 PCM on the host -> bytes on "
                 f"the host: {dts[pack]:.3f} s -> {audio_s / dts[pack]:.0f}x "
-                f"realtime; peak {peak / 1e9:.2f} GB")
+                f"realtime; peak {peak / 1e9:.2f} GB; E1 launches "
+                f"{watch['launches']} for {watch['core']} core calls, "
+                f"bits_for_snro calls {watch['bits_for_snro']}")
             assert peak <= PEAK_MEM_LIMIT
         same = outs["device"] == outs["native"]
         nbytes = sum(map(len, outs["device"]))
@@ -2527,11 +2858,29 @@ def phase_enc_main():
             enc.csnr.fill_(40)
             return encode_resident(enc, x)
 
-        ok, fr = dev_run()
+        with e1_watch(record=True) as watch:
+            ok, fr = dev_run()
+        e1_assert(watch, f"encode {label} device alone")
         assert bool(ok.all())
         want = np.stack([np.frombuffer(o, np.uint8).reshape(F, -1)
                          for o in outs["device"]], 1)
         assert np.array_equal(fr.cpu().numpy(), want)
+        for call in watch["calls"]:
+            e1_err = max(e1_err, e1_same(call))
+        e1_times_by[label] = dict(e1_times(watch["calls"][0]),
+                                  rows=watch["calls"][0][0].shape[0])
+        t = e1_times_by[label]
+        log(f"encode {label}: all {len(watch['calls'])} E1 calls of a "
+            f"device-alone run equal to the plain version bitwise (M, "
+            f"fstar, bap); time snr_search (E1) at a core call "
+            f"[{t['rows']}, 6, {nch}, 256]: kernel_ms {t['ms']:.4f}; "
+            f"plain_ms {t['plain_ms']:.3f}; bound_ms {t['bound_ms']:.4f} "
+            f"-> {t['bound_by']} ({t['bound_ms'] / t['ms']:.2%} of the "
+            f"kernel's time); the design's floor (13 passes' integer "
+            f"instructions at {PEAK_ISSUE:.4e}/s) {t['design_floor_ms']:.4f} "
+            f"ms ({t['design_floor_ms'] / t['ms']:.2%}); library_ms null (no "
+            f"PyTorch call computes the search)")
+        del watch
         dev_ms = cuda_ms(dev_run, warmup=1, reps=3)
         groups = {}
         for rows in sorted({B, PE.CORE_ROWS, B * F}):
@@ -2551,7 +2900,7 @@ def phase_enc_main():
             f"call: " + "; ".join(
                 f"{min(F, max(1, r // B))} ({r} rows) {ms:.3f} ms, peak "
                 f"{pk / 1e9:.2f} GB" for r, (ms, pk) in groups.items()))
-        # stages: CUDA events in one run, op counts in another
+        # stages: CUDA events and peaks in one run, op counts in another
         clock = EventClock()
         enc.last.zero_()
         enc.csnr.fill_(40)
@@ -2568,7 +2917,8 @@ def phase_enc_main():
             b_ms = least[name] / PEAK_BYTES * 1e3
             log(f"encode {label} stage {name}: {ms.get(name, 0.0):.3f} ms, "
                 f"{ops.by.get(name, 0)} ATen ops, least {least[name]} B -> "
-                f"bound {b_ms:.3f} ms ({b_ms / max(ms.get(name, 1e-9), 1e-9):.1%})")
+                f"bound {b_ms:.3f} ms ({b_ms / max(ms.get(name, 1e-9), 1e-9):.1%}); "
+                f"peak allocated {clock.peak.get(name, 0) / 1e9:.2f} GB")
         io_bytes = B * F * 1536 * nch * 2 + nbytes
         io_ms = io_bytes / PEAK_BYTES * 1e3
         log(f"encode {label} whole: stages {total_ms:.3f} ms, "
@@ -2589,7 +2939,7 @@ def phase_enc_main():
                              device=audio_s / (dev_ms * 1e-3))
         del x, enc, outs, res, host, fr
         torch.cuda.empty_cache()
-    return report
+    return report, e1_launches, e1_err, e1_times_by
 
 
 def phase_enc_single():
@@ -2605,9 +2955,12 @@ def phase_enc_single():
     pcm = enc_bench_pcm(2, ENC_SINGLE_FRAMES, 1)[0]
     Encoder(48000, 192000, 2).encode(pcm[:1536])          # warm-up
     enc = Encoder(48000, 192000, 2)
+    zero_kernel_counts()
     t0 = time.perf_counter()
-    out = enc.encode(pcm)
+    with e1_watch() as watch:
+        out = enc.encode(pcm)
     dt = time.perf_counter() - t0
+    e1_launches = e1_assert(watch, "single-stream Encoder")
     audio_s = ENC_SINGLE_FRAMES * 1536 / 48000.0
     assert len(out) == ENC_SINGLE_FRAMES * 768
     p17 = mixed_pcm(2, 17, 17)[0]
@@ -2620,7 +2973,8 @@ def phase_enc_single():
     api = b"".join(a52.AC3_encode_frame(h, p17[f * 1536:(f + 1) * 1536])
                    for f in range(17))
     log(f"single-stream Encoder: {ENC_SINGLE_FRAMES} frames in {dt:.3f} s "
-        f"-> {audio_s / dt:.1f}x realtime; a 17-frame call == lane 0 of "
+        f"-> {audio_s / dt:.1f}x realtime, E1 launches {e1_launches} for "
+        f"{watch['core']} core calls; a 17-frame call == lane 0 of "
         f"BatchedEncoder {one == lane}; PcmToAc3Stream (feeds of 7 B..) == "
         f"Encoder {fed == one}; AC3_encode_frame == Encoder {api == one}")
     assert one == lane == fed == api
@@ -2633,7 +2987,7 @@ def phase_enc_single():
     snr = 10 * np.log10((orig ** 2).mean() / ((mine - orig) ** 2).mean())
     log(f"single-stream round trip through Decoder(): SNR {snr:.2f} dB")
     assert snr > 12.0
-    return audio_s / dt
+    return audio_s / dt, e1_launches
 
 
 def phase_transcode():
@@ -2651,6 +3005,13 @@ def phase_transcode():
     audio_s = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
     launches, worst, rt, errs, wires = {}, {}, {}, {}, {}
     outs = {}
+    # E1's calls of the first native f32 chunk, recorded (inputs and
+    # outputs cloned) in an untimed pass of their own
+    with e1_watch(record=True) as w:
+        Transcoder(TC_BATCH, 192000, 2).step_frames(chunks[0],
+                                                    TC_CHUNK_FRAMES)
+    e1_assert(w, "transcode native f32, recorded")
+    e1_calls = w["calls"]
     for tag, kw, lanes, want in (
             ("native f32", {}, chunks, ("B1F",)),
             ("native compact", dict(compact_h2d=True), chunks, ("B1F",)),
@@ -2667,10 +3028,13 @@ def phase_transcode():
             nonlocal got
             for data in lanes:
                 before = kernel_counts()
-                got = [a + b for a, b in zip(got, tc.step_frames(
-                    data, TC_CHUNK_FRAMES))]
+                with e1_watch() as w:
+                    got = [a + b for a, b in zip(got, tc.step_frames(
+                        data, TC_CHUNK_FRAMES))]
                 per_chunk.append({k: v - before[k]
                                   for k, v in kernel_counts().items()})
+                e1_assert(w, f"transcode {tag}",
+                          decoder_allocates=tag.startswith("raw"))
                 assert tc.ok.all(), tag
 
         torch.cuda.synchronize()
@@ -2683,7 +3047,7 @@ def phase_transcode():
         counts = kernel_counts()
         outs[tag] = got
         for c in per_chunk:
-            assert all(c[k] >= 1 for k in want), (tag, per_chunk)
+            assert all(c[k] >= 1 for k in want + ("E1",)), (tag, per_chunk)
             assert c["K1"] == 0 and c["B1"] == 0, (tag, per_chunk)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -2699,6 +3063,10 @@ def phase_transcode():
         torch.cuda.empty_cache()
     for k, v in errs.items():
         worst[k] = max(worst.get(k, 0.0), v)
+    worst["E1"] = max(e1_same(call) for call in e1_calls)
+    log(f"transcode: the first native f32 chunk's {len(e1_calls)} E1 calls "
+        f"equal to the plain version bitwise (M, fstar, bap)")
+    del e1_calls
     dig = tc_digest(outs["native f32"])
     same_raw = outs["raw"] == outs["native f32"]
     ndiff = sum(a != b for a, b in zip(outs["native compact"],
@@ -3675,6 +4043,7 @@ def phase_mesh():
         lambda m: mesh_transcode(chunks, m), mesh, "transcode")
     for c in rec[1]:
         assert c["B1F"] >= data and c["K1"] == 0 and c["B1"] == 0, rec[1]
+        assert c["E1"] >= data, rec[1]
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     same = rec[0] == one[0] and timed[0] == one[0]
@@ -3755,6 +4124,7 @@ def main():
     torch.cuda.empty_cache()
     b1qs_err = phase_check_b1qs(dev)
     b1qs_times = phase_times_b1qs(dev)
+    e1_err = phase_check_e1(dev)
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
         torch.cuda.empty_cache()
@@ -3785,11 +4155,16 @@ def main():
                     for k, v in phase_raw_py().items()})
     phase_enc_extremes()
     phase_enc_digests()
-    phase_enc_main()
-    phase_enc_single()
+    _, e1_launches, e1_main_err, e1_times_by = phase_enc_main()
+    _, e1_single = phase_enc_single()
     torch.cuda.empty_cache()
     tc_launches, tc_errs, _ = phase_transcode()
     b1f_launches += tc_launches["B1F"]
+    log(f"E1 launches: configs 3 and 4 (end to end, both packers) "
+        f"{e1_launches}, single-stream Encoder {e1_single}, transcode "
+        f"{tc_launches['E1']}")
+    e1_launches += e1_single + tc_launches["E1"]
+    e1_err = max(e1_err, e1_main_err, tc_errs.pop("E1"))
     for entry, _, _ in GATHER_KERNELS:
         raw_launches[entry] += tc_launches[entry]
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
@@ -3797,6 +4172,7 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches, mesh_errs = phase_mesh()
     launches += mesh_launches["K1"]
+    e1_launches += mesh_launches["E1"]
     b1f_launches += mesh_launches["B1F"]
     b1_launches += mesh_launches["B1"]
     for entry, _, _ in GATHER_KERNELS:
@@ -3857,6 +4233,15 @@ def main():
                  "pallas_call)",
         launches=b1qs_launches, max_abs_err=max(b1qs_err, b1qs_path_err),
         **b1qs_times))
+    e1 = dict(e1_times_by["config 3"])
+    e1.update({f"{k}_51": v for k, v in e1_times_by["config 4"].items()
+               if k in ("ms", "plain_ms", "bound_ms", "design_floor_ms")})
+    kernels.append(dict(
+        name="snr_search (E1)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/snr_search.cu",
+        replaces="ac3acm_tpu/models/encoder.py:398-451 with "
+                 "ac3acm_tpu/ops/alloc.py:213,285 (XLA; no pallas_call)",
+        launches=e1_launches, max_abs_err=e1_err, **e1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,8 @@ def test_import_every_module_without_jax():
         " 'ac3acm_tpu_torch.io.demux', 'ac3acm_tpu_torch.io.sinks',"
         " 'ac3acm_tpu_torch.utils.meter',"
         " 'ac3acm_tpu_torch.parallel.mesh',"
-        " 'ac3acm_tpu_torch.ops.fixed_chain'}\n"
+        " 'ac3acm_tpu_torch.ops.fixed_chain',"
+        " 'ac3acm_tpu_torch.ops.snr_search'}\n"
         "assert new <= set(names), names\n"
         "assert len(names) >= 35, names\n"
         "print(len(names))\n")
