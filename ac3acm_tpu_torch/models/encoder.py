@@ -10,9 +10,10 @@ ac3enc.cpp), batched over streams:
     ac3enc.cpp:730-747, is replaced by its fixpoint: the largest
     2-Lipschitz array below the group minima, one cumulative minimum each
     way),
-  * the SNR-offset hill climb (ac3enc.cpp:918-975) replayed exactly by a
-    binary search over the monotone bit cost, and the bap at the chosen
-    offset (ops.snr_search: kernel E1 on the card),
+  * the masking curve of the coded exponents, the SNR-offset hill climb
+    (ac3enc.cpp:918-975) replayed exactly by a binary search over the
+    monotone bit cost, and the bap at the chosen offset, in one call
+    (ops.snr_search: kernel E1 on the card),
   * quantization (ac3enc.cpp:1149-1190) elementwise on int64 words that
     wrap to int32 where the reference's ints do.
 
@@ -30,7 +31,6 @@ import numpy as np
 import torch
 
 from .. import tables as T
-from ..ops import alloc as AL
 from ..ops.mdct import extract_exponents, mdct512, window_norm_block
 from ..ops.snr_search import snr_search
 from ..utils.device import resolve_device
@@ -300,31 +300,15 @@ def _encode_exponents(cfg: EncoderConfig, exp, new, strat):
 
 @lru_cache(maxsize=16)
 def _mask_tables(cfg: EncoderConfig, device: torch.device):
-    """(live bins [ch, 256], ends [ch], is_lfe [ch], hearing threshold
-    [50]) on `device`."""
+    """(live bins of each channel [ch] int32, is_lfe [ch], hearing
+    threshold [50] int32) on `device`."""
     nb = torch.as_tensor(cfg.nb_coefs, dtype=torch.int32, device=device)
-    live = torch.arange(256, dtype=torch.int32, device=device) < nb[:, None]
     is_lfe = torch.zeros(cfg.channels, dtype=torch.bool, device=device)
     if cfg.lfe:
         is_lfe[cfg.nfchans] = True
     hth = torch.as_tensor(T.HTH[:, cfg.fscod].astype(np.int32),
                           device=device)
-    return live, nb, is_lfe, hth
-
-
-def _masking(cfg: EncoderConfig, enc_exp):
-    """The snroffset-independent masking curve: -> (psd [N, 6, ch, 256],
-    mask [N, 6, ch, 50])."""
-    hr = cfg.halfratecod
-    live, nb, is_lfe, hth = _mask_tables(cfg, enc_exp.device)
-    psd = torch.where(live, 3072 - (enc_exp << 7), 0)
-    ends = nb.expand(enc_exp.shape[:3])
-    bnd = AL.band_psd(psd, ends)
-    exc = AL.excitation(bnd, int(T.FGAINTAB[4]), int(T.SGAINTAB[1]),
-                        int(T.FDECAYTAB[1]) >> hr, int(T.SDECAYTAB[2]) >> hr,
-                        is_lfe.expand(enc_exp.shape[:3]))
-    mask = AL.masking_curve(bnd, exc, int(T.DBKNEETAB[2]), hth)
-    return psd, mask
+    return nb, is_lfe, hth
 
 
 def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
@@ -347,19 +331,17 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     new, strat = _strategy(cfg, exp)
     enc_exp, exp_bits = _encode_exponents(cfg, exp, new, strat)
     mark("exponents + strategy + coding")
-    psd, mask = _masking(cfg, enc_exp)
-    mark("masking curve")
+    enc8 = enc_exp.to(torch.uint8)                 # wraps as & 0xFF
     fbw_new = (strat[:, :, :nf] != T.EXP_REUSE).sum(dim=(1, 2),
                                                     dtype=torch.int32)
     fixed, total = _frame_constants(cfg)
     avail = total - (fixed + exp_bits + 8 * fbw_new)
-    M, fstar, bap = snr_search(psd, mask, avail,
-                               _mask_tables(cfg, cur.device)[1])
-    mark("SNR search + bap")
+    M, fstar, bap = snr_search(enc8, avail, *_mask_tables(cfg, cur.device),
+                               cfg.halfratecod)
+    mark("masking curve + SNR search + bap")
     qmant = quantize(coef, enc_exp, exp_samples, bap)
     mark("quantize")
-    return dict(bap=bap, qmant=qmant,
-                enc_exp=(enc_exp & 0xFF).to(torch.uint8), strat=strat,
+    return dict(bap=bap, qmant=qmant, enc_exp=enc8, strat=strat,
                 M=M, fsnroffst=fstar, new_last=cur[:, 5])
 
 
