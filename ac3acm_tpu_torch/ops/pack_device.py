@@ -1,9 +1,19 @@
 """AC-3 frame assembly on the device: only finished frames leave it.
 
-The reference's serial put_bits loop (ac3enc.cpp:1194-1638) as data
-parallelism.  A frame is a static schedule of bit tokens (the token count
-and order are fixed by the encoder config; only lengths and values are
-data), so a batch of frames assembles as
+``pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr)`` turns a
+batch of frame fields into finished frames, byte for byte
+host/pack.py:pack_frame.  On CUDA tensors it launches the hand-written
+kernel P1 (csrc/pack.cu:pack_frames_kernel), once a call: one CTA a frame
+builds the frame in shared memory, offsets, deposit and both CRCs
+included, and writes only its bytes.  On CPU tensors it runs
+``pack_frames_ref``, the plain version.  There is no other path.  The JAX
+package computes the same function as XLA (ac3acm_tpu/ops/pack_device.py
+:361 pack_frames_device), with no pallas_call.
+
+The plain version is the reference's serial put_bits loop
+(ac3enc.cpp:1194-1638) as data parallelism.  A frame is a static schedule
+of bit tokens (the token count and order are fixed by the encoder config;
+only lengths and values are data), so a batch of frames assembles as
 
     token lengths -> cumulative sum           = bit offsets
     token values  -> scatter-add into 32-bit words held in int64
@@ -14,25 +24,30 @@ data), so a batch of frames assembles as
                      crc1 back-patch of ac3enc.cpp:1599-1638 folds into
                      crc1's table)
 
-and equals host/pack.py:pack_frame byte for byte.
-
 Grouped mantissas (3-in-5-bits, 3-in-7, 2-in-7, carried across channels
 within a block, ac3enc.cpp:1347-1501): a class member's ordinal in its
 block is a cumulative count; a head (ordinal % group size == 0) takes
 the next one or two members of its class, read from the members
 compacted by ordinal.
 
-Stages (pack_frames_device's clock marks): tokens, offsets, deposit, CRC.
+Clock marks: the kernel route marks "pack"; the plain version its stages,
+"pack: tokens", "pack: offsets", "pack: deposit" and "pack: CRC".
 """
 from __future__ import annotations
 
+import ctypes as C
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import tables as T
-from ..host.pack import CRC16_POLY, mul_poly, pow_poly
+from ..host.pack import CRC16_POLY, crc_table, mul_poly, pow_poly
+from . import _cuda
+
+# P1 launches since the last reset (only where the CUDA kernel is
+# launched; the CPU path leaves it alone)
+launches_pack = 0
 
 
 def _ngroups(nbc: int, gsize: int) -> int:
@@ -324,19 +339,10 @@ def crc_finish(cfg, frame):
     return frame.to(torch.uint8)
 
 
-def pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
-                       clock=None):
-    """Frame fields -> finished frames, on their device.
-
-      bap     [..., 6, nch, 256] int8
-      qmant   [..., 6, nch, 256] int32
-      enc_exp [..., 6, nch, 256] uint8
-      strat   [..., 6, nch]      int32
-      csnr    [...]              int32
-      fsnr    [...]              int32
-      ->      [..., frame_size*2] uint8
-
-    clock: an object with mark(name), called after each stage."""
+def pack_frames_ref(cfg, bap, qmant, enc_exp, strat, csnr, fsnr, clock=None):
+    """Plain version of pack_frames_device (any device): tokens ->
+    offsets -> deposit -> crc_finish over an int64 token stream, marking
+    each stage on `clock`."""
     mark = clock.mark if clock is not None else (lambda name: None)
     lead = bap.shape[:-3]
     n = int(np.prod(lead)) if lead else 1
@@ -354,3 +360,247 @@ def pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
     out = crc_finish(cfg, frame)
     mark("pack: CRC")
     return out.reshape(lead + (cfg.frame_size * 2,))
+
+
+# ---------------------------------------------------------------------------
+# the kernel route (csrc/pack.cu)
+# ---------------------------------------------------------------------------
+
+# csrc/pack.cu's table layout (int32): the first index of each section
+_TAB_GMAX, _TAB_NB, _TAB_NSLOTS, _TAB_NG, _TAB_SPAN = 4, 8, 16, 24, 48
+_TAB_CRC, _TAB_MULT1, _TAB_MULT2, _TAB_SLOTS = 72, 328, 584, 840
+MAX_SLOTS = 96
+_TAB_SIZE = _TAB_SLOTS + 6 * MAX_SLOTS
+# in the order csrc/pack.cu:pack_frames_layout gives them
+LAYOUT = (_TAB_GMAX, _TAB_NB, _TAB_NSLOTS, _TAB_NG, _TAB_SPAN, _TAB_CRC,
+          _TAB_MULT1, _TAB_MULT2, _TAB_SLOTS, _TAB_SIZE, MAX_SLOTS)
+# slot kinds: a constant; a constant that a reused channel omits
+# (chbwcod, gainrng); the strategy; the first exponent; the exponent
+# groups; the coarse and the fine snr offset
+K_CONST, K_COND, K_STRAT, K_EXP0, K_GROUPS, K_CSNR, K_FSNR = range(7)
+
+
+def kernel_threads(nch: int) -> int:
+    """P1's threads a CTA (csrc/pack.cu:threads_for)."""
+    return 128 if nch <= 2 else 256
+
+
+def _merged(slots):
+    """Runs of constant slots joined into slots of at most 16 bits (the
+    same bits in the same order)."""
+    out = []
+    for kind, ch, ln, v in slots:
+        v &= (1 << ln) - 1
+        if (kind == K_CONST and out and out[-1][0] == K_CONST
+                and out[-1][2] + ln <= 16):
+            _, _, l0, v0 = out[-1]
+            out[-1] = (K_CONST, 0, l0 + ln, (v0 << ln) | v)
+        else:
+            out.append((kind, ch, ln, v))
+    return out
+
+
+def schedule(cfg):
+    """Each block's side-info slots in write order (tokens' order; the
+    header leads block 0): (kind, channel, bits, value) tuples, constant
+    runs merged.  A K_COND, K_EXP0 or K_GROUPS slot is 0 bits long for a
+    reused channel; K_GROUPS is 7 bits a group of its channel's strategy;
+    the live mantissa bins follow each block's slots."""
+    nch, nf = cfg.channels, cfg.nfchans
+    lfe_ch = nf if cfg.lfe else -1
+    blocks = []
+    for blk in range(6):
+        s = [(K_CONST, 0, ln, v) for ln, v in _header_tokens(cfg)] \
+            if blk == 0 else []
+        s += [(K_CONST, 0, 1, 0)] * nf          # blksw: always 512-pt
+        s += [(K_CONST, 0, 1, 1)] * nf          # dithflag
+        s.append((K_CONST, 0, 1, 0))            # dynrnge
+        s += ([(K_CONST, 0, 1, 1), (K_CONST, 0, 1, 0)] if blk == 0
+              else [(K_CONST, 0, 1, 0)])        # cplstre (cplinu)
+        if cfg.acmod == 2:                      # rematstr (rematflg)
+            s += ([(K_CONST, 0, 1, 1)] + [(K_CONST, 0, 1, 0)] * 4
+                  if blk == 0 else [(K_CONST, 0, 1, 0)])
+        s += [(K_STRAT, c, 2, 0) for c in range(nf)]
+        if cfg.lfe:
+            s.append((K_STRAT, lfe_ch, 1, 0))
+        s += [(K_COND, c, 6, 50) for c in range(nf)]        # chbwcod
+        for ch in range(nch):
+            s += [(K_EXP0, ch, 4, 0), (K_GROUPS, ch, 0, 0)]
+            if ch != lfe_ch:
+                s.append((K_COND, ch, 2, 0))                # gainrng
+        baie = 1 if blk == 0 else 0
+        s.append((K_CONST, 0, 1, baie))
+        if baie:
+            s += [(K_CONST, 0, ln, v) for ln, v in
+                  ((2, 2), (2, 1), (2, 1), (2, 2), (3, 4))]
+        s.append((K_CONST, 0, 1, baie))         # snroffste
+        if baie:
+            s.append((K_CSNR, 0, 6, 0))
+            for _ in range(nch):
+                s += [(K_FSNR, 0, 4, 0), (K_CONST, 0, 3, 4)]  # fgaincod
+        s += [(K_CONST, 0, 1, 0)] * 2           # deltbaie, skiple
+        blocks.append(_merged(s))
+    return blocks
+
+
+def _crc_multipliers(a: int, e: int, threads: int, mult: int):
+    """Per thread of csrc/pack.cu:crc_part over bytes [a, e): mult x
+    x^(8 x the bytes after its chunk) mod the CRC polynomial."""
+    chunk = -(-(e - a) // threads)
+    out = np.zeros(256, np.int64)
+    for t in range(threads):
+        end = min(a + (t + 1) * chunk, e)
+        after = e - end if a + t * chunk < e else 0
+        out[t] = mul_poly(mult, pow_poly(2, 8 * after, CRC16_POLY),
+                          CRC16_POLY)
+    return out
+
+
+@lru_cache(maxsize=16)
+def kernel_table(cfg) -> np.ndarray:
+    """csrc/pack.cu's per-config table, int32 [_TAB_SIZE] (the layout is
+    the kernel's TAB_* constants)."""
+    nch = cfg.channels
+    nb = [int(n) for n in cfg.nb_coefs]
+    gmax = max(_ngroups(nb[0], 1), 0)
+    tab = np.zeros(_TAB_SIZE, np.int64)
+    tab[_TAB_GMAX] = gmax
+    tab[_TAB_NB:_TAB_NB + nch] = nb
+    for c in range(nch):
+        for s, gs in ((1, 1), (2, 2), (3, 4)):
+            ng = min(max(_ngroups(nb[c], gs), 0), gmax)
+            tab[_TAB_NG + 4 * c + s] = ng
+            # the exponent bytes the group walk reads, from byte 0
+            tab[_TAB_SPAN + 4 * c + s] = min(256,
+                                             max(1, 2 + gs * (3 * ng - 1)))
+    tab[_TAB_CRC:_TAB_CRC + 256] = crc_table()
+    total = cfg.frame_size * 2
+    fs58 = (cfg.frame_size >> 1) + (cfg.frame_size >> 3)
+    threads = kernel_threads(nch)
+    crc_inv = pow_poly(CRC16_POLY >> 1, 16 * fs58 - 16, CRC16_POLY)
+    tab[_TAB_MULT1:_TAB_MULT1 + 256] = _crc_multipliers(4, 2 * fs58,
+                                                        threads, crc_inv)
+    tab[_TAB_MULT2:_TAB_MULT2 + 256] = _crc_multipliers(2 * fs58, total - 2,
+                                                        threads, 1)
+    for blk, slots in enumerate(schedule(cfg)):
+        if len(slots) > MAX_SLOTS:
+            raise ValueError(f"block {blk} has {len(slots)} slots, the "
+                             f"kernel takes {MAX_SLOTS}")
+        tab[_TAB_NSLOTS + blk] = len(slots)
+        base = _TAB_SLOTS + blk * MAX_SLOTS
+        for i, (kind, ch, ln, v) in enumerate(slots):
+            assert ln <= 16 and 0 <= v < 1 << 16 and ch < 8
+            tab[base + i] = v | ln << 16 | ch << 21 | kind << 24
+    return tab.astype(np.int32)
+
+
+@lru_cache(maxsize=16)
+def _kernel_table_on(cfg, device: torch.device):
+    return torch.from_numpy(kernel_table(cfg)).to(device)
+
+
+def _bind(lib):
+    p, i = C.c_void_p, C.c_int
+    lib.pack_frames_launch.restype = i
+    lib.pack_frames_launch.argtypes = [p, p, p, p, p, p, p, i, i, p,
+                                       C.c_longlong, i, p]
+    lib.pack_frames_threads.restype = i
+    lib.pack_frames_threads.argtypes = [i]
+    lib.pack_frames_layout.restype = i
+    lib.pack_frames_layout.argtypes = [p]
+    lib.pack_frames_error_string.restype = C.c_char_p
+    lib.pack_frames_error_string.argtypes = [i]
+
+
+def _lib():
+    lib = _cuda.load("pack", _bind)
+    layout = (C.c_int * 16)()
+    n = lib.pack_frames_layout(layout)
+    if (tuple(layout[:n]) != LAYOUT
+            or any(lib.pack_frames_threads(n) != kernel_threads(n)
+                   for n in range(1, 7))):
+        raise RuntimeError("csrc/pack.cu's table layout or threads differ "
+                           "from ops/pack_device.py's")
+    return lib
+
+
+def _check(cfg, bap, qmant, enc_exp, strat, csnr, fsnr):
+    """The kernel's contract, on both devices: -> (lead shape, frames)."""
+    dev = bap.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"pack_frames_device runs on cuda or cpu, not {dev}")
+    named = (("bap", bap, torch.int8), ("qmant", qmant, torch.int32),
+             ("enc_exp", enc_exp, torch.uint8), ("strat", strat, torch.int32),
+             ("csnr", csnr, torch.int32), ("fsnr", fsnr, torch.int32))
+    for name, t, dtype in named:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, bap on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    nch = cfg.channels
+    if bap.dim() < 3 or tuple(bap.shape[-3:]) != (6, nch, 256):
+        raise ValueError(f"bap has shape {tuple(bap.shape)}, expected "
+                         f"[..., 6, {nch}, 256]")
+    lead = tuple(bap.shape[:-3])
+    for name, t, shape in (("qmant", qmant, bap.shape),
+                           ("enc_exp", enc_exp, bap.shape),
+                           ("strat", strat, lead + (6, nch)),
+                           ("csnr", csnr, lead), ("fsnr", fsnr, lead)):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+    for name, t in (("bap", bap), ("qmant", qmant), ("enc_exp", enc_exp)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return lead, int(np.prod(lead)) if lead else 1
+
+
+def pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
+                       clock=None):
+    """Frame fields -> finished frames, on their device.
+
+      bap     [..., 6, nch, 256] int8 (classes 0..15 on the live bins)
+      qmant   [..., 6, nch, 256] int32
+      enc_exp [..., 6, nch, 256] uint8
+      strat   [..., 6, nch]      int32 (0 reuse, 1 D15, 2 D25, 3 D45)
+      csnr    [...]              int32
+      fsnr    [...]              int32
+      ->      [..., frame_size*2] uint8
+
+    Every tensor contiguous and on one device, the first three 16-byte
+    aligned.  CUDA tensors launch P1 once; CPU ones run pack_frames_ref;
+    no frames, nothing.  A frame whose tokens overrun it (the encoder's
+    ok false) holds the first total - 2 bytes of its bit stream and CRC2,
+    as the plain version and the native packer write it.
+
+    clock: an object with mark(name), called after the pack ("pack") or,
+    on the CPU, after each of the plain version's stages."""
+    global launches_pack
+    lead, n = _check(cfg, bap, qmant, enc_exp, strat, csnr, fsnr)
+    dev = bap.device
+    total = cfg.frame_size * 2
+    if n == 0:
+        return torch.empty(lead + (total,), dtype=torch.uint8, device=dev)
+    if dev.type == "cpu":
+        return pack_frames_ref(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
+                               clock)
+    out = torch.empty(lead + (total,), dtype=torch.uint8, device=dev)
+    lib = _lib()
+    tab = _kernel_table_on(cfg, dev)
+    fs58 = (cfg.frame_size >> 1) + (cfg.frame_size >> 3)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.pack_frames_launch(
+            bap.data_ptr(), qmant.data_ptr(), enc_exp.data_ptr(),
+            strat.data_ptr(), csnr.data_ptr(), fsnr.data_ptr(),
+            tab.data_ptr(), total, fs58, out.data_ptr(), n, cfg.channels,
+            stream)
+    if rc != 0:
+        raise RuntimeError("pack_frames (P1) kernel launch failed: "
+                           + lib.pack_frames_error_string(rc).decode())
+    launches_pack += 1
+    if clock is not None:
+        clock.mark("pack")
+    return out

@@ -128,6 +128,23 @@ Phases, each fatal on failure (nothing is caught and passed over):
                its plain version bitwise; its time at each config's core
                call beside its byte bound, its design's floor and the
                plain version
+ 17b. P1       the device frame packer (P1, csrc/pack.cu) equal to its
+               plain version (pack_frames_ref, the eager int64 token
+               stream) and to the native C++ packer BYTE FOR BYTE on
+               crafted fields (P1_CONFIGS: 1 to 6 channels, the LFE, 32,
+               44.1, 48 and 24 kHz, frames of 256 to 3,840 bytes; x
+               P1_KINDS: every class and strategy, grouped classes only
+               (groups across channels, incomplete last groups), D15, D25
+               and D45 throughout, reused exponents, a frame filled to its
+               last payload bit, frames that overrun), each launched
+               twice; [F, B] leading axes; no frames (no launch);
+               refusals.  In the encode phases below: P1 once a core call
+               with pack="device" and never with "native"; every P1 call
+               of one device-alone run of configs 3 and 4 and of the
+               transcode's first chunk held to its plain version byte for
+               byte; its time at each config's call beside its byte bound
+               (pack_least_bytes, from that call's own fields) and the
+               plain version
  18. enc digest the encoder's integer primitives (window + normalize, MDCT,
                exponents, quantize at shift counts -40..60, av_log2) on
                edge cases, card equal to CPU bitwise; then
@@ -141,7 +158,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                on every frame; x-realtime end to end (int16 PCM on the host
                in, bytes on the host out) and on the device alone; peak
                memory; each stage's CUDA-event time, ATen op count,
-               least bytes and peak allocated memory; the core's frame
+               least bytes and peak allocated memory (the pack one "pack"
+               row, P1); the core's frame
                grouping both ways; the host packer alone
  20. single enc Encoder over 512 frames (x-realtime); a 17-frame call
                (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
@@ -151,8 +169,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                chunks x 4 frames, reference mode, parser "native" (f32 and
                compact) and "raw", and 256 coupled raw lanes: B1F (and on
                the raw paths K2 and K4, on the coupled one K3) on every
-               chunk, K1 and B1 never; every B1F and gather call held to
-               its plain version; the first 8 lanes' digest equal to the
+               chunk, K1 and B1 never, E1 and P1 on every chunk; every
+               B1F and gather call held to its plain version; the first 8
+               lanes' digest equal to the
                JAX Transcoder's (TC_DIGEST); raw == native; the f32 bytes
                of 64 lanes == BatchedDecoder int16 -> BatchedEncoder;
                x-realtime of step_frames and of dispatch_frames/finish
@@ -338,7 +357,8 @@ def phase_build():
             "fused_steady (nvcc)": lambda: _cuda.build("fused_steady"),
             "bitgather (nvcc)": lambda: _cuda.build("bitgather"),
             "imdct_exact (nvcc)": lambda: _cuda.build("imdct_exact"),
-            "snr_search (nvcc)": lambda: _cuda.build("snr_search")}
+            "snr_search (nvcc)": lambda: _cuda.build("snr_search"),
+            "pack (nvcc)": lambda: _cuda.build("pack")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -1862,10 +1882,11 @@ def kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops import pack_device as PD
     from ac3acm_tpu_torch.ops import snr_search as SS
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
             "B1Q": IE.launches_fixed, "B1QS": FC.launches_fixed_chain,
-            "E1": SS.launches_snr_search,
+            "E1": SS.launches_snr_search, "P1": PD.launches_pack,
             **{k: v for k, v in gather_counts().items()}}
 
 
@@ -1874,9 +1895,11 @@ def zero_kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady as FS
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
+    from ac3acm_tpu_torch.ops import pack_device as PD
     from ac3acm_tpu_torch.ops import snr_search as SS
     IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
     FC.launches_fixed_chain = SS.launches_snr_search = 0
+    PD.launches_pack = 0
     zero_gather_counts()
 
 
@@ -2253,7 +2276,7 @@ TC_DIGEST_LANES = 8
 ENC_STAGES = ("block layout", "window + normalize", "MDCT",
               "exponents + strategy + coding",
               "masking curve + SNR search + bap", "quantize", "csnr carry",
-              "pack: tokens", "pack: offsets", "pack: deposit", "pack: CRC")
+              "pack")
 
 
 def mixed_pcm(nch, nframes, seed, lanes=1):
@@ -2380,13 +2403,15 @@ def e1_least_bytes(rows, nb):
     return rows * (2 * live + 3 * 4) + len(nb) * 5 + 50 * 4
 
 
-def stage_least_bytes(rows, nb, frame_bytes):
+def stage_least_bytes(rows, nb, pack_bytes):
     """Least bytes each encoder stage must move for `rows` lane-frames
     with live bins nb [ch]: its inputs read once and its outputs written
     once at the narrowest type that holds them, per (block, channel):
     samples int16, a coefficient int32 (up to 2^17), an exponent or bap
     class a byte, a quantized code int16 (up to 16 bits); the fused
-    curve + search + bap as e1_least_bytes prices it."""
+    curve + search + bap as e1_least_bytes prices it; the pack
+    pack_bytes, pack_least_bytes (P1's own bound) summed over the run's
+    pack calls."""
     bc = rows * 6 * len(nb)
     s16, c32, b8, q16 = 256 * 2, 256 * 4, 256, 256 * 2
     return {
@@ -2397,10 +2422,7 @@ def stage_least_bytes(rows, nb, frame_bytes):
         "masking curve + SNR search + bap": e1_least_bytes(rows, nb),
         "quantize": bc * (c32 + b8 + b8 + q16),
         "csnr carry": 0,
-        "pack: tokens": bc * (b8 + q16 + b8),
-        "pack: offsets": 0,
-        "pack: deposit": rows * frame_bytes,
-        "pack: CRC": 2 * rows * frame_bytes,
+        "pack": pack_bytes,
     }
 
 
@@ -2757,6 +2779,313 @@ def phase_check_e1(dev):
     return worst
 
 
+# P1 (csrc/pack.cu, the device frame packer) on crafted fields: the
+# configs (channels, sample rate, kbit/s): 1 to 6 channels, the LFE, the
+# three sample rates, a half rate, the largest frame (3,840 bytes); the
+# field kinds each config's rows get (p1_fields), P1_ROWS_A_KIND rows a
+# kind
+P1_CONFIGS = ((1, 48000, 64), (1, 32000, 96), (2, 48000, 192),
+              (2, 44100, 128), (3, 44100, 256), (4, 48000, 384),
+              (5, 32000, 448), (6, 48000, 640), (6, 32000, 640),
+              (2, 24000, 96))
+P1_KINDS = ("random", "grouped", "d15", "d25", "d45", "reuse", "fill",
+            "overrun")
+P1_ROWS_A_KIND = 3
+# pack_frames_device's arguments after cfg, as the encoder's fields name
+# them
+P1_KEYS = ("bap", "qmant", "enc_exp", "strat", "csnroffst", "fsnroffst")
+# the bits of each ungrouped class, and the codes a grouped member takes
+P1_CLASS_BITS = {3: 3, **{c: c - 1 for c in range(5, 14)}, 14: 14, 15: 16}
+P1_GROUP_LEVELS = {1: 3, 2: 5, 4: 11}
+
+
+def p1_bits(cfg, f):
+    """Each row's bit count (the plain version's token lengths summed)."""
+    from ac3acm_tpu_torch.ops.pack_device import tokens
+    lens, _ = tokens(cfg, *(torch.from_numpy(f[k]) for k in P1_KEYS))
+    return lens.sum(dim=1).numpy()
+
+
+def p1_fields(cfg, kind, rng, rows=P1_ROWS_A_KIND):
+    """Crafted frame fields of one kind, numpy, keyed as P1_KEYS: dead bins
+    (past nb) any byte or word; on the live bins exponents in [0, 24], a
+    grouped class's codes in its range, an ungrouped class's any int32
+    (masked to its bits).  Kinds: "random" every class and strategy (the
+    LFE's D15 or reuse; block 0 never reused) and offsets any int32;
+    "grouped" only classes 0, 1, 2 and 4 (groups straddle channels, a
+    block's last group is incomplete); "d15", "d25", "d45" that strategy
+    on every full-band channel of every block; "reuse" blocks 1-5 reused;
+    "fill" a frame filled to its last payload bit; "overrun" a frame past
+    its size.  All but "overrun" fit their frame."""
+    nch, total = cfg.channels, cfg.frame_size * 2
+    nb = np.asarray(cfg.nb_coefs)
+    shape = (rows, 6, nch, 256)
+    live = np.broadcast_to(np.arange(256) < nb[:, None], shape)
+    cap = 8 * (total - 2)
+    if kind == "grouped":
+        cls = rng.choice([0, 1, 2, 4], shape, p=[0.1, 0.3, 0.3, 0.3])
+    else:
+        dense = {"overrun": 1.0, "fill": 0.15}.get(
+            kind, min(1.0, 0.6 * cap / (7.5 * live[0].sum())))
+        cls = np.where(rng.random(shape) < dense,
+                       rng.integers(1, 16, shape), 0)
+    if kind == "overrun":
+        cls = np.where(rng.random(shape) < 0.9, 15, cls)
+    strat = rng.integers(0, 4, (rows, 6, nch))
+    strat[:, 0] = rng.integers(1, 4, (rows, nch))
+    if kind in ("d15", "d25", "d45"):
+        strat[:] = {"d15": 1, "d25": 2, "d45": 3}[kind]
+    if kind == "reuse":
+        strat[:, 1:] = 0
+    if cfg.lfe:
+        strat[..., -1] = np.minimum(strat[..., -1], 1)
+        strat[:, 0, -1] = 1
+    f = dict(strat=strat.astype(np.int32),
+             csnroffst=rng.integers(0, 64, rows).astype(np.int32),
+             fsnroffst=rng.integers(0, 16, rows).astype(np.int32))
+    if kind == "random":
+        f["csnroffst"] = rng.integers(-2**31, 2**31, rows).astype(np.int32)
+        f["fsnroffst"] = rng.integers(-2**31, 2**31, rows).astype(np.int32)
+
+    def make(cls):
+        code = rng.integers(-2**31, 2**31, shape)
+        for c, levels in P1_GROUP_LEVELS.items():
+            code = np.where(cls == c, rng.integers(0, levels, shape), code)
+        f["bap"] = np.where(live, cls, rng.integers(-128, 128, shape)
+                            ).astype(np.int8)
+        f["qmant"] = np.where(live, code, rng.integers(-2**31, 2**31, shape)
+                              ).astype(np.int32)
+
+    f["enc_exp"] = np.where(live, rng.integers(0, 25, shape),
+                            rng.integers(0, 256, shape)).astype(np.uint8)
+    make(np.zeros_like(cls))
+    side = p1_bits(cfg, f)
+    for blk in range(5, 0, -1):
+        # the side info of a low rate's frame leaves room for mantissas
+        # only with reused exponents: the last blocks first
+        heavy = side > cap // 2
+        f["strat"][heavy, blk] = 0
+        side = p1_bits(cfg, f)
+    make(cls)
+    bits = p1_bits(cfg, f)
+    while kind != "overrun" and (bits > cap).any():
+        # thin the rows that overrun: drop a fifth of their classes
+        over = (bits > cap)[:, None, None, None]
+        cls = np.where(over & (rng.random(shape) < 0.2), 0, cls)
+        make(cls)
+        bits = p1_bits(cfg, f)
+    if kind == "fill":
+        for r in range(rows):
+            need = cap - int(bits[r])
+            free = [tuple(i) for i in np.argwhere(live[r] & (cls[r] == 0))]
+            rng.shuffle(free)
+            put = []
+            while need:
+                if need in (1, 2):
+                    # one 16-bit class back to 0 makes it 17 or 18
+                    cls[(r,) + put.pop()] = 0
+                    need += 16
+                    continue
+                if need >= 19 or need == 16:
+                    c = 15
+                elif need in (13, 15, 17):
+                    c = 3
+                elif need == 18:
+                    c = 5
+                else:
+                    c = next(k for k, b in P1_CLASS_BITS.items()
+                             if b == need)
+                at = free.pop()
+                cls[(r,) + at] = c
+                if c == 15:
+                    put.append(at)
+                need -= P1_CLASS_BITS[c]
+        make(cls)
+        bits = p1_bits(cfg, f)
+        assert (bits == cap).all(), (bits, cap)
+    assert (bits > cap).all() if kind == "overrun" else (bits <= cap).all()
+    return f
+
+
+def p1_case(config, seed):
+    """Every kind of p1_fields for config (channels, rate, kbit/s), rows
+    stacked in P1_KINDS order: -> (cfg, fields)."""
+    from ac3acm_tpu_torch.models.encoder import make_config
+    nch, freq, kbps = config
+    cfg = make_config(freq, kbps * 1000, nch)
+    rng = np.random.default_rng(seed)
+    parts = [p1_fields(cfg, kind, rng) for kind in P1_KINDS]
+    return cfg, {k: np.concatenate([p[k] for p in parts]) for k in P1_KEYS}
+
+
+# P1's least integer work: a live bin's class to its length, the mask,
+# the offset's add, the shift and the or (P1_BIN_OPS); a CRC step a frame
+# byte (P1_CRC_OPS: the table's read, the xor, the shift)
+P1_BIN_OPS, P1_CRC_OPS = 5, 3
+
+
+def pack_least_bytes(cfg, bap, strat):
+    """The least bytes of the pack's function (P1's bound and the stage
+    table's "pack" row) on one call's own fields (bap [..., 6, ch, 256],
+    strat [..., 6, ch], any device): in, a live bin's class a byte and,
+    where the class is not 0, its code at 16 bits (its narrowest; class 0
+    carries no code); the exponents each (block, channel) codes, a byte
+    each: 1 + 3 ng for its strategy's ng groups (a D15, D25 or D45 group
+    codes three), none where it reuses; the strategies (int32) and the two
+    offsets (int32); out, the frame's bytes."""
+    from ac3acm_tpu_torch.ops.pack_device import _ngroups
+    nch, dev = cfg.channels, bap.device
+    nb = [max(0, min(int(n), 256)) for n in cfg.nb_coefs]
+    bap = bap.reshape(-1, 6, nch, 256)
+    rows = bap.shape[0]
+    live = (torch.arange(256, device=dev)
+            < torch.tensor(nb, device=dev)[:, None])
+    coded = int(((bap != 0) & live).sum())
+    ng = torch.tensor([[0] + [max(_ngroups(n, gs), 0) for gs in (1, 2, 4)]
+                       for n in nb], device=dev)
+    s = strat.reshape(-1, 6, nch).long()
+    exps = int(torch.where(s > 0, 1 + 3 * ng[torch.arange(nch, device=dev),
+                                             s], 0).sum())
+    fixed = 6 * sum(nb) + 6 * nch * 4 + 8 + cfg.frame_size * 2
+    return rows * fixed + 2 * coded + exps
+
+
+def p1_bound(cfg, bap, strat):
+    """P1 on one call's fields: (bound_ms, "bytes" | "operations"):
+    pack_least_bytes at the card's memory rate against P1_BIN_OPS a live
+    bin and P1_CRC_OPS a frame byte at its issue rate."""
+    rows = bap.numel() // (6 * cfg.channels * 256)
+    total = cfg.frame_size * 2
+    live = 6 * sum(int(n) for n in cfg.nb_coefs)
+    t_bytes = pack_least_bytes(cfg, bap, strat) / PEAK_BYTES * 1e3
+    t_ops = rows * (live * P1_BIN_OPS + total * P1_CRC_OPS) / PEAK_ISSUE * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def p1_same(call):
+    """One recorded pack_frames_device call (cfg, its six fields, then its
+    frames) against pack_frames_ref on the same inputs and device, byte
+    for byte -> 0.0."""
+    from ac3acm_tpu_torch.ops.pack_device import pack_frames_ref
+    cfg, *args, got = call
+    want = pack_frames_ref(cfg, *args)
+    if not torch.equal(got, want):
+        bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
+        raise AssertionError(f"P1 != pack_frames_ref on "
+                             f"{int(bad.sum())} of {bad.numel()} frames, "
+                             f"first {int(bad.nonzero()[0])}")
+    return 0.0
+
+
+@contextlib.contextmanager
+def p1_watch(record=False):
+    """While active: the pack_frames_device calls (the encoder imports it
+    from its module at each call) and P1's launches; with record, each
+    call's cfg, fields and frames, cloned.  Yields a dict that holds them
+    (launches when the block ends)."""
+    from ac3acm_tpu_torch.ops import pack_device as PD
+    w = dict(n=0, calls=[])
+    orig = PD.pack_frames_device
+
+    def pack(*a, **k):
+        out = orig(*a, **k)
+        w["n"] += 1
+        if record:
+            w["calls"].append((a[0],) + tuple(t.clone() for t in a[1:7])
+                              + (out.clone(),))
+        return out
+
+    PD.pack_frames_device = pack
+    before = PD.launches_pack
+    try:
+        yield w
+    finally:
+        PD.pack_frames_device = orig
+        w["launches"] = PD.launches_pack - before
+
+
+def p1_frames(call):
+    """The frames of one recorded pack_frames_device call (every leading
+    axis of its fields)."""
+    cfg, bap = call[0], call[1]
+    return bap.numel() // (6 * cfg.channels * 256)
+
+
+def p1_times(call):
+    """P1 and its plain version on one recorded call's inputs: ms (device
+    time, median of 7 after 2 warm-ups), plain_ms (the eager chain), the
+    bound.  No PyTorch call packs frames: library_ms is null."""
+    from ac3acm_tpu_torch.ops import pack_device as PD
+    cfg, *args, _ = call
+    ms = device_ms(lambda: PD.pack_frames_device(cfg, *args))
+    plain_ms = cuda_ms(lambda: PD.pack_frames_ref(cfg, *args), warmup=1,
+                       reps=3)
+    bound_ms, bound_by = p1_bound(cfg, args[0], args[3])
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_check_p1(dev):
+    """P1 (csrc/pack.cu) against its plain version and the native packer
+    BYTE FOR BYTE on the crafted cases (every config of P1_CONFIGS x every
+    kind of P1_KINDS, the overrun frames included), each launched twice
+    (the same bytes); leading axes [2, n/2]; a call of no frames (no
+    launch); bad inputs raise.  -> max |diff| (0)."""
+    from ac3acm_tpu_torch.host import pack as PK
+    from ac3acm_tpu_torch.ops import pack_device as PD
+    frames = 0
+    for i, config in enumerate(P1_CONFIGS):
+        cfg, f = p1_case(config, 1500 + i)
+        args = [torch.from_numpy(f[k]).to(dev) for k in P1_KEYS]
+        before = PD.launches_pack
+        out = PD.pack_frames_device(cfg, *args)
+        again = PD.pack_frames_device(cfg, *args)
+        assert PD.launches_pack == before + 2, config
+        assert torch.equal(out, again), config
+        p1_same((cfg, *args, out))
+        native = PK.pack_frames_native(cfg, f)
+        assert [r.tobytes() for r in out.cpu().numpy()] == native, config
+        frames += out.shape[0]
+    two = PD.pack_frames_device(cfg, *(a.reshape((2, -1) + a.shape[1:])
+                                       for a in args))
+    assert torch.equal(two.reshape(out.shape), out)
+    before = PD.launches_pack
+    none = PD.pack_frames_device(cfg, *(a[:0] for a in args))
+    assert none.shape == (0, cfg.frame_size * 2)
+    assert PD.launches_pack == before, "a call of no frames launched"
+    bap, qmant, exps, strat, csnr, fsnr = args
+    flat = torch.zeros(exps.numel() + 16, dtype=torch.uint8, device=dev)
+    for i, bad, err in (
+            (0, bap.to(torch.int32), TypeError),
+            (1, qmant.to(torch.int64), TypeError),
+            (2, exps.to(torch.int32), TypeError),
+            (3, strat.to(torch.int64), TypeError),
+            (4, csnr.to(torch.int64), TypeError),
+            (5, fsnr.to(torch.int16), TypeError),
+            (0, bap.transpose(0, 1).contiguous().transpose(0, 1), ValueError),
+            (2, flat[1:1 + exps.numel()].view(exps.shape), ValueError),
+            (1, qmant[..., :255].contiguous(), ValueError),
+            (3, strat[:-1], ValueError),
+            (4, csnr[:-1], ValueError),
+            (2, exps.cpu(), ValueError)):
+        bad_args = list(args)
+        bad_args[i] = bad
+        try:
+            PD.pack_frames_device(cfg, *bad_args)
+            raise AssertionError(f"bad argument {i} was accepted")
+        except err:
+            pass
+    log(f"check pack_frames (P1): {len(P1_CONFIGS)} configs (1-6 channels, "
+        f"32 / 44.1 / 48 / 24 kHz, frames of 256-3,840 bytes) x "
+        f"{len(P1_KINDS)} field kinds {P1_KINDS} x {P1_ROWS_A_KIND} frames "
+        f"= {frames} frames, each launched twice (the same bytes), equal "
+        f"to pack_frames_ref and to the native packer byte for byte "
+        f"(overrun frames too); [2, n/2] leading axes; no frames: no "
+        f"launch; a wrong dtype (each of the six), a strided, an "
+        f"unaligned, a narrow, a short, a CPU input raise")
+    return 0.0
+
+
 def enc_extremes(seed=0):
     """Integer edge cases of the encoder's filterbank and quantizer, as
     numpy inputs: block pairs (full-scale +-32767 / -32768 square waves,
@@ -2879,14 +3208,17 @@ def phase_enc_main():
     """Configs 3 and 4: device pack == native pack on every frame;
     x-realtime end to end and on the device alone; peak memory; the stage
     table; the core's frame grouping both ways.  E1 once a core call in the
-    end-to-end runs and the eager rate model never; every E1 call of one
-    device-alone run held to its plain version; E1's times at each core
-    call's shape.  -> ({label: numbers}, E1's launches in the end-to-end
-    runs, its worst |diff|, {label: E1's times})."""
+    end-to-end runs and the eager rate model never; P1 once a core call
+    with pack="device", never with "native"; every E1 and P1 call of one
+    device-alone run held to its plain version; E1's and P1's times at
+    each core call's shape.  -> ({label: numbers}, E1's launches in the
+    end-to-end runs, its worst |diff|, {label: E1's times}, P1's launches
+    there, {label: P1's times})."""
     from ac3acm_tpu_torch.host import pack as PK
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
     report, e1_times_by, e1_launches, e1_err = {}, {}, 0, 0.0
+    p1_times_by, p1_launches = {}, 0
     for label, B, F, nch, kbps in ENC_MAIN:
         pcm = enc_bench_pcm(nch, F, B)
         audio_s = B * F * 1536 / 48000.0
@@ -2904,12 +3236,16 @@ def phase_enc_main():
             dts[pack] = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
             e1_launches += e1_assert(watch, f"encode {label} pack={pack}")
+            p1 = kernel_counts()["P1"]
+            assert p1 == (watch["core"] if pack == "device" else 0), (
+                label, pack, p1, watch["core"])
+            p1_launches += p1
             log(f"encode {label} pack={pack}: {B} lanes x {F} frames, "
                 f"{nch} ch {kbps} kbit/s, int16 PCM on the host -> bytes on "
                 f"the host: {dts[pack]:.3f} s -> {audio_s / dts[pack]:.0f}x "
                 f"realtime; peak {peak / 1e9:.2f} GB; E1 launches "
-                f"{watch['launches']} for {watch['core']} core calls, "
-                f"eager allocator calls in the core "
+                f"{watch['launches']} for {watch['core']} core calls, P1 "
+                f"launches {p1}, eager allocator calls in the core "
                 f"{sum(watch[k] for k in E1_EAGER)}")
             assert peak <= PEAK_MEM_LIMIT
         same = outs["device"] == outs["native"]
@@ -2929,15 +3265,15 @@ def phase_enc_main():
             enc.csnr.fill_(40)
             return encode_resident(enc, x)
 
-        with e1_watch(record=True) as watch:
+        with e1_watch(record=True) as watch, p1_watch(record=True) as pw:
             ok, fr = dev_run()
         e1_assert(watch, f"encode {label} device alone")
+        assert pw["launches"] == pw["n"] == watch["core"], (label, pw["n"])
         assert bool(ok.all())
         want = np.stack([np.frombuffer(o, np.uint8).reshape(F, -1)
                          for o in outs["device"]], 1)
         assert np.array_equal(fr.cpu().numpy(), want)
-        for call in watch["calls"]:
-            e1_err = max(e1_err, e1_same(call))
+        e1_err = max([e1_err] + [e1_same(c) for c in watch["calls"]])
         e1_times_by[label] = dict(e1_times(watch["calls"][0]),
                                   rows=watch["calls"][0][0].shape[0])
         t = e1_times_by[label]
@@ -2953,7 +3289,22 @@ def phase_enc_main():
             f"{t['design_floor_ms']:.4f} ms "
             f"({t['design_floor_ms'] / t['ms']:.2%}); library_ms null (no "
             f"PyTorch call computes the curve and the search)")
-        del watch
+        assert not any(p1_same(c) for c in pw["calls"])
+        p1_times_by[label] = dict(p1_times(pw["calls"][0]),
+                                  rows=p1_frames(pw["calls"][0]))
+        t = p1_times_by[label]
+        log(f"encode {label}: all {len(pw['calls'])} P1 calls of a "
+            f"device-alone run equal to pack_frames_ref byte for byte; time "
+            f"pack_frames (P1) at a core call [{t['rows']}, 6, {nch}, 256] "
+            f"-> [{t['rows']}, {cfg.frame_size * 2}]: kernel_ms "
+            f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+            f"{t['bound_ms']:.4f} -> {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time); "
+            f"library_ms null (no PyTorch call packs frames)")
+        # the stage run below packs these same fields
+        pack_least = sum(pack_least_bytes(c[0], c[1], c[4])
+                         for c in pw["calls"])
+        del watch, pw
         dev_ms = cuda_ms(dev_run, warmup=1, reps=3)
         groups = {}
         for rows in sorted({B, PE.CORE_ROWS, B * F}):
@@ -2984,7 +3335,7 @@ def phase_enc_main():
         enc.csnr.fill_(40)
         with ops.mode:
             encode_resident(enc, x, ops)
-        least = stage_least_bytes(B * F, cfg.nb_coefs, cfg.frame_size * 2)
+        least = stage_least_bytes(B * F, cfg.nb_coefs, pack_least)
         total_ms = sum(ms.values())
         for name in ENC_STAGES:
             b_ms = least[name] / PEAK_BYTES * 1e3
@@ -3012,7 +3363,7 @@ def phase_enc_main():
                              device=audio_s / (dev_ms * 1e-3))
         del x, enc, outs, res, host, fr
         torch.cuda.empty_cache()
-    return report, e1_launches, e1_err, e1_times_by
+    return report, e1_launches, e1_err, e1_times_by, p1_launches, p1_times_by
 
 
 def phase_enc_single():
@@ -3078,13 +3429,14 @@ def phase_transcode():
     audio_s = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
     launches, worst, rt, errs, wires = {}, {}, {}, {}, {}
     outs = {}
-    # E1's calls of the first native f32 chunk, recorded (inputs and
-    # outputs cloned) in an untimed pass of their own
-    with e1_watch(record=True) as w:
+    # E1's and P1's calls of the first native f32 chunk, recorded (inputs
+    # and outputs cloned) in an untimed pass of their own
+    with e1_watch(record=True) as w, p1_watch(record=True) as pw:
         Transcoder(TC_BATCH, 192000, 2).step_frames(chunks[0],
                                                     TC_CHUNK_FRAMES)
     e1_assert(w, "transcode native f32, recorded")
-    e1_calls = w["calls"]
+    assert pw["launches"] == pw["n"] == w["core"], (pw["n"], w["core"])
+    e1_calls, p1_calls = w["calls"], pw["calls"]
     for tag, kw, lanes, want in (
             ("native f32", {}, chunks, ("B1F",)),
             ("native compact", dict(compact_h2d=True), chunks, ("B1F",)),
@@ -3119,7 +3471,8 @@ def phase_transcode():
         counts = kernel_counts()
         outs[tag] = got
         for c in per_chunk:
-            assert all(c[k] >= 1 for k in want + ("E1",)), (tag, per_chunk)
+            assert all(c[k] >= 1 for k in want + ("E1", "P1")), (tag,
+                                                                 per_chunk)
             assert c["K1"] == 0 and c["B1"] == 0, (tag, per_chunk)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -3136,9 +3489,11 @@ def phase_transcode():
     for k, v in errs.items():
         worst[k] = max(worst.get(k, 0.0), v)
     worst["E1"] = max(e1_same(call) for call in e1_calls)
+    worst["P1"] = max(p1_same(call) for call in p1_calls)
     log(f"transcode: the first native f32 chunk's {len(e1_calls)} E1 calls "
-        f"equal to the plain version bitwise (M, fstar, bap)")
-    del e1_calls
+        f"equal to the plain version bitwise (M, fstar, bap), its "
+        f"{len(p1_calls)} P1 calls to pack_frames_ref byte for byte")
+    del e1_calls, p1_calls
     dig = tc_digest(outs["native f32"])
     same_raw = outs["raw"] == outs["native f32"]
     ndiff = sum(a != b for a, b in zip(outs["native compact"],
@@ -4114,7 +4469,7 @@ def phase_mesh():
         lambda m: mesh_transcode(chunks, m), mesh, "transcode")
     for c in rec[1]:
         assert c["B1F"] >= data and c["K1"] == 0 and c["B1"] == 0, rec[1]
-        assert c["E1"] >= data, rec[1]
+        assert c["E1"] >= data and c["P1"] >= data, rec[1]
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     same = rec[0] == one[0] and timed[0] == one[0]
@@ -4196,6 +4551,7 @@ def main():
     b1qs_err = phase_check_b1qs(dev)
     b1qs_times = phase_times_b1qs(dev)
     e1_err = phase_check_e1(dev)
+    p1_err = phase_check_p1(dev)
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
         torch.cuda.empty_cache()
@@ -4226,7 +4582,8 @@ def main():
                     for k, v in phase_raw_py().items()})
     phase_enc_extremes()
     phase_enc_digests()
-    _, e1_launches, e1_main_err, e1_times_by = phase_enc_main()
+    (_, e1_launches, e1_main_err, e1_times_by, p1_launches,
+     p1_times_by) = phase_enc_main()
     _, e1_single = phase_enc_single()
     torch.cuda.empty_cache()
     tc_launches, tc_errs, _ = phase_transcode()
@@ -4236,6 +4593,10 @@ def main():
         f"{tc_launches['E1']}")
     e1_launches += e1_single + tc_launches["E1"]
     e1_err = max(e1_err, e1_main_err, tc_errs.pop("E1"))
+    log(f"P1 launches: configs 3 and 4 (end to end, pack='device') "
+        f"{p1_launches}, transcode {tc_launches['P1']}")
+    p1_launches += tc_launches["P1"]
+    p1_err = max(p1_err, tc_errs.pop("P1"))
     for entry, _, _ in GATHER_KERNELS:
         raw_launches[entry] += tc_launches[entry]
     py_errs.update({k: max(v, py_errs.get(k, 0.0))
@@ -4244,6 +4605,7 @@ def main():
     mesh_launches, mesh_errs = phase_mesh()
     launches += mesh_launches["K1"]
     e1_launches += mesh_launches["E1"]
+    p1_launches += mesh_launches["P1"]
     b1f_launches += mesh_launches["B1F"]
     b1_launches += mesh_launches["B1"]
     for entry, _, _ in GATHER_KERNELS:
@@ -4315,6 +4677,15 @@ def main():
                  "ac3acm_tpu/ops/alloc.py:81,120,202,213,285 (XLA; no "
                  "pallas_call)",
         launches=e1_launches, max_abs_err=e1_err, **e1))
+    p1 = dict(p1_times_by["config 3"])
+    p1.update({f"{k}_51": v for k, v in p1_times_by["config 4"].items()
+               if k in ("ms", "plain_ms", "bound_ms")})
+    p1.pop("rows")
+    kernels.append(dict(
+        name="pack (P1)", route="cuda",
+        source="ac3acm_tpu_torch/csrc/pack.cu",
+        replaces="ac3acm_tpu/ops/pack_device.py:361 (XLA; no pallas_call)",
+        launches=p1_launches, max_abs_err=p1_err, **p1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
