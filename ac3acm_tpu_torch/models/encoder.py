@@ -5,17 +5,17 @@ ac3enc.cpp), batched over streams:
 
   * the six blocks x channels x streams window, normalize and MDCT in one
     pass (ops.mdct: the reference's int16 block-float arithmetic),
-  * exponent strategy, reuse folding and the delta-constraint encoding as
-    whole-tensor ops (the reference's iterative constraint loop,
-    ac3enc.cpp:730-747, is replaced by its fixpoint: the largest
-    2-Lipschitz array below the group minima, one cumulative minimum each
-    way),
+  * the raw exponents, exponent strategy, reuse folding and the
+    delta-constraint encoding in one call (ops.exponents: kernel X1 on the
+    card; the reference's iterative constraint loop, ac3enc.cpp:730-747,
+    is replaced by its fixpoint: the largest 2-Lipschitz array below the
+    group minima, one min-plus scan each way),
   * the masking curve of the coded exponents, the SNR-offset hill climb
     (ac3enc.cpp:918-975) replayed exactly by a binary search over the
     monotone bit cost, and the bap at the chosen offset, in one call
     (ops.snr_search: kernel E1 on the card),
-  * quantization (ac3enc.cpp:1149-1190) elementwise on int64 words that
-    wrap to int32 where the reference's ints do.
+  * quantization (ac3enc.cpp:1149-1190) elementwise, wrapping as the
+    reference's int32 does (ops.quantize: kernel Q1 on the card).
 
 Packing is host.pack (one frame in Python, or the threaded C++ packer) or
 ops.pack_device (frames assembled on the device).  Encoder state per
@@ -31,11 +31,13 @@ import numpy as np
 import torch
 
 from .. import tables as T
-from ..ops.mdct import extract_exponents, mdct512, window_norm_block
+from ..ops import exponents as EX
+from ..ops import quantize as QZ
+from ..ops.exponents import EXP_NEW, exponents  # EXP_NEW: JAX's name here
+from ..ops.mdct import mdct512, window_norm_block
 from ..ops.snr_search import snr_search
 from ..utils.device import resolve_device
 
-EXP_NEW = 1
 FRAME_BITS_INC = (0, 0, 2, 2, 2, 4, 2, 4)
 ACMOD_BY_NCH = (1, 2, 3, 6, 7, 7)      # ac3enc.cpp:1029-1036
 
@@ -43,8 +45,8 @@ ACMOD_BY_NCH = (1, 2, 3, 6, 7, 7)      # ac3enc.cpp:1029-1036
 # runs max(1, CORE_ROWS // B) frames a call (the core does not depend on
 # the carry, so any grouping gives the same bytes).  Fewer, larger calls
 # launch fewer small ops; peak memory grows with the rows (on an H100, 5.1
-# at 16,384 rows: about 25 GB; chip_smoke.py's encode phase times the
-# forms and gives each stage's peak)
+# at 16,384 rows: about 10 GB, set by the MDCT; chip_smoke.py's encode
+# phase times the forms and gives each stage's peak)
 CORE_ROWS = 16384
 
 
@@ -110,99 +112,55 @@ def make_config(freq: int, bitrate: int, channels: int) -> EncoderConfig:
 
 
 # ---------------------------------------------------------------------------
-# exponent encoding (static shapes per strategy)
+# the exponent stage (ops.exponents, kernel X1) and the quantizer
+# (ops.quantize, kernel Q1); the plain versions' steps keep their names here
 # ---------------------------------------------------------------------------
 
-def _encode_exp_static(exp, nb_coefs: int, gsize: int):
-    """encode_exp for one static (nb_coefs, group size).
-
-    exp [..., 256] int32 -> (encoded [..., 256], nbits int).
-
-    The reference's iterative +-2 delta relaxation (ac3enc.cpp:730-747)
-    converges to the largest 2-Lipschitz array below the group minima:
-    c_i = min(v_i, c_{i-1} + 2), whose closed form
-    f_i = 2i + cummin_{j<=i}(v_j - 2j), and the same backward."""
-    dev = exp.device
-    ngroups = ((nb_coefs + gsize * 3 - 4) // (3 * gsize)) * 3
-    k = torch.as_tensor(1 + np.arange(ngroups)[:, None] * gsize
-                        + np.arange(gsize)[None, :], device=dev)
-    gmin = exp[..., k].amin(dim=-1)                       # [..., ngroups]
-    dc = torch.clamp(exp[..., 0:1], max=15)
-    v = torch.cat([dc, gmin], dim=-1)                     # [..., ngroups+1]
-    j2 = torch.arange(0, 2 * (ngroups + 1), 2, dtype=exp.dtype, device=dev)
-    f = torch.cummin(v - j2, dim=-1).values + j2
-    g = torch.cummin((f + j2).flip(-1), dim=-1).values.flip(-1) - j2
-    out = torch.zeros_like(exp)
-    out[..., 0] = g[..., 0]
-    out[..., 1:1 + ngroups * gsize] = torch.repeat_interleave(
-        g[..., 1:], gsize, dim=-1)
-    return out, 4 + (ngroups // 3) * 7
+_encode_exp_static = EX.encode_exp_static
 
 
-# ---------------------------------------------------------------------------
-# quantization (ac3enc.cpp:1149-1190), per coefficient on int64 words
-# ---------------------------------------------------------------------------
-
-def _wrap32(x):
-    """int64 -> the value of (int32)x, kept in int64."""
-    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+def _strategy(cfg: EncoderConfig, exp):
+    """exp [N, 6, ch, 256] -> (new [N, 6, ch] bool: the block starts a
+    run, strat [N, 6, ch] int32), ac3enc.cpp:617-668."""
+    return EX.strategy(exp, cfg.lfe)
 
 
-def _shl32(x, s):
-    """int32 x << s as XLA defines it for any count: a count outside
-    [0, 31] gives 0.  x, s int64; the count is clamped before the shift,
-    so no device sees an over-wide one."""
-    ok = (s >= 0) & (s < 32)
-    return torch.where(ok, _wrap32(x << torch.clamp(s, 0, 31)), 0)
-
-
-def _sar32(x, s):
-    """int32 x >> s (arithmetic) as XLA defines it: a count outside
-    [0, 31] fills with the sign."""
-    return x >> torch.where((s < 0) | (s > 31), 31, s)
-
-
-@lru_cache(maxsize=8)
-def _quant_tables(device: torch.device):
-    """Per bap class: symmetric levels (classes 1-5, else 0), asymmetric
-    bits (classes 6-15, else 1), as int64 tensors."""
-    levels = np.zeros(16, np.int64)
-    levels[1:6] = (3, 5, 7, 11, 15)
-    qbits = np.ones(16, np.int64)
-    for cls in range(6, 16):
-        qbits[cls] = cls - 1 if cls < 14 else (14 if cls == 14 else 16)
-    return (torch.tensor(levels, device=device),
-            torch.tensor(qbits, device=device))
+def _encode_exponents(cfg: EncoderConfig, exp, new, strat):
+    """Reuse folding + exponent coding: -> (enc_exp [N, 6, ch, 256] int32,
+    exponent bits [N])."""
+    return EX.encode_exponents(exp, new, strat, cfg.nb_coefs[0], cfg.lfe)
 
 
 def quantize(coef, enc_exp, global_exp, bap):
-    """Raw per-coefficient quantized codes (before group combining).
+    """Raw per-coefficient quantized codes (before group combining), every
+    int32 step of the reference wrapped as it is there.  It takes what
+    JAX's quantize takes: integer tensors of any width and layout, any
+    row length.  CPU tensors run ops.quantize's plain version as they
+    come; CUDA tensors are brought to kernel Q1's contract
+    (_q1_layout) and launch it once."""
+    if coef.device.type == "cpu":
+        return QZ.quantize_ref(coef, enc_exp, global_exp, bap)
+    k = coef.shape[-1]
+    return QZ.quantize(*_q1_layout(coef, enc_exp, global_exp, bap))[..., :k]
 
-    Each coefficient is quantized by its own class (a per-element table
-    lookup of levels or bits, not one pass per class); every int32 step
-    of the reference wraps as it does there."""
-    levels_t, qbits_t = _quant_tables(coef.device)
-    cls = bap.to(torch.int64)
-    c = coef.to(torch.int64)
-    e = (enc_exp - global_exp[..., None]).to(torch.int64)
-    # symmetric: levels 3, 5, 7, 11, 15
-    levels = levels_t[cls]
-    x = _shl32(_wrap32(c.abs()), e)
-    v = (_wrap32(levels * x) >> 24) + 1 >> 1
-    half = levels >> 1
-    sym = torch.where(c >= 0, half + v, half - v)
-    # asymmetric: qbits-bit two's complement, saturated at the top
-    qbits = qbits_t[cls]
-    lshift = e + qbits - 24
-    v = torch.where(lshift >= 0, _shl32(c, torch.clamp(lshift, min=0)),
-                    _sar32(c, torch.clamp(-lshift, min=0)))
-    v = _wrap32(v + 1) >> 1
-    one = torch.ones_like(qbits)
-    m = one << (qbits - 1)
-    v = torch.where(v >= m, m - 1, v)
-    asym = v & ((one << qbits) - 1)
-    out = torch.where(cls >= 6, asym, torch.where(cls >= 1, sym, 0))
-    return out.to(torch.int32)
+
+def _q1_layout(coef, enc_exp, global_exp, bap):
+    """coef, enc_exp, global_exp, bap as ops.quantize's kernel takes them:
+    coef and global_exp int32, enc_exp int8 or else int32, bap int8
+    (classes fit a byte), each contiguous and aligned to 4 of its
+    elements, the rows padded with bins of class 0 to a multiple of 4."""
+    pad = -coef.shape[-1] % 4
+    if enc_exp.dtype != torch.int8:
+        enc_exp = enc_exp.to(torch.int32)
+    rows = []
+    for t in (coef.to(torch.int32), enc_exp, bap.to(torch.int8)):
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        t = t.contiguous()
+        if t.data_ptr() % (4 * t.element_size()):
+            t = t.clone()
+        rows.append(t)
+    return rows[0], rows[1], global_exp.to(torch.int32).contiguous(), rows[2]
 
 
 # ---------------------------------------------------------------------------
@@ -227,75 +185,6 @@ def _frame_constants(cfg: EncoderConfig):
     fixed += 2 * 4 + 3 + 6 + nch * (4 + 3)
     fixed += 2 + 16
     return fixed, 16 * cfg.frame_size
-
-
-def _strategy(cfg: EncoderConfig, exp):
-    """exp [N, 6, ch, 256] -> (new [N, 6, ch] bool: the block starts a
-    run, strat [N, 6, ch] int32), ac3enc.cpp:617-668."""
-    N, nch, nf = exp.shape[0], cfg.channels, cfg.nfchans
-    dev = exp.device
-    diff = (exp[:, 1:] - exp[:, :-1]).abs().sum(dim=-1)      # [N, 5, ch]
-    new = torch.cat([torch.ones((N, 1, nch), dtype=torch.bool, device=dev),
-                     diff > 1000], dim=1)                     # [N, 6, ch]
-    # next_new[i] = min{j > i : new[j]} (6 if none)
-    running = torch.full((N, nch), 6, dtype=torch.int32, device=dev)
-    nxt = [None] * 6
-    for i in range(5, -1, -1):
-        nxt[i] = running
-        running = torch.where(new[:, i], i, running)
-    strat = []
-    for i in range(6):
-        runlen = nxt[i] - i
-        code = torch.where(runlen == 1, T.EXP_D45,
-                           torch.where(runlen <= 3, T.EXP_D25, T.EXP_D15))
-        s_i = torch.where(new[:, i], code, T.EXP_REUSE)
-        if cfg.lfe:
-            s_i[:, nf] = torch.where(new[:, i, nf], EXP_NEW, T.EXP_REUSE)
-        strat.append(s_i)
-    return new, torch.stack(strat, dim=1).to(torch.int32)
-
-
-def _encode_exponents(cfg: EncoderConfig, exp, new, strat):
-    """Reuse folding + exponent coding: -> (enc_exp [N, 6, ch, 256] int32,
-    exponent bits [N])."""
-    N, nch, nf, nb = exp.shape[0], cfg.channels, cfg.nfchans, cfg.nb_coefs
-    dev = exp.device
-    # run id + exponent_min fold over each run (ac3enc.cpp:1730-1749)
-    rid = torch.zeros((N, nch), dtype=torch.int32, device=dev)
-    run_id = []
-    for i in range(6):
-        rid = torch.where(new[:, i], i, rid)
-        run_id.append(rid)
-    run_id = torch.stack(run_id, dim=1)                       # [N, 6, ch]
-    live = (torch.arange(256, device=dev)[None, :]
-            < torch.as_tensor(nb, device=dev)[:, None])       # [ch, 256]
-    folded = exp.clone()
-    for i in range(6):
-        same = run_id == run_id[:, i:i + 1]
-        fmin = torch.where(same[..., None], exp, 25).amin(dim=1)
-        folded[:, i] = torch.where(live, fmin, exp[:, i])
-
-    enc_exp = torch.zeros_like(exp)
-    exp_bits = torch.zeros((N,), dtype=torch.int32, device=dev)
-    fbw = folded[:, :, :nf]
-    for g, scode in ((1, T.EXP_D15), (2, T.EXP_D25), (4, T.EXP_D45)):
-        e_s, bits_s = _encode_exp_static(fbw, nb[0], g)
-        sel = strat[:, :, :nf] == scode                       # [N, 6, nf]
-        enc_exp[:, :, :nf] = torch.where(sel[..., None], e_s,
-                                         enc_exp[:, :, :nf])
-        exp_bits += sel.sum(dim=(1, 2), dtype=torch.int32) * bits_s
-    if cfg.lfe:                                       # D15 only, nb = 7
-        e_s, bits_s = _encode_exp_static(folded[:, :, nf], 7, 1)
-        sel = strat[:, :, nf] == EXP_NEW
-        enc_exp[:, :, nf] = torch.where(sel[..., None], e_s,
-                                        enc_exp[:, :, nf])
-        exp_bits += sel.sum(dim=1, dtype=torch.int32) * bits_s
-    # reuse blocks take the block before's encoded exponents
-    for i in range(1, 6):
-        reuse = strat[:, i] == T.EXP_REUSE
-        enc_exp[:, i] = torch.where(reuse[..., None], enc_exp[:, i - 1],
-                                    enc_exp[:, i])
-    return enc_exp, exp_bits
 
 
 @lru_cache(maxsize=16)
@@ -327,11 +216,11 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     mark("window + normalize")
     coef = mdct512(windowed)                              # [N,6,ch,256]
     mark("MDCT")
-    exp, coef = extract_exponents(coef, exp_samples)
-    new, strat = _strategy(cfg, exp)
-    enc_exp, exp_bits = _encode_exponents(cfg, exp, new, strat)
+    # coef's overrange values are zeroed in place
+    enc_exp, strat, exp_bits = exponents(coef, exp_samples, cfg.nb_coefs[0],
+                                         cfg.lfe)
     mark("exponents + strategy + coding")
-    enc8 = enc_exp.to(torch.uint8)                 # wraps as & 0xFF
+    enc8 = enc_exp.view(torch.uint8)               # the bytes as & 0xFF
     fbw_new = (strat[:, :, :nf] != T.EXP_REUSE).sum(dim=(1, 2),
                                                     dtype=torch.int32)
     fixed, total = _frame_constants(cfg)
@@ -339,7 +228,7 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     M, fstar, bap = snr_search(enc8, avail, *_mask_tables(cfg, cur.device),
                                cfg.halfratecod)
     mark("masking curve + SNR search + bap")
-    qmant = quantize(coef, enc_exp, exp_samples, bap)
+    qmant = QZ.quantize(coef, enc_exp, exp_samples, bap)
     mark("quantize")
     return dict(bap=bap, qmant=qmant, enc_exp=enc8, strat=strat,
                 M=M, fsnroffst=fstar, new_last=cur[:, 5])

@@ -1,7 +1,8 @@
 """AC-3 frame assembly on the device: only finished frames leave it.
 
 ``pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr)`` turns a
-batch of frame fields into finished frames, byte for byte
+batch of frame fields into finished frames (``pack_frames_device(cfg)``
+returns that call's packer, as in the JAX package), byte for byte
 host/pack.py:pack_frame.  On CUDA tensors it launches the hand-written
 kernel P1 (csrc/pack.cu:pack_frames_kernel), once a call: one CTA a frame
 builds the frame in shared memory, offsets, deposit and both CRCs
@@ -557,9 +558,12 @@ def _check(cfg, bap, qmant, enc_exp, strat, csnr, fsnr):
     return lead, int(np.prod(lead)) if lead else 1
 
 
-def pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
-                       clock=None):
-    """Frame fields -> finished frames, on their device.
+def pack_frames_device(cfg, bap=None, qmant=None, enc_exp=None, strat=None,
+                       csnr=None, fsnr=None, clock=None):
+    """Frame fields -> finished frames, on their device; with no fields,
+    the packer fn(bap, qmant, enc_exp, strat, csnr, fsnr, clock=None) of
+    `cfg` (the JAX package's calling form).  Some fields but not all raise
+    TypeError.
 
       bap     [..., 6, nch, 256] int8 (classes 0..15 on the live bins)
       qmant   [..., 6, nch, 256] int32
@@ -577,6 +581,18 @@ def pack_frames_device(cfg, bap, qmant, enc_exp, strat, csnr, fsnr,
 
     clock: an object with mark(name), called after the pack ("pack") or,
     on the CPU, after each of the plain version's stages."""
+    fields = (bap, qmant, enc_exp, strat, csnr, fsnr)
+    if all(f is None for f in fields) and clock is None:
+        def packer(bap, qmant, enc_exp, strat, csnr, fsnr, clock=None):
+            return _pack(cfg, bap, qmant, enc_exp, strat, csnr, fsnr, clock)
+        return packer
+    if any(f is None for f in fields):
+        raise TypeError("pack_frames_device takes the six fields (bap, "
+                        "qmant, enc_exp, strat, csnr, fsnr) or none")
+    return _pack(cfg, *fields, clock)
+
+
+def _pack(cfg, bap, qmant, enc_exp, strat, csnr, fsnr, clock):
     global launches_pack
     lead, n = _check(cfg, bap, qmant, enc_exp, strat, csnr, fsnr)
     dev = bap.device

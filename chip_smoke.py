@@ -145,6 +145,35 @@ Phases, each fatal on failure (nothing is caught and passed over):
                byte; its time at each config's call beside its byte bound
                (pack_least_bytes, from that call's own fields) and the
                plain version
+ 17c. X1       the exponent stage (X1, csrc/exponents.cu: raw exponents,
+               strategy, run fold, coding, reuse copy) equal to its plain
+               version (exponents_ref, the eager chain) BITWISE in the 256
+               coded bytes of every block and channel, strat, exp_bits and
+               the zeroed coefficients, on crafted rows of 1 to 6 channels
+               with and without the LFE: all 32 new-block patterns of
+               blocks 1-5 in every full-band channel, diff sums of exactly
+               1000 and 1001, dead bins 223-228 unlike the live ones,
+               all-zero blocks and channels, overranging coefficients,
+               |c| near 2^17 and 2^31; each launched twice; one row, none
+               (no launch); refusals (nb other than 223 too).  In the
+               encode phases below: X1 once a core call and no eager
+               exponent step in a frame core; every X1 call of one
+               device-alone run of configs 3 and 4 and of the transcode's
+               first chunk held to its plain version bitwise; its time at
+               each config's core call beside its byte bound and the plain
+               version
+ 17d. Q1       the quantizer (Q1, csrc/quantize.cu) equal to its plain
+               version (quantize_ref, the int64 passes) BITWISE on every
+               class 0-15 at exponent differences -21..33, INT32_MIN/MAX
+               and the powers of two, saturating codes, runs of class 0
+               (whole sectors skipped), with int8 and int32 exponents,
+               each launched twice; the frame core's layout; the public
+               models/encoder.py:quantize on JAX's inputs (int32 classes,
+               a ragged row, strided and unaligned tensors); none (no
+               launch); refusals.  In the encode phases below as X1: once
+               a core call, every call of the recorded runs held to
+               quantize_ref, its times beside its byte bound
+               (q1_least_bytes, from that call's own classes)
  18. enc digest the encoder's integer primitives (window + normalize, MDCT,
                exponents, quantize at shift counts -40..60, av_log2) on
                edge cases, card equal to CPU bitwise; then
@@ -159,7 +188,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                in, bytes on the host out) and on the device alone; peak
                memory; each stage's CUDA-event time, ATen op count,
                least bytes and peak allocated memory (the pack one "pack"
-               row, P1); the core's frame
+               row, P1; the exponents one X1 launch, the quantize one Q1
+               launch); the core's frame
                grouping both ways; the host packer alone
  20. single enc Encoder over 512 frames (x-realtime); a 17-frame call
                (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
@@ -169,7 +199,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                chunks x 4 frames, reference mode, parser "native" (f32 and
                compact) and "raw", and 256 coupled raw lanes: B1F (and on
                the raw paths K2 and K4, on the coupled one K3) on every
-               chunk, K1 and B1 never, E1 and P1 on every chunk; every
+               chunk, K1 and B1 never, E1, X1, Q1 and P1 on every chunk;
+               every
                B1F and gather call held to its plain version; the first 8
                lanes' digest equal to the
                JAX Transcoder's (TC_DIGEST); raw == native; the f32 bytes
@@ -358,7 +389,9 @@ def phase_build():
             "bitgather (nvcc)": lambda: _cuda.build("bitgather"),
             "imdct_exact (nvcc)": lambda: _cuda.build("imdct_exact"),
             "snr_search (nvcc)": lambda: _cuda.build("snr_search"),
-            "pack (nvcc)": lambda: _cuda.build("pack")}
+            "pack (nvcc)": lambda: _cuda.build("pack"),
+            "exponents (nvcc)": lambda: _cuda.build("exponents"),
+            "quantize (nvcc)": lambda: _cuda.build("quantize")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -1883,10 +1916,13 @@ def kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.ops import pack_device as PD
+    from ac3acm_tpu_torch.ops import exponents as EX
+    from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
             "B1Q": IE.launches_fixed, "B1QS": FC.launches_fixed_chain,
             "E1": SS.launches_snr_search, "P1": PD.launches_pack,
+            "X1": EX.launches_exponents, "Q1": QZ.launches_quantize,
             **{k: v for k, v in gather_counts().items()}}
 
 
@@ -1896,10 +1932,12 @@ def zero_kernel_counts():
     from ac3acm_tpu_torch.ops import fused_steady_exact as FE
     from ac3acm_tpu_torch.ops import imdct_exact as IE
     from ac3acm_tpu_torch.ops import pack_device as PD
+    from ac3acm_tpu_torch.ops import exponents as EX
+    from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
     IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
     FC.launches_fixed_chain = SS.launches_snr_search = 0
-    PD.launches_pack = 0
+    PD.launches_pack = EX.launches_exponents = QZ.launches_quantize = 0
     zero_gather_counts()
 
 
@@ -2403,24 +2441,24 @@ def e1_least_bytes(rows, nb):
     return rows * (2 * live + 3 * 4) + len(nb) * 5 + 50 * 4
 
 
-def stage_least_bytes(rows, nb, pack_bytes):
+def stage_least_bytes(rows, nb, pack_bytes, quant_bytes):
     """Least bytes each encoder stage must move for `rows` lane-frames
     with live bins nb [ch]: its inputs read once and its outputs written
     once at the narrowest type that holds them, per (block, channel):
-    samples int16, a coefficient int32 (up to 2^17), an exponent or bap
-    class a byte, a quantized code int16 (up to 16 bits); the fused
-    curve + search + bap as e1_least_bytes prices it; the pack
-    pack_bytes, pack_least_bytes (P1's own bound) summed over the run's
-    pack calls."""
+    samples int16, a coefficient int32 (up to 2^17), an exponent a byte;
+    the fused curve + search + bap as e1_least_bytes prices it; the
+    quantizer quant_bytes, q1_least_bytes (Q1's own bound) summed over
+    the run's quantize calls; the pack pack_bytes, pack_least_bytes (P1's
+    own bound) summed over the run's pack calls."""
     bc = rows * 6 * len(nb)
-    s16, c32, b8, q16 = 256 * 2, 256 * 4, 256, 256 * 2
+    s16, c32, b8 = 256 * 2, 256 * 4, 256
     return {
         "block layout": 2 * bc * s16,
         "window + normalize": bc * (2 * s16 + 2 * s16 + 1),
         "MDCT": bc * (2 * s16 + c32),
         "exponents + strategy + coding": bc * (c32 + b8),
         "masking curve + SNR search + bap": e1_least_bytes(rows, nb),
-        "quantize": bc * (c32 + b8 + b8 + q16),
+        "quantize": quant_bytes,
         "csnr carry": 0,
         "pack": pack_bytes,
     }
@@ -2586,67 +2624,103 @@ def e1_same(call):
     return float(err)
 
 
-# the eager allocator calls the encoder must not make on the card
+# the eager steps the encoder must not take on the card: the allocator's
+# (E1's plain version, in ops.alloc), the exponent stage's (X1's, in
+# ops.exponents) and the quantizer's (Q1's, in ops.quantize)
 E1_EAGER = ("band_psd", "excitation", "masking_curve", "bits_for_snro",
             "bap_from_mask")
+X1_EAGER = ("extract_exponents", "strategy", "encode_exponents",
+            "encode_exp_static")
+Q1_EAGER = ("quantize_ref",)
 
 
 @contextlib.contextmanager
-def e1_watch(record=False):
-    """While active: the frame core's calls, E1's launches, and the calls
-    of the eager allocator (E1_EAGER in ops.alloc) made inside a frame core
-    (a raw decode allocates its own bits, outside it); with record, every
-    snr_search call's arguments and outputs, cloned.  Yields a dict that
-    holds them (launches when the block ends)."""
+def core_watch(record=False):
+    """While active: the frame core's calls, E1's, X1's and Q1's launches,
+    and the calls of the eager steps (E1_EAGER in ops.alloc, X1_EAGER in
+    ops.exponents, Q1_EAGER in ops.quantize) made inside a frame core (a
+    raw decode allocates its own bits, outside it); with record, every
+    snr_search ("calls"), exponents ("x1_calls": the coefficients as they
+    came in, then the outputs and the coefficients after) and quantize
+    ("q1_calls") call's arguments and outputs, cloned.  Yields a dict
+    that holds them (the launches when the block ends)."""
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.ops import alloc as AL
+    from ac3acm_tpu_torch.ops import exponents as EX
+    from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
-    w = dict(core=0, calls=[], **{k: 0 for k in E1_EAGER})
-    orig_core, orig_search = PE.frame_core, PE.snr_search
-    orig_al = {k: getattr(AL, k) for k in E1_EAGER}
+    eager = {k: AL for k in E1_EAGER}
+    eager.update({k: EX for k in X1_EAGER})
+    eager.update({k: QZ for k in Q1_EAGER})
+    w = dict(core=0, calls=[], x1_calls=[], q1_calls=[],
+             **{k: 0 for k in eager})
+    orig = dict(frame_core=PE.frame_core, snr_search=PE.snr_search,
+                exponents=PE.exponents, quantize=QZ.quantize)
+    orig_eager = {k: getattr(m, k) for k, m in eager.items()}
     inside = [False]
 
     def core(*a, **k):
         w["core"] += 1
         inside[0] = True
         try:
-            return orig_core(*a, **k)
+            return orig["frame_core"](*a, **k)
         finally:
             inside[0] = False
 
-    def eager(key, fn):
+    def counted(key, fn):
         def call(*a, **k):
             w[key] += inside[0]
             return fn(*a, **k)
         return call
 
+    def clones(ts):
+        return tuple(t.clone() if torch.is_tensor(t) else t for t in ts)
+
     def search(*args):
-        out = orig_search(*args)
+        out = orig["snr_search"](*args)
         if record:
-            w["calls"].append(tuple(t.clone() if torch.is_tensor(t) else t
-                                    for t in args)
-                              + (tuple(t.clone() for t in out),))
+            w["calls"].append(clones(args) + (clones(out),))
         return out
 
-    PE.frame_core, PE.snr_search = core, search
-    for k, fn in orig_al.items():
-        setattr(AL, k, eager(k, fn))
-    before = SS.launches_snr_search
+    def exps(coef, *rest):
+        before = coef.clone() if record else None
+        out = orig["exponents"](coef, *rest)
+        if record:
+            w["x1_calls"].append((before,) + clones(rest)
+                                 + (clones(out + (coef,)),))
+        return out
+
+    def quant(*args):
+        out = orig["quantize"](*args)
+        if record:
+            w["q1_calls"].append(clones(args) + (out.clone(),))
+        return out
+
+    PE.frame_core, PE.snr_search, PE.exponents = core, search, exps
+    QZ.quantize = quant
+    for k, m in eager.items():
+        setattr(m, k, counted(k, orig_eager[k]))
+    before = {"E1": SS.launches_snr_search, "X1": EX.launches_exponents,
+              "Q1": QZ.launches_quantize}
     try:
         yield w
     finally:
-        PE.frame_core, PE.snr_search = orig_core, orig_search
-        for k, fn in orig_al.items():
-            setattr(AL, k, fn)
-        w["launches"] = SS.launches_snr_search - before
+        for k, fn in orig.items():
+            setattr(QZ if k == "quantize" else PE, k, fn)
+        for k, m in eager.items():
+            setattr(m, k, orig_eager[k])
+        w["launches"] = {"E1": SS.launches_snr_search - before["E1"],
+                         "X1": EX.launches_exponents - before["X1"],
+                         "Q1": QZ.launches_quantize - before["Q1"]}
 
 
-def e1_assert(w, tag):
-    """Every core call of a watched run launched E1 once, and no frame
-    core called the eager allocator -> E1's launches."""
-    assert w["core"] >= 1 and w["launches"] == w["core"], (tag, w["core"],
-                                                           w["launches"])
-    assert not any(w[k] for k in E1_EAGER), (tag, w)
+def core_assert(w, tag):
+    """Every core call of a watched run launched E1, X1 and Q1 once each,
+    and no frame core took an eager step -> the launches by kernel."""
+    assert w["core"] >= 1 and all(
+        n == w["core"] for n in w["launches"].values()), (
+        tag, w["core"], w["launches"])
+    assert not any(w[k] for k in E1_EAGER + X1_EAGER + Q1_EAGER), (tag, w)
     return w["launches"]
 
 
@@ -3086,6 +3160,405 @@ def phase_check_p1(dev):
     return 0.0
 
 
+# X1 (csrc/exponents.cu, the exponent stage) on crafted rows: every
+# channel count with and without the LFE (then the last channel), the
+# encoder's 223 live bins; the row kinds of each layout (x1_case) and
+# their rows: "pattern" one row a new-block pattern of blocks 1-5 (all 32
+# in every channel), "silence" all-zero blocks and channels, "overrange"
+# coefficients whose raw exponent is >= 24, "extreme" |c| near 2^17 and
+# 2^31 and the smallest ones
+X1_LAYOUTS = tuple((n, bool(lfe)) for n in range(1, 7) for lfe in (0, 1))
+X1_NB = 223
+X1_KINDS = (("pattern", 32), ("silence", 4), ("overrange", 4),
+            ("extreme", 4))
+# the least integer work a bin of X1's function (the raw exponent: abs,
+# count of leading zeros, two adds, the clamp's compare and select; its
+# |diff|: subtract, abs, add; the fold's min; the coded byte's select)
+# and of Q1's a coefficient of a class other than 0 (the exponents'
+# subtract; the symmetric form's abs, range check, shift, multiply, two
+# shifts, add and sign select; the asymmetric one's count, range checks,
+# shift, add, shift, compare, select and mask; the class select)
+X1_BIN_OPS, Q1_BIN_OPS = 12, 16
+
+
+def x1_walk(rng, prev, target, lo):
+    """A block's raw exponents [256]: prev moved bin by bin, each bin one
+    way only and within [lo, 24], until sum |new - prev| == target."""
+    up = 24 - prev >= prev - lo
+    room = np.where(up, 24 - prev, prev - lo)
+    assert room.sum() >= target, (room.sum(), target)
+    step = np.zeros(256, np.int64)
+    left = int(target)
+    while left:
+        # a pass over the bins in a random order, up to 8 a bin
+        order = rng.permutation(256)
+        cap = np.minimum(room[order], rng.integers(1, 9, 256))
+        take = np.clip(left - (np.cumsum(cap) - cap), 0, cap)
+        step[order] += take
+        room[order] -= take
+        left -= int(take.sum())
+    return prev + np.where(up, step, -step)
+
+
+def x1_from_exps(rng, E, es, over):
+    """Coefficients whose raw exponents are E (int, [..., 256]) at
+    exp_samples es [...] (>= 0 where over): E = 24 gives 0, or where over
+    a coefficient that overranges (log2 |c| below es); else |c| in
+    [2^L, 2^(L+1)) with L = 23 + es - E, any sign."""
+    es = es[..., None]
+    L = 23 + es - E
+    live = E < 24
+    assert ((L[live] >= 0) & (L[live] <= 30)).all()
+    L_over = np.floor(rng.random(E.shape) * np.maximum(es, 1)).astype(
+        np.int64)
+    L = np.where(live, L, L_over)
+    mag = (1 << L) + np.floor(rng.random(E.shape) * (1 << L)).astype(np.int64)
+    sign = np.where(rng.random(E.shape) < 0.5, -1, 1)
+    return np.where(live | (over & (E == 24)), sign * mag, 0)
+
+
+def x1_rows(rng, kind, rows, nch):
+    """Crafted rows of one kind: (coef [rows, 6, nch, 256] int32,
+    exp_samples [rows, 6, nch] int32), numpy (see X1_KINDS)."""
+    shape = (rows, 6, nch, 256)
+    if kind == "pattern":
+        E = np.zeros(shape, np.int64)
+        es = np.zeros(shape[:3], np.int64)
+        for r in range(rows):
+            for c in range(nch):
+                pat = (r + 5 * c) % 32
+                e0 = int(rng.integers(0, 6))         # keeps [e0 - 7, 24]
+                lo = e0 - 7
+                es[r, :, c] = e0
+                E[r, 0, c] = rng.integers(lo, 25, 256)
+                if r % 4 == 1:                   # dead bins 223..228 low
+                    E[r, 0, c, 223:229] = lo
+                for b in range(1, 6):
+                    edge = (r + b + c) % 3
+                    if pat >> (b - 1) & 1:
+                        target = 1001 if edge == 0 else rng.integers(1001,
+                                                                     2001)
+                    else:
+                        target = (1000, 0)[edge] if edge < 2 \
+                            else rng.integers(0, 1001)
+                    E[r, b, c] = x1_walk(rng, E[r, b - 1, c], target, lo)
+        over = (es[..., None] >= 1) & (rng.random(shape) < 0.5)
+        coef = x1_from_exps(rng, E, es, over)
+        return coef.astype(np.int32), es.astype(np.int32)
+    es = rng.integers(-9, 6, shape[:3])
+    if kind == "overrange":
+        es = rng.integers(1, 6, shape[:3])
+    L = rng.integers(0, 31, shape)
+    if kind == "overrange":
+        # half the bins below the block's es: the raw exponent >= 24
+        low = np.floor(rng.random(shape) * es[..., None]).astype(np.int64)
+        L = np.where(rng.random(shape) < 0.5, low, L)
+    if kind == "extreme":
+        L = rng.choice([0, 1, 16, 17, 29, 30], shape)
+    mag = (1 << L) + np.floor(rng.random(shape) * (1 << L)).astype(np.int64)
+    coef = np.where(rng.random(shape) < 0.5, -mag, mag)
+    if kind == "extreme":
+        edge = np.array([2**31 - 1, -(2**31 - 1), 1 << 17, -(1 << 17),
+                         (1 << 17) - 1, 1 - (1 << 17), 1, -1])
+        coef[..., :8] = edge
+    if kind == "silence":
+        coef[rng.random(shape[:3]) < 0.4] = 0            # zero blocks
+        coef[0, :, 0] = 0                                # a silent channel
+        coef[rng.random(shape) < 0.1] = 0
+    return coef.astype(np.int32), es.astype(np.int32)
+
+
+def x1_case(nch, lfe, seed):
+    """One crafted X1 case, numpy: (coef [R, 6, nch, 256] int32, its rows
+    X1_KINDS' kinds in order, exp_samples [R, 6, nch] int32, X1_NB, lfe)."""
+    rng = np.random.default_rng(seed)
+    parts = [x1_rows(rng, kind, rows, nch) for kind, rows in X1_KINDS]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), X1_NB, lfe)
+
+
+def x1_same(call):
+    """One recorded exponents call (coef before it, exp_samples, nb, lfe,
+    then (enc_exp, strat, exp_bits, coef after it)) against exponents_ref
+    on the same inputs and device, bitwise -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops.exponents import exponents_ref
+    coef, es, nb, lfe, got = call
+    after = coef.clone()
+    want = exponents_ref(after, es, nb, lfe) + (after,)
+    names = ("enc_exp", "strat", "exp_bits", "coef")
+    for name, g, w in zip(names, got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"X1 != exponents_ref in {name}: max |diff| "
+                f"{int((g.long() - w.long()).abs().max())}")
+    return 0.0
+
+
+def q1_same(call):
+    """One recorded quantize call (coef, enc_exp, global_exp, bap, then
+    its codes) against quantize_ref on the same inputs and device, bitwise
+    -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops.quantize import quantize_ref
+    *args, got = call
+    want = quantize_ref(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"Q1 != quantize_ref: max |diff| "
+                             f"{int((got.long() - want.long()).abs().max())}"
+                             f" on {int((got != want).sum())} codes")
+    return 0.0
+
+
+def x1_bound(coef, nb, lfe):
+    """X1 on coef [N, 6, ch, 256]'s rows: (bound_ms, "bytes" |
+    "operations"): stage_least_bytes' exponent row (a coefficient in as
+    int32, a coded exponent out a byte) at the card's memory rate against
+    X1_BIN_OPS a bin at its issue rate."""
+    N, _, ch, _ = coef.shape
+    nbs = (nb,) * (ch - int(lfe)) + (7,) * int(lfe)
+    t_bytes = stage_least_bytes(N, nbs, 0, 0)[
+        "exponents + strategy + coding"] / PEAK_BYTES * 1e3
+    t_ops = N * 6 * ch * 256 * X1_BIN_OPS / PEAK_ISSUE * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def q1_least_bytes(bap):
+    """The least bytes of the quantizer's function (Q1's bound and the
+    stage table's "quantize" row) on one call's own classes (bap [..., K],
+    any device): every bin's class in (a byte) and code out (16 bits, its
+    narrowest); where the class is not 0, the coefficient (int32) and its
+    exponent (a byte) in (a class-0 code is 0 whatever they are); a
+    (block, channel)'s global exponent (int32) where one of its classes
+    is not 0."""
+    coded = bap != 0
+    return (3 * bap.numel() + 5 * int(coded.sum())
+            + 4 * int(coded.any(dim=-1).sum()))
+
+
+def q1_bound(bap):
+    """Q1 on one call's classes bap [N, 6, ch, 256]: (bound_ms, "bytes" |
+    "operations"): q1_least_bytes at the card's memory rate against
+    Q1_BIN_OPS a coefficient whose class is not 0 at its issue rate."""
+    t_bytes = q1_least_bytes(bap) / PEAK_BYTES * 1e3
+    t_ops = int((bap != 0).sum()) * Q1_BIN_OPS / PEAK_ISSUE * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def x1_times(call):
+    """X1 and its plain version on one recorded core call's inputs: ms
+    (device time, median of 7 after 2 warm-ups), plain_ms, the bound.  The
+    calls run on the coefficients as X1 left them (its overrange ones
+    already zeroed, so every call does the same work).  No PyTorch call
+    computes the stage: library_ms is null."""
+    from ac3acm_tpu_torch.ops import exponents as EX
+    coef, es, nb, lfe, got = call
+    coef = got[3].clone()
+    ms = device_ms(lambda: EX.exponents(coef, es, nb, lfe))
+    plain_ms = cuda_ms(lambda: EX.exponents_ref(coef, es, nb, lfe),
+                       warmup=1, reps=3)
+    bound_ms, bound_by = x1_bound(coef, nb, lfe)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def q1_times(call):
+    """Q1 and its plain version on one recorded core call's inputs: ms
+    (device time, median of 7 after 2 warm-ups), plain_ms, the bound.  No
+    PyTorch call quantizes by class: library_ms is null."""
+    from ac3acm_tpu_torch.ops import quantize as QZ
+    args = call[:4]
+    ms = device_ms(lambda: QZ.quantize(*args))
+    plain_ms = cuda_ms(lambda: QZ.quantize_ref(*args), warmup=1, reps=3)
+    bound_ms, bound_by = q1_bound(args[3])
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def x1_patterns(strat, lfe):
+    """The new-block patterns of blocks 1-5 (bit b - 1 set where block b
+    starts a run) of the full-band channels' strategies [R, 6, ch]."""
+    s = strat[:, 1:, :strat.shape[2] - int(lfe)]
+    bits = (s != 0).astype(np.int64) << np.arange(5)[None, :, None]
+    return set(bits.sum(1).ravel().tolist())
+
+
+def phase_check_x1(dev):
+    """X1 (csrc/exponents.cu) against its plain version BITWISE (the 256
+    coded bytes of every block and channel, strat, exp_bits and the zeroed
+    coefficients) on the crafted rows of every layout of X1_LAYOUTS (1 to
+    6 channels, with and without the LFE), twice each (the same bytes);
+    every new-block pattern of blocks 1-5 in every full-band channel; one
+    row, none (no launch); bad inputs raise.  -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops import exponents as EX
+    rows = 0
+    for i, (nch, lfe) in enumerate(X1_LAYOUTS):
+        coef_np, es_np, nb, lfe = x1_case(nch, lfe, 1600 + i)
+        coef = torch.from_numpy(coef_np).to(dev)
+        es = torch.from_numpy(es_np).to(dev)
+        before = EX.launches_exponents
+        work = coef.clone()
+        out = EX.exponents(work, es, nb, lfe)
+        x1_same((coef, es, nb, lfe, out + (work,)))
+        again = coef.clone()
+        out2 = EX.exponents(again, es, nb, lfe)
+        assert EX.launches_exponents == before + 2, (nch, lfe)
+        assert all(torch.equal(a, b) for a, b in zip(out + (work,),
+                                                     out2 + (again,)))
+        if nch > int(lfe):
+            pats = x1_patterns(out[1][:X1_KINDS[0][1]].cpu().numpy(), lfe)
+            assert pats == set(range(32)), (nch, lfe, sorted(pats))
+        assert int(out[0].min()) >= -16 and int(out[0].max()) <= 24
+        rows += coef.shape[0]
+    one = coef[:1].clone()
+    x1_same((coef[:1], es[:1], nb, lfe,
+             EX.exponents(one, es[:1].contiguous(), nb, lfe) + (one,)))
+    before = EX.launches_exponents
+    enc, strat, bits = EX.exponents(coef[:0], es[:0], nb, lfe)
+    assert enc.shape == (0, 6, nch, 256) and bits.shape == (0,)
+    assert EX.launches_exponents == before, "a call of no rows launched"
+    flat = torch.zeros(coef.numel() + 4, dtype=torch.int32, device=dev)
+    for i, bad, err in (
+            (0, coef.to(torch.int64), TypeError),
+            (1, es.to(torch.int16), TypeError),
+            (0, coef.transpose(0, 1).contiguous().transpose(0, 1),
+             ValueError),
+            (0, flat[1:1 + coef.numel()].view(coef.shape), ValueError),
+            (0, coef[..., :255].contiguous(), ValueError),
+            (1, es[:-1], ValueError),
+            (1, es.cpu(), ValueError),
+            (2, 256, ValueError),
+            (2, 0, ValueError),
+            (2, 222, ValueError),
+            (2, 255, ValueError),
+            (3, 1, TypeError)):
+        args = [coef.clone(), es, nb, lfe]
+        args[i] = bad
+        try:
+            EX.exponents(*args)
+            raise AssertionError(f"bad argument {i} was accepted")
+        except err:
+            pass
+    log(f"check exponents (X1): {len(X1_LAYOUTS)} layouts (1-6 channels, "
+        f"with and without the LFE) x {sum(r for _, r in X1_KINDS)} crafted "
+        f"rows ({', '.join(f'{k} {r}' for k, r in X1_KINDS)}) = {rows} "
+        f"rows, each launched twice (the same bytes), equal to "
+        f"exponents_ref bitwise in the 256 coded bytes, strat, exp_bits and "
+        f"the zeroed coefficients; all 32 new-block patterns of blocks 1-5 "
+        f"in every full-band channel, diff sums of exactly 1000 and 1001; "
+        f"coded exponents in [-16, 24]; one row; no rows: no launch; a "
+        f"wrong dtype, a strided, an unaligned, a narrow, a short, a CPU "
+        f"input, nb 0, 222, 255 and 256 (the kernel takes 223) and a "
+        f"non-bool lfe raise")
+    return 0.0
+
+
+def q1_case(seed):
+    """Crafted quantizer inputs, numpy: (coef [R, 16 * 64] int32, enc_exp
+    int32, global_exp [R] int32, bap int8): a row per exponent difference
+    e = enc_exp - global_exp from -21 to 33 (a third of its bins at
+    another e in [-21, 33]), every class 0-15 on every row, coefficients
+    random in +-2^17 and at the edges (0, +-1, the powers of two up to
+    2^30, INT32_MAX, INT32_MIN), saturating ones; on every other row,
+    runs of class 0 (an aligned 64-bin one, a ragged one of 13 bins)
+    whose coefficients and exponents Q1 does not read; global_exp in
+    [-9, 5] so that enc_exp fits a byte."""
+    rng = np.random.default_rng(seed)
+    e = np.arange(-21, 34)
+    R, K = len(e), 16 * 64
+    coef = rng.integers(-(1 << 17), 1 << 17, (R, K))
+    edge = np.array([0, 1, -1, 2**31 - 1, -2**31, 1 << 30, -(1 << 30),
+                     (1 << 17) - 1, -(1 << 17), 65535, -65536, 3, -3,
+                     1 << 20, -(1 << 20), 1 << 24])
+    coef[:, :16] = edge
+    coef[:, 16:32] = edge[::-1]
+    coef[:, 32:256] = rng.integers(-2**31, 2**31, (R, 224))
+    gexp = rng.integers(-9, 6, R)
+    diff = np.broadcast_to(e[:, None], (R, K)).copy()
+    diff[:, ::3] = rng.integers(-21, 34, diff[:, ::3].shape)
+    bap = np.tile(np.arange(16), (R, 64))
+    bap[::2, 512:576] = 0
+    bap[::2, 701:714] = 0
+    return (coef.astype(np.int32), (diff + gexp[:, None]).astype(np.int32),
+            gexp.astype(np.int32), bap.astype(np.int8))
+
+
+def phase_check_q1(dev):
+    """Q1 (csrc/quantize.cu) against its plain version BITWISE on the
+    crafted cases of q1_case (every class, e from -21 to 33, the edges of
+    int32, saturation) with the exponents as int8 and as int32 (the JAX
+    form), twice each (the same codes); at a frame core's layout
+    [R, 6, ch, 256]; no coefficients (no launch); bad inputs raise.
+    -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops import quantize as QZ
+    coef, enc, gexp, bap = (torch.from_numpy(a).to(dev)
+                            for a in q1_case(1700))
+    sat = 0
+    for enc_t in (enc.to(torch.int8), enc):
+        assert torch.equal(enc_t.to(torch.int32), enc)
+        before = QZ.launches_quantize
+        out = QZ.quantize(coef, enc_t, gexp, bap)
+        again = QZ.quantize(coef, enc_t, gexp, bap)
+        assert QZ.launches_quantize == before + 2
+        assert torch.equal(out, again)
+        q1_same((coef, enc_t, gexp, bap, out))
+        # an asymmetric code at its ceiling m - 1: the saturation ran
+        q = torch.tensor([1] * 6 + [c - 1 for c in range(6, 14)] + [14, 16],
+                         device=dev)[bap.long()]
+        top = (torch.ones_like(q) << (q - 1)) - 1
+        sat += int(((bap >= 6) & (out == top)).sum())
+    assert sat > 0, "no code saturated"
+    frame = tuple(t[:48].reshape(48, 16, 64).reshape(-1, 6, 2, 256)
+                  for t in (coef, enc.to(torch.int8), bap))
+    g = gexp[:48, None].expand(48, 4).reshape(-1, 6, 2).contiguous()
+    q1_same(frame[:1] + (frame[1], g, frame[2],
+                         QZ.quantize(frame[0], frame[1], g, frame[2])))
+    # the public quantize on JAX's inputs, brought to Q1's contract: int32
+    # classes, a ragged row (a strided view), an unaligned coef and a
+    # strided enc_exp; one launch each
+    from ac3acm_tpu_torch.models import encoder as PE
+    spare = torch.zeros(coef.numel() + 4, dtype=torch.int32, device=dev)
+    odd = spare[1:1 + coef.numel()].view(coef.shape)
+    odd.copy_(coef)
+    for args in ((coef, enc, gexp, bap.to(torch.int32)),
+                 (coef[:, :1021], enc[:, :1021], gexp, bap[:, :1021]),
+                 (odd, enc.t().contiguous().t(), gexp, bap)):
+        before = QZ.launches_quantize
+        q1_same(args + (PE.quantize(*args),))
+        assert QZ.launches_quantize == before + 1
+    before = QZ.launches_quantize
+    none = QZ.quantize(coef[:0], enc[:0], gexp[:0], bap[:0])
+    assert none.shape == (0, coef.shape[1])
+    assert QZ.launches_quantize == before, "no coefficients launched"
+    flat = torch.zeros(coef.numel() + 4, dtype=torch.int32, device=dev)
+    for i, bad, err in (
+            (0, coef.to(torch.int64), TypeError),
+            (1, enc.to(torch.int16), TypeError),
+            (2, gexp.to(torch.int64), TypeError),
+            (3, bap.to(torch.int32), TypeError),
+            (0, coef.t().contiguous().t(), ValueError),
+            (0, flat[1:1 + coef.numel()].view(coef.shape), ValueError),
+            (1, enc[:, :-4].contiguous(), ValueError),
+            (2, gexp[:-1], ValueError),
+            (3, bap.cpu(), ValueError)):
+        args = [coef, enc, gexp, bap]
+        args[i] = bad
+        try:
+            QZ.quantize(*args)
+            raise AssertionError(f"bad argument {i} was accepted")
+        except err:
+            pass
+    log(f"check quantize (Q1): {coef.shape[0]} rows x {coef.shape[1]} "
+        f"coefficients (every class 0-15, e = enc_exp - global_exp from -21 "
+        f"to 33, INT32_MIN/MAX and the powers of two), exponents int8 and "
+        f"int32, each launched twice (the same codes), equal to "
+        f"quantize_ref bitwise; {sat} saturated asymmetric codes; the frame "
+        f"core's [R, 6, 2, 256] layout; runs of class 0; the public "
+        f"quantize on int32 classes, a ragged row, an unaligned and a "
+        f"strided input; no coefficients: no launch; a wrong "
+        f"dtype (each of the four), a strided, an unaligned, a short and a "
+        f"CPU input raise")
+    return 0.0
+
+
 def enc_extremes(seed=0):
     """Integer edge cases of the encoder's filterbank and quantizer, as
     numpy inputs: block pairs (full-scale +-32767 / -32768 square waves,
@@ -3207,18 +3680,20 @@ def enc_bench_pcm(channels, nframes, lanes):
 def phase_enc_main():
     """Configs 3 and 4: device pack == native pack on every frame;
     x-realtime end to end and on the device alone; peak memory; the stage
-    table; the core's frame grouping both ways.  E1 once a core call in the
-    end-to-end runs and the eager rate model never; P1 once a core call
-    with pack="device", never with "native"; every E1 and P1 call of one
-    device-alone run held to its plain version; E1's and P1's times at
-    each core call's shape.  -> ({label: numbers}, E1's launches in the
-    end-to-end runs, its worst |diff|, {label: E1's times}, P1's launches
-    there, {label: P1's times})."""
+    table; the core's frame grouping both ways.  E1, X1 and Q1 once a core
+    call in the end-to-end runs and their eager steps never; P1 once a
+    core call with pack="device", never with "native"; every E1, X1, Q1
+    and P1 call of one device-alone run held to its plain version; their
+    times at each core call's shape.  -> ({label: numbers}, E1's, X1's and
+    Q1's launches in the end-to-end runs by kernel, E1's worst |diff|,
+    {label: E1's times}, P1's launches there, {label: P1's times},
+    {label: X1's times}, {label: Q1's times})."""
     from ac3acm_tpu_torch.host import pack as PK
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
-    report, e1_times_by, e1_launches, e1_err = {}, {}, 0, 0.0
-    p1_times_by, p1_launches = {}, 0
+    report, e1_times_by, e1_err = {}, {}, 0.0
+    core_launches = {"E1": 0, "X1": 0, "Q1": 0}
+    p1_times_by, p1_launches, x1_times_by, q1_times_by = {}, 0, {}, {}
     for label, B, F, nch, kbps in ENC_MAIN:
         pcm = enc_bench_pcm(nch, F, B)
         audio_s = B * F * 1536 / 48000.0
@@ -3231,11 +3706,13 @@ def phase_enc_main():
             torch.cuda.reset_peak_memory_stats()
             zero_kernel_counts()
             t0 = time.perf_counter()
-            with e1_watch() as watch:
+            with core_watch() as watch:
                 outs[pack] = enc.encode_frames(pcm)
             dts[pack] = time.perf_counter() - t0
             peak = torch.cuda.max_memory_allocated()
-            e1_launches += e1_assert(watch, f"encode {label} pack={pack}")
+            for k, n in core_assert(watch, f"encode {label} pack={pack}"
+                                    ).items():
+                core_launches[k] += n
             p1 = kernel_counts()["P1"]
             assert p1 == (watch["core"] if pack == "device" else 0), (
                 label, pack, p1, watch["core"])
@@ -3243,10 +3720,10 @@ def phase_enc_main():
             log(f"encode {label} pack={pack}: {B} lanes x {F} frames, "
                 f"{nch} ch {kbps} kbit/s, int16 PCM on the host -> bytes on "
                 f"the host: {dts[pack]:.3f} s -> {audio_s / dts[pack]:.0f}x "
-                f"realtime; peak {peak / 1e9:.2f} GB; E1 launches "
+                f"realtime; peak {peak / 1e9:.2f} GB; E1, X1, Q1 launches "
                 f"{watch['launches']} for {watch['core']} core calls, P1 "
-                f"launches {p1}, eager allocator calls in the core "
-                f"{sum(watch[k] for k in E1_EAGER)}")
+                f"launches {p1}, eager steps in the core "
+                f"{sum(watch[k] for k in E1_EAGER + X1_EAGER + Q1_EAGER)}")
             assert peak <= PEAK_MEM_LIMIT
         same = outs["device"] == outs["native"]
         nbytes = sum(map(len, outs["device"]))
@@ -3265,9 +3742,9 @@ def phase_enc_main():
             enc.csnr.fill_(40)
             return encode_resident(enc, x)
 
-        with e1_watch(record=True) as watch, p1_watch(record=True) as pw:
+        with core_watch(record=True) as watch, p1_watch(record=True) as pw:
             ok, fr = dev_run()
-        e1_assert(watch, f"encode {label} device alone")
+        core_assert(watch, f"encode {label} device alone")
         assert pw["launches"] == pw["n"] == watch["core"], (label, pw["n"])
         assert bool(ok.all())
         want = np.stack([np.frombuffer(o, np.uint8).reshape(F, -1)
@@ -3289,6 +3766,22 @@ def phase_enc_main():
             f"{t['design_floor_ms']:.4f} ms "
             f"({t['design_floor_ms'] / t['ms']:.2%}); library_ms null (no "
             f"PyTorch call computes the curve and the search)")
+        assert not any(x1_same(c) for c in watch["x1_calls"])
+        assert not any(q1_same(c) for c in watch["q1_calls"])
+        x1_times_by[label] = dict(x1_times(watch["x1_calls"][0]),
+                                  rows=watch["x1_calls"][0][0].shape[0])
+        q1_times_by[label] = dict(q1_times(watch["q1_calls"][0]),
+                                  rows=watch["q1_calls"][0][0].shape[0])
+        for name, t in (("exponents (X1)", x1_times_by[label]),
+                        ("quantize (Q1)", q1_times_by[label])):
+            log(f"encode {label}: all {len(watch['x1_calls'])} X1 and "
+                f"{len(watch['q1_calls'])} Q1 calls of a device-alone run "
+                f"equal to their plain versions bitwise; time {name} at a "
+                f"core call [{t['rows']}, 6, {nch}, 256]: kernel_ms "
+                f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+                f"{t['bound_ms']:.4f} -> {t['bound_by']} "
+                f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time); "
+                f"library_ms null")
         assert not any(p1_same(c) for c in pw["calls"])
         p1_times_by[label] = dict(p1_times(pw["calls"][0]),
                                   rows=p1_frames(pw["calls"][0]))
@@ -3301,9 +3794,10 @@ def phase_enc_main():
             f"{t['bound_ms']:.4f} -> {t['bound_by']} "
             f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time); "
             f"library_ms null (no PyTorch call packs frames)")
-        # the stage run below packs these same fields
+        # the stage run below quantizes and packs these same fields
         pack_least = sum(pack_least_bytes(c[0], c[1], c[4])
                          for c in pw["calls"])
+        quant_least = sum(q1_least_bytes(c[3]) for c in watch["q1_calls"])
         del watch, pw
         dev_ms = cuda_ms(dev_run, warmup=1, reps=3)
         groups = {}
@@ -3335,7 +3829,8 @@ def phase_enc_main():
         enc.csnr.fill_(40)
         with ops.mode:
             encode_resident(enc, x, ops)
-        least = stage_least_bytes(B * F, cfg.nb_coefs, pack_least)
+        least = stage_least_bytes(B * F, cfg.nb_coefs, pack_least,
+                                  quant_least)
         total_ms = sum(ms.values())
         for name in ENC_STAGES:
             b_ms = least[name] / PEAK_BYTES * 1e3
@@ -3363,7 +3858,8 @@ def phase_enc_main():
                              device=audio_s / (dev_ms * 1e-3))
         del x, enc, outs, res, host, fr
         torch.cuda.empty_cache()
-    return report, e1_launches, e1_err, e1_times_by, p1_launches, p1_times_by
+    return (report, core_launches, e1_err, e1_times_by, p1_launches,
+            p1_times_by, x1_times_by, q1_times_by)
 
 
 def phase_enc_single():
@@ -3381,10 +3877,10 @@ def phase_enc_single():
     enc = Encoder(48000, 192000, 2)
     zero_kernel_counts()
     t0 = time.perf_counter()
-    with e1_watch() as watch:
+    with core_watch() as watch:
         out = enc.encode(pcm)
     dt = time.perf_counter() - t0
-    e1_launches = e1_assert(watch, "single-stream Encoder")
+    launches = core_assert(watch, "single-stream Encoder")
     audio_s = ENC_SINGLE_FRAMES * 1536 / 48000.0
     assert len(out) == ENC_SINGLE_FRAMES * 768
     p17 = mixed_pcm(2, 17, 17)[0]
@@ -3397,7 +3893,8 @@ def phase_enc_single():
     api = b"".join(a52.AC3_encode_frame(h, p17[f * 1536:(f + 1) * 1536])
                    for f in range(17))
     log(f"single-stream Encoder: {ENC_SINGLE_FRAMES} frames in {dt:.3f} s "
-        f"-> {audio_s / dt:.1f}x realtime, E1 launches {e1_launches} for "
+        f"-> {audio_s / dt:.1f}x realtime, E1, X1, Q1 launches {launches} "
+        f"for "
         f"{watch['core']} core calls; a 17-frame call == lane 0 of "
         f"BatchedEncoder {one == lane}; PcmToAc3Stream (feeds of 7 B..) == "
         f"Encoder {fed == one}; AC3_encode_frame == Encoder {api == one}")
@@ -3411,7 +3908,7 @@ def phase_enc_single():
     snr = 10 * np.log10((orig ** 2).mean() / ((mine - orig) ** 2).mean())
     log(f"single-stream round trip through Decoder(): SNR {snr:.2f} dB")
     assert snr > 12.0
-    return audio_s / dt, e1_launches
+    return audio_s / dt, launches
 
 
 def phase_transcode():
@@ -3429,14 +3926,15 @@ def phase_transcode():
     audio_s = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
     launches, worst, rt, errs, wires = {}, {}, {}, {}, {}
     outs = {}
-    # E1's and P1's calls of the first native f32 chunk, recorded (inputs
-    # and outputs cloned) in an untimed pass of their own
-    with e1_watch(record=True) as w, p1_watch(record=True) as pw:
+    # E1's, X1's, Q1's and P1's calls of the first native f32 chunk,
+    # recorded (inputs and outputs cloned) in an untimed pass of their own
+    with core_watch(record=True) as w, p1_watch(record=True) as pw:
         Transcoder(TC_BATCH, 192000, 2).step_frames(chunks[0],
                                                     TC_CHUNK_FRAMES)
-    e1_assert(w, "transcode native f32, recorded")
+    core_assert(w, "transcode native f32, recorded")
     assert pw["launches"] == pw["n"] == w["core"], (pw["n"], w["core"])
     e1_calls, p1_calls = w["calls"], pw["calls"]
+    x1_calls, q1_calls = w["x1_calls"], w["q1_calls"]
     for tag, kw, lanes, want in (
             ("native f32", {}, chunks, ("B1F",)),
             ("native compact", dict(compact_h2d=True), chunks, ("B1F",)),
@@ -3453,12 +3951,12 @@ def phase_transcode():
             nonlocal got
             for data in lanes:
                 before = kernel_counts()
-                with e1_watch() as w:
+                with core_watch() as w:
                     got = [a + b for a, b in zip(got, tc.step_frames(
                         data, TC_CHUNK_FRAMES))]
                 per_chunk.append({k: v - before[k]
                                   for k, v in kernel_counts().items()})
-                e1_assert(w, f"transcode {tag}")
+                core_assert(w, f"transcode {tag}")
                 assert tc.ok.all(), tag
 
         torch.cuda.synchronize()
@@ -3471,8 +3969,8 @@ def phase_transcode():
         counts = kernel_counts()
         outs[tag] = got
         for c in per_chunk:
-            assert all(c[k] >= 1 for k in want + ("E1", "P1")), (tag,
-                                                                 per_chunk)
+            assert all(c[k] >= 1 for k in want + ("E1", "X1", "Q1", "P1")
+                       ), (tag, per_chunk)
             assert c["K1"] == 0 and c["B1"] == 0, (tag, per_chunk)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -3490,10 +3988,13 @@ def phase_transcode():
         worst[k] = max(worst.get(k, 0.0), v)
     worst["E1"] = max(e1_same(call) for call in e1_calls)
     worst["P1"] = max(p1_same(call) for call in p1_calls)
+    worst["X1"] = max(x1_same(call) for call in x1_calls)
+    worst["Q1"] = max(q1_same(call) for call in q1_calls)
     log(f"transcode: the first native f32 chunk's {len(e1_calls)} E1 calls "
         f"equal to the plain version bitwise (M, fstar, bap), its "
+        f"{len(x1_calls)} X1 and {len(q1_calls)} Q1 calls to theirs, its "
         f"{len(p1_calls)} P1 calls to pack_frames_ref byte for byte")
-    del e1_calls, p1_calls
+    del e1_calls, p1_calls, x1_calls, q1_calls
     dig = tc_digest(outs["native f32"])
     same_raw = outs["raw"] == outs["native f32"]
     ndiff = sum(a != b for a, b in zip(outs["native compact"],
@@ -4470,6 +4971,8 @@ def phase_mesh():
     for c in rec[1]:
         assert c["B1F"] >= data and c["K1"] == 0 and c["B1"] == 0, rec[1]
         assert c["E1"] >= data and c["P1"] >= data, rec[1]
+        # one X1 and one Q1 launch a core call, as E1's
+        assert c["X1"] == c["Q1"] == c["E1"], rec[1]
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     same = rec[0] == one[0] and timed[0] == one[0]
@@ -4552,6 +5055,8 @@ def main():
     b1qs_times = phase_times_b1qs(dev)
     e1_err = phase_check_e1(dev)
     p1_err = phase_check_p1(dev)
+    x1_err = phase_check_x1(dev)
+    q1_err = phase_check_q1(dev)
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
         torch.cuda.empty_cache()
@@ -4582,17 +5087,20 @@ def main():
                     for k, v in phase_raw_py().items()})
     phase_enc_extremes()
     phase_enc_digests()
-    (_, e1_launches, e1_main_err, e1_times_by, p1_launches,
-     p1_times_by) = phase_enc_main()
-    _, e1_single = phase_enc_single()
+    (_, core_launches, e1_main_err, e1_times_by, p1_launches,
+     p1_times_by, x1_times_by, q1_times_by) = phase_enc_main()
+    _, core_single = phase_enc_single()
     torch.cuda.empty_cache()
     tc_launches, tc_errs, _ = phase_transcode()
     b1f_launches += tc_launches["B1F"]
-    log(f"E1 launches: configs 3 and 4 (end to end, both packers) "
-        f"{e1_launches}, single-stream Encoder {e1_single}, transcode "
-        f"{tc_launches['E1']}")
-    e1_launches += e1_single + tc_launches["E1"]
+    for k in ("E1", "X1", "Q1"):
+        log(f"{k} launches: configs 3 and 4 (end to end, both packers) "
+            f"{core_launches[k]}, single-stream Encoder {core_single[k]}, "
+            f"transcode {tc_launches[k]}")
+        core_launches[k] += core_single[k] + tc_launches[k]
     e1_err = max(e1_err, e1_main_err, tc_errs.pop("E1"))
+    x1_err = max(x1_err, tc_errs.pop("X1"))
+    q1_err = max(q1_err, tc_errs.pop("Q1"))
     log(f"P1 launches: configs 3 and 4 (end to end, pack='device') "
         f"{p1_launches}, transcode {tc_launches['P1']}")
     p1_launches += tc_launches["P1"]
@@ -4604,7 +5112,8 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches, mesh_errs = phase_mesh()
     launches += mesh_launches["K1"]
-    e1_launches += mesh_launches["E1"]
+    for k in ("E1", "X1", "Q1"):
+        core_launches[k] += mesh_launches[k]
     p1_launches += mesh_launches["P1"]
     b1f_launches += mesh_launches["B1F"]
     b1_launches += mesh_launches["B1"]
@@ -4676,7 +5185,7 @@ def main():
         replaces="ac3acm_tpu/models/encoder.py:386-451 with "
                  "ac3acm_tpu/ops/alloc.py:81,120,202,213,285 (XLA; no "
                  "pallas_call)",
-        launches=e1_launches, max_abs_err=e1_err, **e1))
+        launches=core_launches["E1"], max_abs_err=e1_err, **e1))
     p1 = dict(p1_times_by["config 3"])
     p1.update({f"{k}_51": v for k, v in p1_times_by["config 4"].items()
                if k in ("ms", "plain_ms", "bound_ms")})
@@ -4686,6 +5195,21 @@ def main():
         source="ac3acm_tpu_torch/csrc/pack.cu",
         replaces="ac3acm_tpu/ops/pack_device.py:361 (XLA; no pallas_call)",
         launches=p1_launches, max_abs_err=p1_err, **p1))
+    for name, src, replaces, key, err, by in (
+            ("exponents (X1)", "exponents.cu",
+             "ac3acm_tpu/ops/mdct.py:181 + ac3acm_tpu/models/encoder.py:"
+             "116,316-384 (XLA; no pallas_call)", "X1", x1_err, x1_times_by),
+            ("quantize (Q1)", "quantize.cu",
+             "ac3acm_tpu/models/encoder.py:148-180 (XLA; no pallas_call)",
+             "Q1", q1_err, q1_times_by)):
+        t = dict(by["config 3"])
+        t.update({f"{k}_51": v for k, v in by["config 4"].items()
+                  if k in ("ms", "plain_ms", "bound_ms")})
+        t.pop("rows")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"ac3acm_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=core_launches[key], max_abs_err=err,
+            **t))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

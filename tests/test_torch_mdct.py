@@ -123,7 +123,8 @@ def test_encode_exp_static_bitwise():
 def test_quantize_shift_extremes(shift):
     """quantize at exponent differences that give shift counts below 0
     and above 31 (XLA's results: 0 for <<, the sign for >>), every class,
-    coefficients up to int32's edges."""
+    coefficients up to int32's edges; the exponents as int32 (JAX's form)
+    and as int8 (the frame core's)."""
     rng = np.random.default_rng(100 + shift)
     n = 16 * 256
     coef = rng.integers(-(1 << 17), 1 << 17, n).astype(np.int32)
@@ -139,6 +140,12 @@ def test_quantize_shift_extremes(shift):
     p = PE.quantize(torch.from_numpy(coef[None]), torch.from_numpy(enc[None]),
                     torch.from_numpy(gexp), torch.from_numpy(bap[None]))
     _same(p, j, f"quantize shift {shift}")
+    # the frame core's form: the exponents as int8 (they fit a byte here)
+    assert enc.min() >= -128 and enc.max() <= 127
+    p8 = PE.quantize(torch.from_numpy(coef[None]),
+                     torch.from_numpy(enc[None].astype(np.int8)),
+                     torch.from_numpy(gexp), torch.from_numpy(bap[None]))
+    _same(p8, j, f"quantize shift {shift}, int8 exponents")
 
 
 def _rate_inputs(seed, B=8, C=6):

@@ -360,3 +360,19 @@ def test_cpu_never_reaches_the_cuda_build(monkeypatch):
                                         for a in args))
     assert torch.equal(lead.reshape(out.shape), out)
     assert PD.launches_pack == 0
+
+
+@pytest.mark.parametrize("config", [(2, 48000, 192), (6, 48000, 640)])
+def test_jax_calling_form(config):
+    """pack_frames_device(cfg) returns the packer of JAX's calling form,
+    fn(bap, qmant, enc_exp, strat, csnr, fsnr): its frames equal the
+    one-call form's; some fields but not all raise TypeError."""
+    cfg, f = _case(config)
+    args = [torch.from_numpy(f[k]) for k in CS.P1_KEYS]
+    packer = PD.pack_frames_device(cfg)
+    assert callable(packer)
+    assert torch.equal(packer(*args), PD.pack_frames_device(cfg, *args))
+    with pytest.raises(TypeError):
+        PD.pack_frames_device(cfg, *args[:5])
+    with pytest.raises(TypeError):
+        PD.pack_frames_device(cfg, clock=object())

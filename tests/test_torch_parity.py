@@ -9,7 +9,10 @@ exist and hold:
   (ii)  for each such function, method and class constructor, JAX's
         positional parameter names first, in JAX's order, and JAX's
         keyword-only names;
-  (iii) for each parameter both packages share, the same default.
+  (iii) for each parameter both packages share, the same default;
+  (iv)  no parameter that the port requires (one without a default) and
+        JAX's counterpart does not take: a JAX call never lacks an
+        argument the port needs.
 
 The exemptions are EXEMPT's, each with its reason; nothing else is.
 """
@@ -232,3 +235,17 @@ def test_exemptions_are_live():
                              ps.parameters[p].default), key
         else:
             assert slot in js.parameters and slot not in ps.parameters, key
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_no_extra_required(rel):
+    """(iv): every parameter the port requires, JAX's counterpart takes."""
+    bad = []
+    for qual, js, ps in _pairs(rel):
+        jnames = {p.name for p in js.parameters.values()}
+        extra = [p.name for p in ps.parameters.values()
+                 if p.kind not in _VAR and p.default is p.empty
+                 and p.name not in jnames]
+        if extra:
+            bad.append((qual, extra))
+    assert not bad, f"{rel}: (name, parameters only the port requires) {bad}"
