@@ -4,7 +4,8 @@ Capability parity with the reference encoder (fccHandler/Bellard ac3enc,
 ac3enc.cpp), batched over streams:
 
   * the six blocks x channels x streams window, normalize and MDCT in one
-    pass (ops.mdct: the reference's int16 block-float arithmetic),
+    call (ops.window_mdct: kernel M1 on the card; ops.mdct, the reference's
+    int16 block-float arithmetic, is its plain version),
   * the raw exponents, exponent strategy, reuse folding and the
     delta-constraint encoding in one call (ops.exponents: kernel X1 on the
     card; the reference's iterative constraint loop, ac3enc.cpp:730-747,
@@ -34,8 +35,8 @@ from .. import tables as T
 from ..ops import exponents as EX
 from ..ops import quantize as QZ
 from ..ops.exponents import EXP_NEW, exponents  # EXP_NEW: JAX's name here
-from ..ops.mdct import mdct512, window_norm_block
 from ..ops.snr_search import snr_search
+from ..ops.window_mdct import window_mdct
 from ..utils.device import resolve_device
 
 FRAME_BITS_INC = (0, 0, 2, 2, 2, 4, 2, 4)
@@ -212,10 +213,10 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     clock: an object with mark(name), called after each stage."""
     mark = clock.mark if clock is not None else (lambda name: None)
     nf = cfg.nfchans
-    windowed, _, exp_samples = window_norm_block(prev, cur)
-    mark("window + normalize")
-    coef = mdct512(windowed)                              # [N,6,ch,256]
-    mark("MDCT")
+    # a view (encode_pipeline's transposed blocks) is copied; M1 takes
+    # contiguous blocks
+    coef, exp_samples = window_mdct(prev.contiguous(), cur.contiguous())
+    mark("window + normalize + MDCT")                     # [N,6,ch,256]
     # coef's overrange values are zeroed in place
     enc_exp, strat, exp_bits = exponents(coef, exp_samples, cfg.nb_coefs[0],
                                          cfg.lfe)

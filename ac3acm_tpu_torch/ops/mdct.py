@@ -82,7 +82,7 @@ def _wrap16(x):
 def _ilv(*parts):
     """Interleave equal-length last axes: a0 b0 [c0 ...] a1 b1 ..."""
     out = torch.stack(parts, dim=-1)
-    return out.reshape(out.shape[:-2] + (-1,))
+    return out.reshape(out.shape[:-2] + (out.shape[-2] * len(parts),))
 
 
 def _fft128(re, im):

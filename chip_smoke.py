@@ -11,7 +11,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                the SASS (cuobjdump) of the order-exact kernels B1 and B1F
                holds no FFMA (every product rounds on its own; B1Q and
                B1QS, the fixed-point entries of the same source, are
-               integer)
+               integer); M1's holds no float instruction, and its count
+               is M1's design model
   3. check     the fused steady kernel (K1) against its plain PyTorch
                version on the card: at the bench shape (4096 lanes x 64
                frames of the golden 5.1 stream, premixed to 2 planes);
@@ -174,9 +175,25 @@ Phases, each fatal on failure (nothing is caught and passed over):
                a core call, every call of the recorded runs held to
                quantize_ref, its times beside its byte bound
                (q1_least_bytes, from that call's own classes)
+ 17e. M1       the window, normalize and MDCT (M1, csrc/window_mdct.cu)
+               equal to its plain version (window_mdct_ref: ops/mdct.py's
+               window_norm_block, then mdct512) BITWISE in coef and
+               exp_samples on crafted rows (m1_case: 1 to 6 channels x 1,
+               3 and 4,097 rows; square waves at +-32767 and -32768,
+               silence, impulses at 0, 100 and 255, a DC ladder to every
+               shift, noise at four scales, -32768 at x[384] where the
+               rotation negates it; and rows of int32 outside int16, whose
+               window products wrap), each launched twice; none (no
+               launch); refusals.  In the encode phases below: M1 once a
+               core call and no eager window_norm_block, mdct512 or
+               _fft128 in a frame core; every M1 call of one device-alone
+               run of configs 3 and 4 and of the transcode's first chunk
+               held to its plain version bitwise; its time at each config's
+               core call beside its byte bound, the plain version and, on
+               its log line, the design's model (its SASS count)
  18. enc digest the encoder's integer primitives (window + normalize, MDCT,
-               exponents, quantize at shift counts -40..60, av_log2) on
-               edge cases, card equal to CPU bitwise; then
+               M1, exponents, quantize at shift counts -40..60, av_log2)
+               on edge cases, card equal to CPU bitwise; then
                BatchedEncoder(pack="device") and pack="native" on 8 lanes
                x 4 frames (two calls, the carry crossing them) of seeded
                PCM (tones, noise, silence, full scale) in six formats: the
@@ -188,8 +205,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                in, bytes on the host out) and on the device alone; peak
                memory; each stage's CUDA-event time, ATen op count,
                least bytes and peak allocated memory (the pack one "pack"
-               row, P1; the exponents one X1 launch, the quantize one Q1
-               launch); the core's frame
+               row, P1; the window + normalize + MDCT one M1 launch, the
+               exponents one X1 launch, the quantize one Q1 launch); the
+               core's frame
                grouping both ways; the host packer alone
  20. single enc Encoder over 512 frames (x-realtime); a 17-frame call
                (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
@@ -199,7 +217,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                chunks x 4 frames, reference mode, parser "native" (f32 and
                compact) and "raw", and 256 coupled raw lanes: B1F (and on
                the raw paths K2 and K4, on the coupled one K3) on every
-               chunk, K1 and B1 never, E1, X1, Q1 and P1 on every chunk;
+               chunk, K1 and B1 never, M1, E1, X1, Q1 and P1 on every
+               chunk;
                every
                B1F and gather call held to its plain version; the first 8
                lanes' digest equal to the
@@ -381,6 +400,25 @@ def accuracy(mode):
         PD.ACCURACY = before
 
 
+# an instruction of cuobjdump's SASS listing: its address, a predicate,
+# the opcode
+SASS_OP = re.compile(
+    r"/\*[0-9a-f]{4,5}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_functions(name, kernel):
+    """The SASS listings (cuobjdump) of the functions of csrc/<name>.cu's
+    built library whose name holds `kernel`; at least one."""
+    from ac3acm_tpu_torch.ops import _cuda
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _cuda.build(name)],
+                          check=True, capture_output=True, text=True).stdout
+    funcs = [f for f in sass.split("Function : ")[1:]
+             if kernel in f.split("\n", 1)[0]]
+    assert funcs, f"no {kernel} function in the SASS of {name}"
+    return funcs
+
+
 def phase_build():
     from ac3acm_tpu_torch.host import native
     from ac3acm_tpu_torch.ops import _cuda
@@ -391,7 +429,8 @@ def phase_build():
             "snr_search (nvcc)": lambda: _cuda.build("snr_search"),
             "pack (nvcc)": lambda: _cuda.build("pack"),
             "exponents (nvcc)": lambda: _cuda.build("exponents"),
-            "quantize (nvcc)": lambda: _cuda.build("quantize")}
+            "quantize (nvcc)": lambda: _cuda.build("quantize"),
+            "window_mdct (nvcc)": lambda: _cuda.build("window_mdct")}
     done, errors = {}, {}
 
     def run(name, fn):
@@ -420,19 +459,12 @@ def phase_build():
                   for x in re.findall(r"(\d+) bytes spill", ln)]
         assert spills and not any(spills), f"{name}: register spills"
     # B1 and B1F are exact only if no product was contracted into an add
-    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", _cuda.build("imdct_exact")],
-                          check=True, capture_output=True, text=True).stdout
     for kernel in ("imdct_exact_kernel", "fused_steady_exact_kernel"):
-        funcs = [f for f in sass.split("Function : ")[1:]
-                 if kernel in f.split("\n", 1)[0]]
-        assert funcs, f"no {kernel} function in the SASS"
+        funcs = sass_functions("imdct_exact", kernel)
         ops = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in funcs)
                for op in ("FFMA", "FMUL", "FADD")}
         # the static instruction mix of the first function, by class
-        ins = [i.split(".")[0] for i in re.findall(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-            funcs[0])]
+        ins = [i.split(".")[0] for i in SASS_OP.findall(funcs[0])]
         mix = {c: sum(i in names for i in ins) for c, names in (
             ("float", ("FADD", "FMUL", "FMNMX", "FRND", "F2I")),
             ("integer", ("IMAD", "LOP3", "LEA", "IADD3", "SHF", "VIADD",
@@ -444,6 +476,18 @@ def phase_build():
             f"{len(ins)} instructions, " + ", ".join(
                 f"{c} {n}" for c, n in mix.items()))
         assert ops["FFMA"] == 0 and ops["FMUL"] > 0, (kernel, ops)
+    # M1's design model counts its kernel's instructions (m1_bound)
+    funcs = sass_functions("window_mdct", "window_mdct_kernel")
+    assert len(funcs) == 1, funcs
+    ins = SASS_OP.findall(funcs[0])
+    floats = [i for i in ins if i.split(".")[0] in (
+        "FADD", "FMUL", "FFMA", "MUFU", "I2F", "F2I", "FSETP")]
+    M1_SASS["window_mdct_kernel"] = len(ins)
+    log(f"sass window_mdct_kernel: {len(ins)} instructions (the loop body "
+        f"runs once a transform a warp), {sum(i.startswith('LDS') for i in ins)}"
+        f" LDS, {sum(i.startswith('STS') for i in ins)} STS; float "
+        f"instructions {len(floats)}")
+    assert not floats, floats
 
 
 def golden_planes(dev):
@@ -1919,10 +1963,12 @@ def kernel_counts():
     from ac3acm_tpu_torch.ops import exponents as EX
     from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
+    from ac3acm_tpu_torch.ops import window_mdct as WM
     return {"B1": IE.launches, "B1F": FE.launches, "K1": FS.launches,
             "B1Q": IE.launches_fixed, "B1QS": FC.launches_fixed_chain,
             "E1": SS.launches_snr_search, "P1": PD.launches_pack,
             "X1": EX.launches_exponents, "Q1": QZ.launches_quantize,
+            "M1": WM.launches_window_mdct,
             **{k: v for k, v in gather_counts().items()}}
 
 
@@ -1935,9 +1981,11 @@ def zero_kernel_counts():
     from ac3acm_tpu_torch.ops import exponents as EX
     from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
+    from ac3acm_tpu_torch.ops import window_mdct as WM
     IE.launches = FE.launches = FS.launches = IE.launches_fixed = 0
     FC.launches_fixed_chain = SS.launches_snr_search = 0
     PD.launches_pack = EX.launches_exponents = QZ.launches_quantize = 0
+    WM.launches_window_mdct = 0
     zero_gather_counts()
 
 
@@ -2311,7 +2359,7 @@ TC_CPL_BATCH = 256
 TC_DIGEST = ("edb3f6e9b6fc932dbdeed9350fce642750f143c17b125085ebfcdf9e080a6edf")
 TC_DIGEST_LANES = 8
 # encoder stages in the order frame_core and pack_frames_device mark them
-ENC_STAGES = ("block layout", "window + normalize", "MDCT",
+ENC_STAGES = ("block layout", "window + normalize + MDCT",
               "exponents + strategy + coding",
               "masking curve + SNR search + bap", "quantize", "csnr carry",
               "pack")
@@ -2445,7 +2493,8 @@ def stage_least_bytes(rows, nb, pack_bytes, quant_bytes):
     """Least bytes each encoder stage must move for `rows` lane-frames
     with live bins nb [ch]: its inputs read once and its outputs written
     once at the narrowest type that holds them, per (block, channel):
-    samples int16, a coefficient int32 (up to 2^17), an exponent a byte;
+    samples int16, a coefficient int32 (up to 2^17), an exponent or the
+    normalize's shift a byte;
     the fused curve + search + bap as e1_least_bytes prices it; the
     quantizer quant_bytes, q1_least_bytes (Q1's own bound) summed over
     the run's quantize calls; the pack pack_bytes, pack_least_bytes (P1's
@@ -2454,8 +2503,7 @@ def stage_least_bytes(rows, nb, pack_bytes, quant_bytes):
     s16, c32, b8 = 256 * 2, 256 * 4, 256
     return {
         "block layout": 2 * bc * s16,
-        "window + normalize": bc * (2 * s16 + 2 * s16 + 1),
-        "MDCT": bc * (2 * s16 + c32),
+        "window + normalize + MDCT": bc * (2 * s16 + c32 + 1),
         "exponents + strategy + coding": bc * (c32 + b8),
         "masking curve + SNR search + bap": e1_least_bytes(rows, nb),
         "quantize": quant_bytes,
@@ -2626,37 +2674,47 @@ def e1_same(call):
 
 # the eager steps the encoder must not take on the card: the allocator's
 # (E1's plain version, in ops.alloc), the exponent stage's (X1's, in
-# ops.exponents) and the quantizer's (Q1's, in ops.quantize)
+# ops.exponents), the quantizer's (Q1's, in ops.quantize) and the window,
+# normalize and MDCT (M1's, in ops.mdct and where ops.window_mdct binds
+# them)
 E1_EAGER = ("band_psd", "excitation", "masking_curve", "bits_for_snro",
             "bap_from_mask")
 X1_EAGER = ("extract_exponents", "strategy", "encode_exponents",
             "encode_exp_static")
 Q1_EAGER = ("quantize_ref",)
+M1_EAGER = ("window_norm_block", "mdct512", "_fft128")
+CORE_EAGER = E1_EAGER + X1_EAGER + Q1_EAGER + M1_EAGER
 
 
 @contextlib.contextmanager
 def core_watch(record=False):
-    """While active: the frame core's calls, E1's, X1's and Q1's launches,
-    and the calls of the eager steps (E1_EAGER in ops.alloc, X1_EAGER in
-    ops.exponents, Q1_EAGER in ops.quantize) made inside a frame core (a
+    """While active: the frame core's calls, M1's, E1's, X1's and Q1's
+    launches, and the calls of the eager steps (CORE_EAGER: E1_EAGER in
+    ops.alloc, X1_EAGER in ops.exponents, Q1_EAGER in ops.quantize,
+    M1_EAGER in ops.mdct and ops.window_mdct) made inside a frame core (a
     raw decode allocates its own bits, outside it); with record, every
-    snr_search ("calls"), exponents ("x1_calls": the coefficients as they
-    came in, then the outputs and the coefficients after) and quantize
-    ("q1_calls") call's arguments and outputs, cloned.  Yields a dict
-    that holds them (the launches when the block ends)."""
+    window_mdct ("m1_calls": prev, cur, then the outputs as they came out,
+    before X1 zeroes coefficients in place), snr_search ("calls"),
+    exponents ("x1_calls": the coefficients as they came in, then the
+    outputs and the coefficients after) and quantize ("q1_calls") call's
+    arguments and outputs, cloned.  Yields a dict that holds them (the
+    launches when the block ends)."""
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.ops import alloc as AL
     from ac3acm_tpu_torch.ops import exponents as EX
+    from ac3acm_tpu_torch.ops import mdct as PM
     from ac3acm_tpu_torch.ops import quantize as QZ
     from ac3acm_tpu_torch.ops import snr_search as SS
-    eager = {k: AL for k in E1_EAGER}
-    eager.update({k: EX for k in X1_EAGER})
-    eager.update({k: QZ for k in Q1_EAGER})
-    w = dict(core=0, calls=[], x1_calls=[], q1_calls=[],
-             **{k: 0 for k in eager})
+    from ac3acm_tpu_torch.ops import window_mdct as WM
+    eager = [(AL, k) for k in E1_EAGER] + [(EX, k) for k in X1_EAGER]
+    eager += [(QZ, k) for k in Q1_EAGER] + [(PM, k) for k in M1_EAGER]
+    eager += [(WM, k) for k in M1_EAGER if hasattr(WM, k)]
+    w = dict(core=0, calls=[], x1_calls=[], q1_calls=[], m1_calls=[],
+             **{k: 0 for k in CORE_EAGER})
     orig = dict(frame_core=PE.frame_core, snr_search=PE.snr_search,
-                exponents=PE.exponents, quantize=QZ.quantize)
-    orig_eager = {k: getattr(m, k) for k, m in eager.items()}
+                exponents=PE.exponents, window_mdct=PE.window_mdct,
+                quantize=QZ.quantize)
+    orig_eager = [getattr(m, k) for m, k in eager]
     inside = [False]
 
     def core(*a, **k):
@@ -2675,6 +2733,12 @@ def core_watch(record=False):
 
     def clones(ts):
         return tuple(t.clone() if torch.is_tensor(t) else t for t in ts)
+
+    def m1(prev, cur):
+        out = orig["window_mdct"](prev, cur)
+        if record:
+            w["m1_calls"].append(clones((prev, cur)) + (clones(out),))
+        return out
 
     def search(*args):
         out = orig["snr_search"](*args)
@@ -2697,30 +2761,33 @@ def core_watch(record=False):
         return out
 
     PE.frame_core, PE.snr_search, PE.exponents = core, search, exps
+    PE.window_mdct = m1
     QZ.quantize = quant
-    for k, m in eager.items():
-        setattr(m, k, counted(k, orig_eager[k]))
-    before = {"E1": SS.launches_snr_search, "X1": EX.launches_exponents,
-              "Q1": QZ.launches_quantize}
+    for (m, k), fn in zip(eager, orig_eager):
+        setattr(m, k, counted(k, fn))
+    before = {"M1": WM.launches_window_mdct, "E1": SS.launches_snr_search,
+              "X1": EX.launches_exponents, "Q1": QZ.launches_quantize}
     try:
         yield w
     finally:
         for k, fn in orig.items():
             setattr(QZ if k == "quantize" else PE, k, fn)
-        for k, m in eager.items():
-            setattr(m, k, orig_eager[k])
-        w["launches"] = {"E1": SS.launches_snr_search - before["E1"],
+        for (m, k), fn in zip(eager, orig_eager):
+            setattr(m, k, fn)
+        w["launches"] = {"M1": WM.launches_window_mdct - before["M1"],
+                         "E1": SS.launches_snr_search - before["E1"],
                          "X1": EX.launches_exponents - before["X1"],
                          "Q1": QZ.launches_quantize - before["Q1"]}
 
 
 def core_assert(w, tag):
-    """Every core call of a watched run launched E1, X1 and Q1 once each,
-    and no frame core took an eager step -> the launches by kernel."""
+    """Every core call of a watched run launched M1, E1, X1 and Q1 once
+    each, and no frame core took an eager step -> the launches by
+    kernel."""
     assert w["core"] >= 1 and all(
         n == w["core"] for n in w["launches"].values()), (
         tag, w["core"], w["launches"])
-    assert not any(w[k] for k in E1_EAGER + X1_EAGER + Q1_EAGER), (tag, w)
+    assert not any(w[k] for k in CORE_EAGER), (tag, w)
     return w["launches"]
 
 
@@ -3559,6 +3626,193 @@ def phase_check_q1(dev):
     return 0.0
 
 
+# M1 (csrc/window_mdct.cu: the window, the block-float normalize and the
+# MDCT) on crafted rows: every channel count, row counts 1, 3 and 4,097
+# (one transform to a partial CTA of eight warps and the grid-stride
+# loop's tail), each case's transforms starting with the edge block pairs
+# of m1_edges (rotated by the case's seed), the rest noise at four scales;
+# with wide, a third of the transforms int32 well outside int16
+M1_CHANNELS = tuple(range(1, 7))
+M1_ROWS = (1, 3, 4097)
+# the least integer work of one transform of M1's function, counted from
+# ops/mdct.py: the window 512 x (multiply, shift, wrap); the normalize's
+# |x| and OR, then its shift and wrap, 512 x 4; the rotation's negate and
+# wrap of 128 x 2 samples; the pre-rotation 128 x (two subtracts, a
+# negate, two shifts, two multiplies and two multiply-adds, two shifts,
+# two wraps); the FFT's 448 butterflies x (four adds, four shifts, four
+# wraps) and its 289 twiddled ones x (two multiplies, two multiply-adds,
+# two shifts), pass 1's 32 negates; the post-rotation 128 x (two
+# multiplies, two multiply-adds, two shifts)
+M1_TRANSFORM_OPS = (512 * 3 + 512 * 4 + 128 * 2 * 2 + 128 * 13
+                    + 448 * 12 + 289 * 6 + 32 + 128 * 6)
+# the static instruction count of M1's kernel in this build's SASS
+# (phase_build counts it): its loop body runs once a transform a warp
+M1_SASS = {}
+
+
+def m1_edges():
+    """Edge (prev, cur) block pairs, numpy int32 [E, 2, 256]: +-32767 and
+    32767 / -32768 square waves (enc_extremes'), silence, single impulses
+    at 0, 100 and 255 of each sign in either block, a -32768 DC, blocks of
+    +-1 (the largest shift, 14), DC at +-2^k (k = 1..15, 2^15 clipped to
+    32767), noise at four scales, and a back sample
+    just outside int16 (46634 at cur[128], windowed by w[127] = 23025 to
+    32768, which wraps to -32768 at x[384], where the rotation negates it
+    and -(-32768) wraps back)."""
+    rng = np.random.default_rng(17)
+    i = np.arange(256)
+    sq = np.where(i % 32 < 16, 32767, -32767)
+    sq8 = np.where(i % 8 < 4, 32767, -32768)
+    zero = np.zeros(256, np.int64)
+    pairs = [(sq, sq8), (sq8, sq), (zero, zero), (sq8, zero), (zero, sq8),
+             (np.full(256, -32768), np.full(256, -32768)),
+             (np.where(i % 2, 1, -1), np.where(i % 3, -1, 1))]
+    for at in (0, 100, 255):
+        for val in (32767, -32768):
+            imp = zero.copy()
+            imp[at] = val
+            pairs += [(imp, zero), (zero, imp)]
+    for scale in (10.0, 300.0, 8000.0, 30000.0):
+        pairs.append(tuple((rng.standard_normal(256) * scale).round()
+                           for _ in range(2)))
+    for k in range(1, 16):               # DC at 2^k: every shift 0..13
+        pairs.append((np.full(256, 1 << k), np.full(256, -(1 << k))))
+    wrap = zero.copy()
+    wrap[128] = 46634
+    pairs.append((zero, wrap))
+    pairs.append((sq, wrap + sq8 * (i != 128)))
+    out = np.clip(np.array(pairs, np.int64), -32768, 32767)
+    out[-2:, 1, 128] = 46634
+    return out.astype(np.int32)
+
+
+def m1_case(nch, rows, seed, wide=False):
+    """Crafted M1 inputs, numpy: (prev, cur) int32 [rows, 6, nch, 256]; the
+    transforms start with m1_edges' pairs rotated by seed, the rest noise
+    at four scales (int16); with wide, every third transform's samples
+    are int32 over the whole range (products wrap)."""
+    rng = np.random.default_rng(seed)
+    n = rows * 6 * nch
+    edges = m1_edges()
+    e = np.roll(edges, -(seed % len(edges)), axis=0)[:n]
+    scale = rng.choice([10.0, 300.0, 8000.0, 30000.0], (n, 2, 1))
+    x = np.clip((rng.standard_normal((n, 2, 256)) * scale).round(),
+                -32768, 32767).astype(np.int64)
+    x[:len(e)] = e
+    if wide:
+        x[::3] = rng.integers(-2**31, 2**31, (len(x[::3]), 2, 256))
+        x[::3, :, :4] = [2**31 - 1, -2**31, 1 << 16, -(1 << 16)]
+    x = x.astype(np.int32).reshape(rows, 6, nch, 2, 256)
+    return (np.ascontiguousarray(x[..., 0, :]),
+            np.ascontiguousarray(x[..., 1, :]))
+
+
+def m1_same(call):
+    """One recorded window_mdct call (prev, cur, then (coef,
+    exp_samples)) against window_mdct_ref on the same inputs and device,
+    bitwise -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops.window_mdct import window_mdct_ref
+    prev, cur, got = call
+    want = window_mdct_ref(prev, cur)
+    for name, g, w in zip(("coef", "exp_samples"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(
+                f"M1 != window_mdct_ref in {name}: max |diff| "
+                f"{int((g.long() - w.long()).abs().max())} on "
+                f"{int((g != w).sum())} values")
+    return 0.0
+
+
+def m1_bound(cur):
+    """M1 on cur [N, 6, ch, 256]'s transforms: (bound_ms, "bytes" |
+    "operations", the design's model ms).  stage_least_bytes' row (the
+    two blocks in as int16, a coefficient out as int32, the shift a byte)
+    at the card's memory rate against M1_TRANSFORM_OPS a transform at its
+    issue rate; the model, the kernel's static SASS count (M1_SASS, its
+    loop body once a transform) issued by each of a warp's 32 lanes at the
+    same rate: a model of the design, not a measurement, so it stays on
+    M1's log line and out of the kernels line."""
+    N, _, ch, _ = cur.shape
+    n = N * 6 * ch
+    t_bytes = stage_least_bytes(N, (0,) * ch, 0, 0)[
+        "window + normalize + MDCT"] / PEAK_BYTES * 1e3
+    t_ops = n * M1_TRANSFORM_OPS / PEAK_ISSUE * 1e3
+    model = n * 32 * M1_SASS.get("window_mdct_kernel", 0) / PEAK_ISSUE * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", model)
+
+
+def m1_times(call):
+    """M1 and its plain version on one recorded core call's inputs: ms
+    (device time, median of 7 after 2 warm-ups), plain_ms, the bound and
+    the design's model.  No PyTorch call computes the truncating int16
+    FFT: library_ms is null."""
+    from ac3acm_tpu_torch.ops import window_mdct as WM
+    prev, cur, _ = call
+    ms = device_ms(lambda: WM.window_mdct(prev, cur))
+    plain_ms = cuda_ms(lambda: WM.window_mdct_ref(prev, cur), warmup=1,
+                       reps=3)
+    bound_ms, bound_by, model_ms = m1_bound(cur)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, model_ms=model_ms)
+
+
+def phase_check_m1(dev):
+    """M1 (csrc/window_mdct.cu) against its plain version BITWISE (coef
+    and exp_samples) on the crafted cases of m1_case: 1 to 6 channels x
+    1, 3 and 4,097 rows, twice each (the same values); rows of int32
+    outside int16 (the products wrap as unsigned); no rows (no launch); bad
+    inputs raise.  -> max |diff| (0)."""
+    from ac3acm_tpu_torch.ops import window_mdct as WM
+    transforms, shifts = 0, set()
+    for nch in M1_CHANNELS:
+        for rows in M1_ROWS:
+            for wide in (False, True):
+                prev, cur = (torch.from_numpy(a).to(dev) for a in m1_case(
+                    nch, rows, 1800 + 10 * nch + rows, wide))
+                before = WM.launches_window_mdct
+                out = WM.window_mdct(prev, cur)
+                again = WM.window_mdct(prev, cur)
+                assert WM.launches_window_mdct == before + 2, (nch, rows)
+                assert all(torch.equal(a, b) for a, b in zip(out, again))
+                m1_same((prev, cur, out))
+                transforms += prev.numel() // 256
+                shifts |= set(out[1].unique().tolist())
+    assert shifts == set(range(-9, 6)), sorted(shifts)
+    before = WM.launches_window_mdct
+    coef, es = WM.window_mdct(prev[:0], cur[:0])
+    assert coef.shape == (0, 6, nch, 256) and es.shape == (0, 6, nch)
+    assert WM.launches_window_mdct == before, "a call of no rows launched"
+    flat = torch.zeros(cur.numel() + 4, dtype=torch.int32, device=dev)
+    for i, bad, err in (
+            (0, prev.to(torch.int64), TypeError),
+            (1, cur.to(torch.int16), TypeError),
+            (1, cur[:-1].contiguous(), ValueError),
+            (0, prev[:, :5].contiguous(), ValueError),
+            (1, cur[..., :255].contiguous(), ValueError),
+            (0, prev.transpose(0, 1).contiguous().transpose(0, 1),
+             ValueError),
+            (1, flat[1:1 + cur.numel()].view(cur.shape), ValueError),
+            (1, cur.cpu(), ValueError),
+            (0, prev.to("meta"), ValueError)):
+        args = [prev, cur]
+        args[i] = bad
+        try:
+            WM.window_mdct(*args)
+            raise AssertionError(f"bad argument {i} was accepted")
+        except err:
+            pass
+    log(f"check window_mdct (M1): {len(M1_CHANNELS)} channel counts x rows "
+        f"{M1_ROWS} x int16 and wide int32 samples = {transforms} "
+        f"transforms, each case launched twice (the same values), equal to "
+        f"window_mdct_ref bitwise in coef and exp_samples (every shift "
+        f"{min(shifts)}..{max(shifts)}); the edge pairs (square waves, "
+        f"silence, impulses at 0, 100, 255, -32768 at x[384]); no rows: no "
+        f"launch; a wrong dtype, a short, a 5-block, a 255-bin, a strided, "
+        f"an unaligned, a CPU and a meta input raise")
+    return 0.0
+
+
 def enc_extremes(seed=0):
     """Integer edge cases of the encoder's filterbank and quantizer, as
     numpy inputs: block pairs (full-scale +-32767 / -32768 square waves,
@@ -3621,10 +3875,19 @@ def enc_extreme_outputs(d, device):
 
 def phase_enc_extremes():
     """The encoder's integer primitives on the card equal their CPU runs
-    (which tests/test_torch_mdct.py holds to the JAX package) on the
-    edge cases of enc_extremes."""
+    (which tests/test_torch_mdct.py and tests/test_torch_window_mdct.py
+    hold to the JAX package) on the edge cases of enc_extremes; M1 on the
+    card against window_mdct_ref on the CPU."""
+    from ac3acm_tpu_torch.ops import window_mdct as WM
     d = enc_extremes()
     card, cpu = enc_extreme_outputs(d, "cuda"), enc_extreme_outputs(d, "cpu")
+    # M1 on the pair's rows tiled to [3, 6, 2, 256]
+    pair = [torch.from_numpy(np.resize(d[k], (36, 256)).reshape(
+        3, 6, 2, 256)) for k in ("last", "cur")]
+    for outs, dev in ((card, "cuda"), (cpu, "cpu")):
+        got = WM.window_mdct(*(p.to(dev) for p in pair))
+        outs["window_mdct"], outs["window_mdct_shift"] = (
+            g.cpu().numpy() for g in got)
     bad = [k for k in cpu if not np.array_equal(card[k], cpu[k])]
     e = d["qenc"] - d["qgexp"][:, None]
     log(f"encoder int semantics on the card == on the CPU for "
@@ -3680,20 +3943,22 @@ def enc_bench_pcm(channels, nframes, lanes):
 def phase_enc_main():
     """Configs 3 and 4: device pack == native pack on every frame;
     x-realtime end to end and on the device alone; peak memory; the stage
-    table; the core's frame grouping both ways.  E1, X1 and Q1 once a core
-    call in the end-to-end runs and their eager steps never; P1 once a
-    core call with pack="device", never with "native"; every E1, X1, Q1
-    and P1 call of one device-alone run held to its plain version; their
-    times at each core call's shape.  -> ({label: numbers}, E1's, X1's and
-    Q1's launches in the end-to-end runs by kernel, E1's worst |diff|,
-    {label: E1's times}, P1's launches there, {label: P1's times},
-    {label: X1's times}, {label: Q1's times})."""
+    table; the core's frame grouping both ways.  M1, E1, X1 and Q1 once a
+    core call in the end-to-end runs and their eager steps never; P1 once a
+    core call with pack="device", never with "native"; every M1, E1, X1,
+    Q1 and P1 call of one device-alone run held to its plain version;
+    their times at each core call's shape.  -> ({label: numbers}, M1's,
+    E1's, X1's and Q1's launches in the end-to-end runs by kernel, E1's
+    worst |diff|, {label: E1's times}, P1's launches there, {label: P1's
+    times}, {label: X1's times}, {label: Q1's times}, {label: M1's
+    times})."""
     from ac3acm_tpu_torch.host import pack as PK
     from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
     report, e1_times_by, e1_err = {}, {}, 0.0
-    core_launches = {"E1": 0, "X1": 0, "Q1": 0}
+    core_launches = {"M1": 0, "E1": 0, "X1": 0, "Q1": 0}
     p1_times_by, p1_launches, x1_times_by, q1_times_by = {}, 0, {}, {}
+    m1_times_by = {}
     for label, B, F, nch, kbps in ENC_MAIN:
         pcm = enc_bench_pcm(nch, F, B)
         audio_s = B * F * 1536 / 48000.0
@@ -3720,10 +3985,10 @@ def phase_enc_main():
             log(f"encode {label} pack={pack}: {B} lanes x {F} frames, "
                 f"{nch} ch {kbps} kbit/s, int16 PCM on the host -> bytes on "
                 f"the host: {dts[pack]:.3f} s -> {audio_s / dts[pack]:.0f}x "
-                f"realtime; peak {peak / 1e9:.2f} GB; E1, X1, Q1 launches "
+                f"realtime; peak {peak / 1e9:.2f} GB; M1, E1, X1, Q1 launches "
                 f"{watch['launches']} for {watch['core']} core calls, P1 "
                 f"launches {p1}, eager steps in the core "
-                f"{sum(watch[k] for k in E1_EAGER + X1_EAGER + Q1_EAGER)}")
+                f"{sum(watch[k] for k in CORE_EAGER)}")
             assert peak <= PEAK_MEM_LIMIT
         same = outs["device"] == outs["native"]
         nbytes = sum(map(len, outs["device"]))
@@ -3766,6 +4031,26 @@ def phase_enc_main():
             f"{t['design_floor_ms']:.4f} ms "
             f"({t['design_floor_ms'] / t['ms']:.2%}); library_ms null (no "
             f"PyTorch call computes the curve and the search)")
+        assert not any(m1_same(c) for c in watch["m1_calls"])
+        m1_times_by[label] = dict(m1_times(watch["m1_calls"][0]),
+                                  rows=watch["m1_calls"][0][0].shape[0])
+        t = m1_times_by[label]
+        n = t["rows"] * 6 * nch
+        log(f"encode {label}: all {len(watch['m1_calls'])} M1 calls of a "
+            f"device-alone run equal to window_mdct_ref bitwise (coef, "
+            f"exp_samples); time window_mdct (M1) at a core call "
+            f"[{t['rows']}, 6, {nch}, 256] ({n} transforms): kernel_ms "
+            f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+            f"{t['bound_ms']:.4f} -> {t['bound_by']} "
+            f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time; the "
+            f"function's {M1_TRANSFORM_OPS} integer instructions a transform "
+            f"at {PEAK_ISSUE:.4e}/s: {n * M1_TRANSFORM_OPS / PEAK_ISSUE * 1e3:.4f}"
+            f" ms); the design's model, not a measurement (the kernel's "
+            f"{M1_SASS.get('window_mdct_kernel', 0)} SASS instructions, its "
+            f"loop body once a transform, issued by 32 lanes at the same "
+            f"rate) {t['model_ms']:.4f} ms ({t['model_ms'] / t['ms']:.2%}); "
+            f"library_ms null (no PyTorch call computes the truncating int16 "
+            f"FFT)")
         assert not any(x1_same(c) for c in watch["x1_calls"])
         assert not any(q1_same(c) for c in watch["q1_calls"])
         x1_times_by[label] = dict(x1_times(watch["x1_calls"][0]),
@@ -3859,7 +4144,7 @@ def phase_enc_main():
         del x, enc, outs, res, host, fr
         torch.cuda.empty_cache()
     return (report, core_launches, e1_err, e1_times_by, p1_launches,
-            p1_times_by, x1_times_by, q1_times_by)
+            p1_times_by, x1_times_by, q1_times_by, m1_times_by)
 
 
 def phase_enc_single():
@@ -3893,7 +4178,8 @@ def phase_enc_single():
     api = b"".join(a52.AC3_encode_frame(h, p17[f * 1536:(f + 1) * 1536])
                    for f in range(17))
     log(f"single-stream Encoder: {ENC_SINGLE_FRAMES} frames in {dt:.3f} s "
-        f"-> {audio_s / dt:.1f}x realtime, E1, X1, Q1 launches {launches} "
+        f"-> {audio_s / dt:.1f}x realtime, M1, E1, X1, Q1 launches "
+        f"{launches} "
         f"for "
         f"{watch['core']} core calls; a 17-frame call == lane 0 of "
         f"BatchedEncoder {one == lane}; PcmToAc3Stream (feeds of 7 B..) == "
@@ -3926,7 +4212,7 @@ def phase_transcode():
     audio_s = TC_BATCH * TC_NCHUNKS * TC_CHUNK_FRAMES * 1536 / 48000.0
     launches, worst, rt, errs, wires = {}, {}, {}, {}, {}
     outs = {}
-    # E1's, X1's, Q1's and P1's calls of the first native f32 chunk,
+    # M1's, E1's, X1's, Q1's and P1's calls of the first native f32 chunk,
     # recorded (inputs and outputs cloned) in an untimed pass of their own
     with core_watch(record=True) as w, p1_watch(record=True) as pw:
         Transcoder(TC_BATCH, 192000, 2).step_frames(chunks[0],
@@ -3935,6 +4221,7 @@ def phase_transcode():
     assert pw["launches"] == pw["n"] == w["core"], (pw["n"], w["core"])
     e1_calls, p1_calls = w["calls"], pw["calls"]
     x1_calls, q1_calls = w["x1_calls"], w["q1_calls"]
+    m1_calls = w["m1_calls"]
     for tag, kw, lanes, want in (
             ("native f32", {}, chunks, ("B1F",)),
             ("native compact", dict(compact_h2d=True), chunks, ("B1F",)),
@@ -3969,8 +4256,8 @@ def phase_transcode():
         counts = kernel_counts()
         outs[tag] = got
         for c in per_chunk:
-            assert all(c[k] >= 1 for k in want + ("E1", "X1", "Q1", "P1")
-                       ), (tag, per_chunk)
+            assert all(c[k] >= 1 for k in want + ("M1", "E1", "X1", "Q1",
+                                                  "P1")), (tag, per_chunk)
             assert c["K1"] == 0 and c["B1"] == 0, (tag, per_chunk)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
@@ -3990,11 +4277,13 @@ def phase_transcode():
     worst["P1"] = max(p1_same(call) for call in p1_calls)
     worst["X1"] = max(x1_same(call) for call in x1_calls)
     worst["Q1"] = max(q1_same(call) for call in q1_calls)
+    worst["M1"] = max(m1_same(call) for call in m1_calls)
     log(f"transcode: the first native f32 chunk's {len(e1_calls)} E1 calls "
         f"equal to the plain version bitwise (M, fstar, bap), its "
-        f"{len(x1_calls)} X1 and {len(q1_calls)} Q1 calls to theirs, its "
-        f"{len(p1_calls)} P1 calls to pack_frames_ref byte for byte")
-    del e1_calls, p1_calls, x1_calls, q1_calls
+        f"{len(m1_calls)} M1, {len(x1_calls)} X1 and {len(q1_calls)} Q1 "
+        f"calls to theirs, its {len(p1_calls)} P1 calls to pack_frames_ref "
+        f"byte for byte")
+    del e1_calls, p1_calls, x1_calls, q1_calls, m1_calls
     dig = tc_digest(outs["native f32"])
     same_raw = outs["raw"] == outs["native f32"]
     ndiff = sum(a != b for a, b in zip(outs["native compact"],
@@ -4971,8 +5260,8 @@ def phase_mesh():
     for c in rec[1]:
         assert c["B1F"] >= data and c["K1"] == 0 and c["B1"] == 0, rec[1]
         assert c["E1"] >= data and c["P1"] >= data, rec[1]
-        # one X1 and one Q1 launch a core call, as E1's
-        assert c["X1"] == c["Q1"] == c["E1"], rec[1]
+        # one M1, X1 and Q1 launch a core call, as E1's
+        assert c["M1"] == c["X1"] == c["Q1"] == c["E1"], rec[1]
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
     same = rec[0] == one[0] and timed[0] == one[0]
@@ -5057,6 +5346,7 @@ def main():
     p1_err = phase_check_p1(dev)
     x1_err = phase_check_x1(dev)
     q1_err = phase_check_q1(dev)
+    m1_err = phase_check_m1(dev)
     with accuracy("fast"):
         launches, native_plain, fast_rt = phase_main_path()
         torch.cuda.empty_cache()
@@ -5088,12 +5378,12 @@ def main():
     phase_enc_extremes()
     phase_enc_digests()
     (_, core_launches, e1_main_err, e1_times_by, p1_launches,
-     p1_times_by, x1_times_by, q1_times_by) = phase_enc_main()
+     p1_times_by, x1_times_by, q1_times_by, m1_times_by) = phase_enc_main()
     _, core_single = phase_enc_single()
     torch.cuda.empty_cache()
     tc_launches, tc_errs, _ = phase_transcode()
     b1f_launches += tc_launches["B1F"]
-    for k in ("E1", "X1", "Q1"):
+    for k in ("M1", "E1", "X1", "Q1"):
         log(f"{k} launches: configs 3 and 4 (end to end, both packers) "
             f"{core_launches[k]}, single-stream Encoder {core_single[k]}, "
             f"transcode {tc_launches[k]}")
@@ -5101,6 +5391,7 @@ def main():
     e1_err = max(e1_err, e1_main_err, tc_errs.pop("E1"))
     x1_err = max(x1_err, tc_errs.pop("X1"))
     q1_err = max(q1_err, tc_errs.pop("Q1"))
+    m1_err = max(m1_err, tc_errs.pop("M1"))
     log(f"P1 launches: configs 3 and 4 (end to end, pack='device') "
         f"{p1_launches}, transcode {tc_launches['P1']}")
     p1_launches += tc_launches["P1"]
@@ -5112,7 +5403,7 @@ def main():
     torch.cuda.empty_cache()
     mesh_launches, mesh_errs = phase_mesh()
     launches += mesh_launches["K1"]
-    for k in ("E1", "X1", "Q1"):
+    for k in ("M1", "E1", "X1", "Q1"):
         core_launches[k] += mesh_launches[k]
     p1_launches += mesh_launches["P1"]
     b1f_launches += mesh_launches["B1F"]
@@ -5201,11 +5492,15 @@ def main():
              "116,316-384 (XLA; no pallas_call)", "X1", x1_err, x1_times_by),
             ("quantize (Q1)", "quantize.cu",
              "ac3acm_tpu/models/encoder.py:148-180 (XLA; no pallas_call)",
-             "Q1", q1_err, q1_times_by)):
+             "Q1", q1_err, q1_times_by),
+            ("window_mdct (M1)", "window_mdct.cu",
+             "ac3acm_tpu/ops/mdct.py:64,129,162 (XLA; no pallas_call)",
+             "M1", m1_err, m1_times_by)):
         t = dict(by["config 3"])
         t.update({f"{k}_51": v for k, v in by["config 4"].items()
                   if k in ("ms", "plain_ms", "bound_ms")})
         t.pop("rows")
+        t.pop("model_ms", None)
         kernels.append(dict(
             name=name, route="cuda", source=f"ac3acm_tpu_torch/csrc/{src}",
             replaces=replaces, launches=core_launches[key], max_abs_err=err,
