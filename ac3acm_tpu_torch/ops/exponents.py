@@ -40,7 +40,8 @@ in [-16, 24]: one byte holds it, its ``.view(torch.uint8)`` is the
 bytes as signed.
 
 On CUDA tensors it launches the hand-written kernel X1
-(csrc/exponents.cu), once a call.  On CPU tensors it runs
+(csrc/exponents.cu), once a call: persistent CTAs walk the rows, the next
+row's coefficients on their way while a row is coded.  On CPU tensors it runs
 ``exponents_ref``, the plain version: ops.mdct.extract_exponents, then
 ``strategy``, ``encode_exponents`` (the run fold, three
 ``encode_exp_static`` calls and the LFE's, the reuse copy), as eager
@@ -186,8 +187,22 @@ def _bind(lib):
     p, i = C.c_void_p, C.c_int
     lib.exponents_launch.restype = i
     lib.exponents_launch.argtypes = [p, p, i, p, p, p, C.c_longlong, i, p]
+    lib.exponents_resident.restype = i
+    lib.exponents_resident.argtypes = [i]
     lib.exponents_error_string.restype = C.c_char_p
     lib.exponents_error_string.argtypes = [i]
+
+
+def resident_ctas(nch: int) -> int:
+    """The CTAs X1 keeps on one SM of the current card for nch channels
+    (a launch takes that many an SM, or one a row for fewer rows; each
+    walks its rows)."""
+    lib = _cuda.load("exponents", _bind)
+    n = lib.exponents_resident(nch)
+    if n <= 0:
+        raise RuntimeError("exponents_resident failed: "
+                           + lib.exponents_error_string(-n).decode())
+    return n
 
 
 def _check(coef, exp_samples, nb, lfe):

@@ -4,9 +4,9 @@
 batch of frame fields into finished frames (``pack_frames_device(cfg)``
 returns that call's packer, as in the JAX package), byte for byte
 host/pack.py:pack_frame.  On CUDA tensors it launches the hand-written
-kernel P1 (csrc/pack.cu:pack_frames_kernel), once a call: one CTA a frame
-builds the frame in shared memory, offsets, deposit and both CRCs
-included, and writes only its bytes.  On CPU tensors it runs
+kernel P1 (csrc/pack.cu:pack_frames_kernel), once a call: one warp a
+frame builds the frame in its slice of shared memory, offsets, deposit and
+both CRCs included, and writes only its bytes.  On CPU tensors it runs
 ``pack_frames_ref``, the plain version.  There is no other path.  The JAX
 package computes the same function as XLA (ac3acm_tpu/ops/pack_device.py
 :361 pack_frames_device), with no pallas_call.
@@ -369,8 +369,10 @@ def pack_frames_ref(cfg, bap, qmant, enc_exp, strat, csnr, fsnr, clock=None):
 
 # csrc/pack.cu's table layout (int32): the first index of each section
 _TAB_GMAX, _TAB_NB, _TAB_NSLOTS, _TAB_NG, _TAB_SPAN = 4, 8, 16, 24, 48
-_TAB_CRC, _TAB_MULT1, _TAB_MULT2, _TAB_SLOTS = 72, 328, 584, 840
+_TAB_CRC, _TAB_MULT1, _TAB_MULT2, _TAB_SLOTS = 72, 328, 360, 392
 MAX_SLOTS = 96
+# a frame's threads (one warp): the CRC chunks, one a lane
+LANES = 32
 _TAB_SIZE = _TAB_SLOTS + 6 * MAX_SLOTS
 # in the order csrc/pack.cu:pack_frames_layout gives them
 LAYOUT = (_TAB_GMAX, _TAB_NB, _TAB_NSLOTS, _TAB_NG, _TAB_SPAN, _TAB_CRC,
@@ -379,11 +381,6 @@ LAYOUT = (_TAB_GMAX, _TAB_NB, _TAB_NSLOTS, _TAB_NG, _TAB_SPAN, _TAB_CRC,
 # (chbwcod, gainrng); the strategy; the first exponent; the exponent
 # groups; the coarse and the fine snr offset
 K_CONST, K_COND, K_STRAT, K_EXP0, K_GROUPS, K_CSNR, K_FSNR = range(7)
-
-
-def kernel_threads(nch: int) -> int:
-    """P1's threads a CTA (csrc/pack.cu:threads_for)."""
-    return 128 if nch <= 2 else 256
 
 
 def _merged(slots):
@@ -445,10 +442,11 @@ def schedule(cfg):
 
 
 def _crc_multipliers(a: int, e: int, threads: int, mult: int):
-    """Per thread of csrc/pack.cu:crc_part over bytes [a, e): mult x
-    x^(8 x the bytes after its chunk) mod the CRC polynomial."""
+    """Per lane of csrc/pack.cu:crc_part over bytes [a, e), cut into
+    `threads` chunks: mult x x^(8 x the bytes after its chunk) mod the CRC
+    polynomial."""
     chunk = -(-(e - a) // threads)
-    out = np.zeros(256, np.int64)
+    out = np.zeros(threads, np.int64)
     for t in range(threads):
         end = min(a + (t + 1) * chunk, e)
         after = e - end if a + t * chunk < e else 0
@@ -477,12 +475,11 @@ def kernel_table(cfg) -> np.ndarray:
     tab[_TAB_CRC:_TAB_CRC + 256] = crc_table()
     total = cfg.frame_size * 2
     fs58 = (cfg.frame_size >> 1) + (cfg.frame_size >> 3)
-    threads = kernel_threads(nch)
     crc_inv = pow_poly(CRC16_POLY >> 1, 16 * fs58 - 16, CRC16_POLY)
-    tab[_TAB_MULT1:_TAB_MULT1 + 256] = _crc_multipliers(4, 2 * fs58,
-                                                        threads, crc_inv)
-    tab[_TAB_MULT2:_TAB_MULT2 + 256] = _crc_multipliers(2 * fs58, total - 2,
-                                                        threads, 1)
+    tab[_TAB_MULT1:_TAB_MULT1 + LANES] = _crc_multipliers(4, 2 * fs58,
+                                                          LANES, crc_inv)
+    tab[_TAB_MULT2:_TAB_MULT2 + LANES] = _crc_multipliers(2 * fs58,
+                                                          total - 2, LANES, 1)
     for blk, slots in enumerate(schedule(cfg)):
         if len(slots) > MAX_SLOTS:
             raise ValueError(f"block {blk} has {len(slots)} slots, the "
@@ -505,23 +502,41 @@ def _bind(lib):
     lib.pack_frames_launch.restype = i
     lib.pack_frames_launch.argtypes = [p, p, p, p, p, p, p, i, i, p,
                                        C.c_longlong, i, p]
-    lib.pack_frames_threads.restype = i
-    lib.pack_frames_threads.argtypes = [i]
+    lib.pack_frames_warps.restype = i
+    lib.pack_frames_warps.argtypes = [i, i]
+    lib.pack_frames_resident.restype = i
+    lib.pack_frames_resident.argtypes = [i, i]
     lib.pack_frames_layout.restype = i
     lib.pack_frames_layout.argtypes = [p]
     lib.pack_frames_error_string.restype = C.c_char_p
     lib.pack_frames_error_string.argtypes = [i]
 
 
+def cta_warps(cfg) -> int:
+    """The warps of one P1 CTA for cfg, a frame each at a time
+    (csrc/pack.cu:cta_warps: 8 up to two channels, 16 above, fewer where
+    the frames' shared memory would not fit a CTA)."""
+    return _lib().pack_frames_warps(cfg.channels, cfg.frame_size * 2)
+
+
+def resident_frames(cfg) -> int:
+    """The frames P1 holds at once on one SM of the current card for cfg
+    (its CTAs an SM, by registers and shared memory, times their warps)."""
+    lib = _lib()
+    n = lib.pack_frames_resident(cfg.channels, cfg.frame_size * 2)
+    if n <= 0:
+        raise RuntimeError("pack_frames_resident failed: "
+                           + lib.pack_frames_error_string(-n).decode())
+    return n
+
+
 def _lib():
     lib = _cuda.load("pack", _bind)
     layout = (C.c_int * 16)()
     n = lib.pack_frames_layout(layout)
-    if (tuple(layout[:n]) != LAYOUT
-            or any(lib.pack_frames_threads(n) != kernel_threads(n)
-                   for n in range(1, 7))):
-        raise RuntimeError("csrc/pack.cu's table layout or threads differ "
-                           "from ops/pack_device.py's")
+    if tuple(layout[:n]) != LAYOUT:
+        raise RuntimeError("csrc/pack.cu's table layout differs from "
+                           "ops/pack_device.py's")
     return lib
 
 

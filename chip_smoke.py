@@ -137,15 +137,20 @@ Phases, each fatal on failure (nothing is caught and passed over):
                P1_KINDS: every class and strategy, grouped classes only
                (groups across channels, incomplete last groups), D15, D25
                and D45 throughout, reused exponents, a frame filled to its
-               last payload bit, frames that overrun), each launched
-               twice; [F, B] leading axes; no frames (no launch);
+               last payload bit, a block coded on every live bin, the
+               16-bin chunk that straddles each channel's last live bin,
+               frames that overrun), each launched twice; 1 frame and a
+               CTA's warps - 1 and + 1 (8 up to two channels, 16 above: its
+               last warp idle, a second CTA of one frame); [F, B] leading axes; no frames (no launch);
                refusals.  In the encode phases below: P1 once a core call
                with pack="device" and never with "native"; every P1 call
                of one device-alone run of configs 3 and 4 and of the
                transcode's first chunk held to its plain version byte for
                byte; its time at each config's call beside its byte bound
                (pack_least_bytes, from that call's own fields) and the
-               plain version
+               plain version; and on a loud encode (full-scale white noise
+               at config 4's format, most live bins coded), every call
+               held byte for byte and the first timed beside its bound
  17c. X1       the exponent stage (X1, csrc/exponents.cu: raw exponents,
                strategy, run fold, coding, reuse copy) equal to its plain
                version (exponents_ref, the eager chain) BITWISE in the 256
@@ -155,8 +160,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
                blocks 1-5 in every full-band channel, diff sums of exactly
                1000 and 1001, dead bins 223-228 unlike the live ones,
                all-zero blocks and channels, overranging coefficients,
-               |c| near 2^17 and 2^31; each launched twice; one row, none
-               (no launch); refusals (nb other than 223 too).  In the
+               |c| near 2^17 and 2^31; each launched twice; one row,
+               twice the resident CTAs' rows + 1 (each CTA walks two or
+               three), none (no launch); refusals (nb other than 223
+               too).  In the
                encode phases below: X1 once a core call and no eager
                exponent step in a frame core; every X1 call of one
                device-alone run of configs 3 and 4 and of the transcode's
@@ -203,13 +210,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
                bench.py:_encode_pcm's content: device pack == native pack
                on every frame; x-realtime end to end (int16 PCM on the host
                in, bytes on the host out) and on the device alone; peak
-               memory; each stage's CUDA-event time, ATen op count,
-               least bytes and peak allocated memory (the pack one "pack"
-               row, P1; the window + normalize + MDCT one M1 launch, the
-               exponents one X1 launch, the quantize one Q1 launch); the
-               core's frame
-               grouping both ways; the host packer alone
- 20. single enc Encoder over 512 frames (x-realtime); a 17-frame call
+               memory; each stage's CUDA-event time (the least total of
+               three runs, each enqueued behind a held card), ATen op
+               count, least bytes and peak allocated memory (the pack one
+               "pack" row, P1; the window + normalize + MDCT one M1
+               launch, the exponents one X1 launch, the quantize one Q1
+               launch); the core's frame grouping both ways; the host
+               packer alone
+ 20. single enc Encoder over 512 frames (x-realtime); X1's and P1's
+               wrappers' host cost at its 16-row call, and the occupancy
+               query each launch function makes once; a 17-frame call
                (across Encoder.CHUNK) == lane 0 of BatchedEncoder ==
                PcmToAc3Stream fed in ragged pieces == the a52 encode API;
                a round trip through Decoder() above 12 dB SNR
@@ -372,6 +382,19 @@ def cuda_ms(fn, warmup=2, reps=7):
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return float(np.median(times))
+
+
+def host_us(fn, reps=200):
+    """Mean host microseconds of one fn() call: what it costs to enqueue
+    (no synchronize between calls; a small call leaves the card idle)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def phase_card():
@@ -2930,7 +2953,7 @@ P1_CONFIGS = ((1, 48000, 64), (1, 32000, 96), (2, 48000, 192),
               (5, 32000, 448), (6, 48000, 640), (6, 32000, 640),
               (2, 24000, 96))
 P1_KINDS = ("random", "grouped", "d15", "d25", "d45", "reuse", "fill",
-            "overrun")
+            "dense", "edge", "overrun")
 P1_ROWS_A_KIND = 3
 # pack_frames_device's arguments after cfg, as the encoder's fields name
 # them
@@ -2957,7 +2980,12 @@ def p1_fields(cfg, kind, rng, rows=P1_ROWS_A_KIND):
     block's last group is incomplete); "d15", "d25", "d45" that strategy
     on every full-band channel of every block; "reuse" blocks 1-5 reused;
     "fill" a frame filled to its last payload bit; "overrun" a frame past
-    its size.  All but "overrun" fit their frame."""
+    its size; "dense" block 2 with a class on every live bin of every
+    channel (14s and 15s first, then 1s until it fits: 14- and 16-bit
+    tokens straddle words, every chunk is coded); "edge" 14s and 15s on the
+    17 bins that end each channel's live bins (P1's 16-bin chunk that
+    straddles the last live bin), dead bins 15.  All but "overrun" fit
+    their frame."""
     nch, total = cfg.channels, cfg.frame_size * 2
     nb = np.asarray(cfg.nb_coefs)
     shape = (rows, 6, nch, 256)
@@ -2965,6 +2993,14 @@ def p1_fields(cfg, kind, rng, rows=P1_ROWS_A_KIND):
     cap = 8 * (total - 2)
     if kind == "grouped":
         cls = rng.choice([0, 1, 2, 4], shape, p=[0.1, 0.3, 0.3, 0.3])
+    elif kind == "dense":
+        cls = np.zeros(shape, np.int64)
+        cls[:, 2] = rng.choice([14, 15, 1, 2, 4, 3, 9], (rows, nch, 256),
+                               p=[0.3, 0.3, 0.1, 0.1, 0.1, 0.05, 0.05])
+    elif kind == "edge":
+        k = np.arange(256)
+        near = (k >= nb[:, None] - 17) & (k < nb[:, None])
+        cls = np.where(near, rng.choice([14, 15], shape), 0)
     else:
         dense = {"overrun": 1.0, "fill": 0.15}.get(
             kind, min(1.0, 0.6 * cap / (7.5 * live[0].sum())))
@@ -2992,8 +3028,8 @@ def p1_fields(cfg, kind, rng, rows=P1_ROWS_A_KIND):
         code = rng.integers(-2**31, 2**31, shape)
         for c, levels in P1_GROUP_LEVELS.items():
             code = np.where(cls == c, rng.integers(0, levels, shape), code)
-        f["bap"] = np.where(live, cls, rng.integers(-128, 128, shape)
-                            ).astype(np.int8)
+        dead = 15 if kind == "edge" else rng.integers(-128, 128, shape)
+        f["bap"] = np.where(live, cls, dead).astype(np.int8)
         f["qmant"] = np.where(live, code, rng.integers(-2**31, 2**31, shape)
                               ).astype(np.int32)
 
@@ -3010,9 +3046,13 @@ def p1_fields(cfg, kind, rng, rows=P1_ROWS_A_KIND):
     make(cls)
     bits = p1_bits(cfg, f)
     while kind != "overrun" and (bits > cap).any():
-        # thin the rows that overrun: drop a fifth of their classes
-        over = (bits > cap)[:, None, None, None]
-        cls = np.where(over & (rng.random(shape) < 0.2), 0, cls)
+        # thin the rows that overrun: drop a fifth of their classes (a
+        # dense block's to class 1)
+        over = (bits > cap)[:, None, None, None] & (rng.random(shape) < 0.2)
+        if kind == "dense":
+            cls = np.where(over & (cls != 1) & (cls != 0), 1, cls)
+        else:
+            cls = np.where(over, 0, cls)
         make(cls)
         bits = p1_bits(cfg, f)
     if kind == "fill":
@@ -3216,6 +3256,38 @@ def phase_check_p1(dev):
             raise AssertionError(f"bad argument {i} was accepted")
         except err:
             pass
+    # the walk's edges: 1 frame, a CTA's frames - 1 (its last warp idle)
+    # and + 1 (a second CTA with one frame), on the fill, dense and edge
+    # rows (then from the first again); the CTA's warps from the kernel's
+    # own cta_warps (fewer for 5.1's 3,840-byte frames)
+    walk_warps = {}
+    for config in ((2, 48000, 192), (6, 48000, 640), (5, 32000, 448),
+                   (6, 32000, 640)):
+        c_cfg, c_f = p1_case(config, 1500 + P1_CONFIGS.index(config))
+        r0 = P1_KINDS.index("fill") * P1_ROWS_A_KIND
+        warps = walk_warps[config] = PD.cta_warps(c_cfg)
+        for n in (1, warps - 1, warps + 1):
+            sub = {k: np.ascontiguousarray(np.take(v, np.arange(r0, r0 + n),
+                                                   axis=0, mode="wrap"))
+                   for k, v in c_f.items()}
+            c_args = [torch.from_numpy(sub[k]).to(dev) for k in P1_KEYS]
+            before = PD.launches_pack
+            c_out = PD.pack_frames_device(c_cfg, *c_args)
+            assert PD.launches_pack == before + 1
+            p1_same((c_cfg, *c_args, c_out))
+            assert [r.tobytes() for r in c_out.cpu().numpy()] == \
+                PK.pack_frames_native(c_cfg, sub), (config, n)
+    # 3,840-byte 5.1 frames are the ones whose CTA takes fewer warps
+    assert walk_warps[6, 32000, 640] < walk_warps[6, 48000, 640], walk_warps
+    from ac3acm_tpu_torch.models.encoder import make_config
+    resident = {label: PD.resident_frames(make_config(48000, kbps * 1000,
+                                                      nch))
+                for label, _, _, nch, kbps in ENC_MAIN}
+    log(f"P1 walk: 1 frame, a CTA's warps - 1 and + 1 (warps a CTA, a "
+        f"frame each: " + ", ".join(f"{c} {w}" for c, w in walk_warps.items())
+        + f") equal to pack_frames_ref and the native packer; frames "
+        f"resident an SM: " + ", ".join(f"{k} {v}"
+                                        for k, v in resident.items()))
     log(f"check pack_frames (P1): {len(P1_CONFIGS)} configs (1-6 channels, "
         f"32 / 44.1 / 48 / 24 kHz, frames of 256-3,840 bytes) x "
         f"{len(P1_KINDS)} field kinds {P1_KINDS} x {P1_ROWS_A_KIND} frames "
@@ -3478,6 +3550,23 @@ def phase_check_x1(dev):
     one = coef[:1].clone()
     x1_same((coef[:1], es[:1], nb, lfe,
              EX.exponents(one, es[:1].contiguous(), nb, lfe) + (one,)))
+    # more rows than the resident CTAs: each CTA walks two or three rows
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    walk = {}
+    for i, layout in enumerate(X1_LAYOUTS):
+        if layout not in ((2, False), (6, True), (3, True)):
+            continue
+        w_coef, w_es, w_nb, w_lfe = x1_case(*layout, 1600 + i)
+        ctas = sms * EX.resident_ctas(layout[0])
+        n = 2 * ctas + 1
+        reps = -(-n // w_coef.shape[0])
+        t_coef = torch.from_numpy(np.tile(w_coef, (reps, 1, 1, 1))[:n]
+                                  ).to(dev)
+        t_es = torch.from_numpy(np.tile(w_es, (reps, 1, 1))[:n]).to(dev)
+        work = t_coef.clone()
+        x1_same((t_coef, t_es, w_nb, w_lfe,
+                 EX.exponents(work, t_es, w_nb, w_lfe) + (work,)))
+        walk[layout] = (n, ctas)
     before = EX.launches_exponents
     enc, strat, bits = EX.exponents(coef[:0], es[:0], nb, lfe)
     assert enc.shape == (0, 6, nch, 256) and bits.shape == (0,)
@@ -3511,7 +3600,10 @@ def phase_check_x1(dev):
         f"exponents_ref bitwise in the 256 coded bytes, strat, exp_bits and "
         f"the zeroed coefficients; all 32 new-block patterns of blocks 1-5 "
         f"in every full-band channel, diff sums of exactly 1000 and 1001; "
-        f"coded exponents in [-16, 24]; one row; no rows: no launch; a "
+        f"coded exponents in [-16, 24]; one row; "
+        + "; ".join(f"{k}: {n} rows over {c} resident CTAs"
+                    for k, (n, c) in walk.items())
+        + f"; no rows: no launch; a "
         f"wrong dtype, a strided, an unaligned, a narrow, a short, a CPU "
         f"input, nb 0, 222, 255 and 256 (the kernel takes 223) and a "
         f"non-bool lfe raise")
@@ -4103,12 +4195,22 @@ def phase_enc_main():
             f"call: " + "; ".join(
                 f"{min(F, max(1, r // B))} ({r} rows) {ms:.3f} ms, peak "
                 f"{pk / 1e9:.2f} GB" for r, (ms, pk) in groups.items()))
-        # stages: CUDA events and peaks in one run, op counts in another
-        clock = EventClock()
-        enc.last.zero_()
-        enc.csnr.fill_(40)
-        encode_resident(enc, x, clock)
-        ms = clock.ms()
+        # stages: CUDA events and peaks, the run of least total of three,
+        # each enqueued behind a held card (torch.cuda._sleep, about 10 ms)
+        # so that the host's pace opens no gap between marks; op counts in
+        # another run
+        best = None
+        for _ in range(3):
+            enc.last.zero_()
+            enc.csnr.fill_(40)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20_000_000)
+            clock = EventClock()
+            encode_resident(enc, x, clock)
+            got = clock.ms()
+            if best is None or sum(got.values()) < sum(best[1].values()):
+                best = (clock, got)
+        clock, ms = best
         ops = OpClock()
         enc.last.zero_()
         enc.csnr.fill_(40)
@@ -4125,7 +4227,9 @@ def phase_enc_main():
                 f"peak allocated {clock.peak.get(name, 0) / 1e9:.2f} GB")
         io_bytes = B * F * 1536 * nch * 2 + nbytes
         io_ms = io_bytes / PEAK_BYTES * 1e3
-        log(f"encode {label} whole: stages {total_ms:.3f} ms, "
+        log(f"encode {label} whole: stages {total_ms:.3f} ms (the least "
+            f"of three runs behind a held card; the synchronized device-"
+            f"alone run {dev_ms:.3f} ms), "
             f"{sum(ops.by.values())} ATen ops; least bytes {io_bytes} (int16 "
             f"PCM once + frames once) -> bound {io_ms:.3f} ms "
             f"({io_ms / dev_ms:.2%} of the device time)")
@@ -4145,6 +4249,75 @@ def phase_enc_main():
         torch.cuda.empty_cache()
     return (report, core_launches, e1_err, e1_times_by, p1_launches,
             p1_times_by, x1_times_by, q1_times_by, m1_times_by)
+
+
+def phase_p1_loud():
+    """P1 on the fields of a loud encode: seeded full-scale white noise
+    through BatchedEncoder (pack="device") at config 4's format (2,048
+    lanes x 8 frames of 5.1 at 640 kbit/s), where most live bins carry a
+    class.  Every P1 call of the run held to pack_frames_ref byte for
+    byte; the first timed beside its bound from its own fields (p1_bound),
+    so a design that wins only on sparse content shows.  -> its times,
+    the coded share of live bins."""
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    _, B, F, nch, kbps = ENC_MAIN[1]
+    rng = np.random.default_rng(18)
+    pcm = rng.integers(-32768, 32768, (B, F * 1536, nch), dtype=np.int16)
+    enc = BatchedEncoder(B, 48000, kbps * 1000, nch, pack="device")
+    with p1_watch(record=True) as pw:
+        out = enc.encode_frames(pcm)
+    assert pw["launches"] == pw["n"] >= 1, pw["n"]
+    assert len(out) == B and all(len(o) == F * enc.cfg.frame_size * 2
+                                 for o in out)
+    assert not any(p1_same(c) for c in pw["calls"])
+    call = pw["calls"][0]
+    cfg, bap = call[0], call[1]
+    live = (torch.arange(256, device=bap.device)
+            < torch.tensor(cfg.nb_coefs, device=bap.device)[:, None])
+    share = float(((bap != 0) & live).sum()) / float(
+        live.sum() * bap.numel() // (nch * 256))
+    t = dict(p1_times(call), rows=p1_frames(call), coded_share=share)
+    log(f"P1 on loud content (full-scale white noise, {B} lanes x {F} "
+        f"frames of {nch} ch at {kbps} kbit/s; {len(pw['calls'])} calls "
+        f"equal to pack_frames_ref byte for byte): {share:.1%} of live bins "
+        f"carry a class; at a call of {t['rows']} frames kernel_ms "
+        f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+        f"{t['bound_ms']:.4f} -> {t['bound_by']} "
+        f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time)")
+    del pw, call, bap, enc, out
+    torch.cuda.empty_cache()
+    return t
+
+
+def wrapper_host_costs():
+    """The host cost of X1's and P1's wrappers at the single Encoder's
+    call (16 rows of 2.0 at 192 kbit/s; X1 on an Encoder call's own
+    coefficients, P1 on p1_case's fields), and of the occupancy query
+    (the shared-memory attribute and the occupancy calculator) that each
+    launch function makes once a device (and frame size) and then
+    remembers; logged."""
+    from ac3acm_tpu_torch.models.encoder import Encoder
+    from ac3acm_tpu_torch.ops import exponents as EX
+    from ac3acm_tpu_torch.ops import pack_device as PD
+    with core_watch(record=True) as rec:
+        Encoder(48000, 192000, 2).encode(enc_bench_pcm(2, 16, 1)[0])
+    coef, es, nb, lfe = rec["x1_calls"][0][:4]
+    work = coef.clone()
+    config = (2, 48000, 192)
+    cfg, f = p1_case(config, 1500 + P1_CONFIGS.index(config))
+    args = [torch.from_numpy(np.ascontiguousarray(f[k][:16])).cuda()
+            for k in P1_KEYS]
+    got = {"X1 wrapper": host_us(lambda: EX.exponents(work, es, nb, lfe)),
+           "X1 query": host_us(lambda: EX.resident_ctas(2)),
+           "P1 wrapper": host_us(lambda: PD.pack_frames_device(cfg, *args)),
+           "P1 query": host_us(lambda: PD.resident_frames(cfg))}
+    log(f"host cost at the single Encoder's call ({coef.shape[0]} rows of "
+        f"2.0; mean of 200 calls, no synchronize): X1's wrapper "
+        f"{got['X1 wrapper']:.1f} us a call, P1's {got['P1 wrapper']:.1f} "
+        f"us; the occupancy query a launch makes once a device and then "
+        f"remembers: X1 {got['X1 query']:.1f} us, P1 {got['P1 query']:.1f} "
+        f"us")
+    return got
 
 
 def phase_enc_single():
@@ -4167,6 +4340,7 @@ def phase_enc_single():
     dt = time.perf_counter() - t0
     launches = core_assert(watch, "single-stream Encoder")
     audio_s = ENC_SINGLE_FRAMES * 1536 / 48000.0
+    wrapper_host_costs()
     assert len(out) == ENC_SINGLE_FRAMES * 768
     p17 = mixed_pcm(2, 17, 17)[0]
     one = Encoder(48000, 192000, 2).encode(p17)
@@ -5379,6 +5553,7 @@ def main():
     phase_enc_digests()
     (_, core_launches, e1_main_err, e1_times_by, p1_launches,
      p1_times_by, x1_times_by, q1_times_by, m1_times_by) = phase_enc_main()
+    p1_loud = phase_p1_loud()
     _, core_single = phase_enc_single()
     torch.cuda.empty_cache()
     tc_launches, tc_errs, _ = phase_transcode()
@@ -5481,6 +5656,8 @@ def main():
     p1.update({f"{k}_51": v for k, v in p1_times_by["config 4"].items()
                if k in ("ms", "plain_ms", "bound_ms")})
     p1.pop("rows")
+    p1.update(ms_loud=p1_loud["ms"], bound_ms_loud=p1_loud["bound_ms"],
+              coded_share_loud=p1_loud["coded_share"])
     kernels.append(dict(
         name="pack (P1)", route="cuda",
         source="ac3acm_tpu_torch/csrc/pack.cu",

@@ -20,9 +20,11 @@ bitwise against the JAX package.
     coefficients in place of its MDCT's (a full-band channel in a slot of
     the 5-channel config, the LFE in 5.1's), exp_bits JAX's count.
   * kernel_model replays csrc/exponents.cu's order (raw exponents and
-    warp sums, the strategy a channel, the fold a bin, a warp's 8-entry
-    lanes and shuffle scans, the 8-byte fan-out to every block of a run)
-    in numpy: it must give exponents_ref's bytes, so the kernel's
+    warp sums, the strategy from each channel's bitmask of new blocks, the
+    fold a bin into the run's first block, a warp's scan entries computed
+    a lane a group into an int16 row, read back 8 consecutive a lane, the
+    shuffle scans, the 16-byte fan-out, half a warp a block of the run) in
+    numpy: it must give exponents_ref's bytes, so the kernel's
     decomposition is checked here, where the kernel cannot run.
   * enc_exp's int8 holds on extreme coefficients; the wrapper refuses what
     the kernel does not take, a CPU tensor never reaches the CUDA build,
@@ -253,21 +255,23 @@ def kernel_model(coef, es, nb, lfe):
     d = np.abs(np.diff(raw, axis=1))             # [N, 5, ch, 256]
     sums = d.reshape(N, 5, nch, 8, 32).sum(-1).sum(-1)
     sums = np.concatenate([np.zeros((N, 1, nch), np.int64), sums], 1)
+    # the strategy: a lane a (block, channel) votes; its channel's 6-bit
+    # mask of new blocks gives the run to the next set bit (__ffs)
+    vote = (np.arange(6)[None, :, None] == 0) | (sums > 1000)  # [N, 6, ch]
+    chmask = (vote.astype(np.int64) << np.arange(6)[None, :, None]).sum(1)
     strat = np.zeros((N, 6, nch), np.int32)
-    for c in range(nch):
-        is_lfe = lfe and c == nch - 1
-        nxt = np.full(N, 6)
-        for b in range(5, -1, -1):
-            new = (b == 0) | (sums[:, b, c] > 1000)
-            run = nxt - b
-            code = np.where(run == 1, 3, np.where(run <= 3, 2, 1))
-            strat[:, b, c] = np.where(new, 1 if is_lfe else code, 0)
-            nxt = np.where(new, b, nxt)
     bits = np.zeros(N, np.int32)
     for b in range(6):
         for c in range(nch):
             is_lfe = lfe and c == nch - 1
-            s = strat[:, b, c]
+            above = chmask[:, c] >> (b + 1)
+            low = above & -above                         # the next new block
+            run = np.where(above > 0, np.log2(np.maximum(low, 1)).astype(
+                np.int64) + 1, 6 - b)
+            code = np.where(run == 1, 3, np.where(run <= 3, 2, 1))
+            new = vote[:, b, c]
+            s = np.where(new, 1 if is_lfe else code, 0)
+            strat[:, b, c] = s
             g = np.where(is_lfe, 1, np.where(s == 3, 4, s))
             nbc = 7 if is_lfe else nb
             ng = np.where(s > 0, (nbc + 3 * g - 4) // np.maximum(3 * g, 1)
@@ -280,16 +284,19 @@ def kernel_model(coef, es, nb, lfe):
             if b < 5 else 6
     blocks = np.arange(6)[None, :, None]
     # the fold, each bin's column: a run is a coded block and the reuses
-    # after it
+    # after it; its minimum goes to the run's first block only (the one
+    # the coding reads)
     live = np.arange(256)[None, :] < np.array(
         [7 if lfe and c == nch - 1 else nb for c in range(nch)])[:, None]
     for b0 in range(6):
         start = strat[:, b0] != 0                          # [N, ch]
         run = (blocks >= b0) & (blocks < end[:, b0][:, None])  # [N, 6, ch]
         m = np.where(run[..., None], fold, 127).min(1)     # [N, ch, 256]
-        put = (run & start[:, None])[..., None] & live
-        fold = np.where(put, m[:, None], fold).astype(np.int8)
-    # the coding: a lane's 8 entries, shuffle scans across 32 lanes
+        put = start[..., None] & live
+        fold[:, b0] = np.where(put, m, fold[:, b0]).astype(np.int8)
+    # the coding: entries a lane a group (lane j: j, j + 32, ...) into an
+    # int16 row, a lane's 8 consecutive entries read back, shuffle scans
+    # across 32 lanes
     enc = np.zeros((N, 6, nch, 256), np.int8)
     i = np.arange(256).reshape(32, 8)
     k = np.arange(256)
@@ -309,6 +316,9 @@ def kernel_model(coef, es, nb, lfe):
                 v[:, 0] = np.minimum(e[:, 0], 15)
                 grp = 1 + np.arange(ngroups)[:, None] * g + np.arange(g)
                 v[:, 1:nv] = e[:, grp].min(-1) - 2 * np.arange(1, nv)
+                row16 = v[:, :nv].astype(np.int16)           # the int16 row
+                assert np.array_equal(row16, v[:, :nv])
+                v[:, :nv] = row16
                 a = np.minimum.accumulate(v.reshape(-1, 32, 8), axis=2)
                 x = np.minimum.accumulate(a[:, :, -1], axis=1)
                 before = np.concatenate([np.full((len(rows), 1), BIG),
@@ -321,12 +331,18 @@ def kernel_model(coef, es, nb, lfe):
                                                           BIG)], 1)
                 coded = (np.minimum(after[..., None], a) - 2 * i).reshape(
                     len(rows), 256)
+                coded = np.where(i.reshape(256) < nv, coded, 0)
                 src = np.clip(1 + ((k - 1) >> lg), 0, nv - 1)
                 row = np.where(k == 0, coded[:, :1], np.where(
                     (k >= 1) & (k <= ngroups * g), coded[:, src], 0))
-                for bb in range(b, 6):
-                    to = rows[end[rows, b, c] > bb]
-                    enc[to, bb, c] = row[end[rows, b, c] > bb]
+                # 16-byte stores: lanes 0-15 blocks b, b + 2, ..., lanes
+                # 16-31 blocks b + 1, b + 3, ... of the run
+                for half in (0, 1):
+                    for bb in range(b + half, 6, 2):
+                        to = end[rows, b, c] > bb
+                        for m in range(16):
+                            enc[rows[to], bb, c, 16 * m:16 * m + 16] = \
+                                row[to, 16 * m:16 * m + 16]
     return enc, strat, bits, coef
 
 
