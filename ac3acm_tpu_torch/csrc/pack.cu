@@ -29,6 +29,12 @@
 // CRC16 of bytes [4, 2 fs58) times crc_inv (the reference's back-patch),
 // CRC2 (the last two bytes) that of [2 fs58, total - 2).  Integer-exact.
 //
+// The codes come as int32 (JAX's dtype: pack_frames_device(cfg)'s calling
+// form) or as int16, their low 16 bits (Q1's 16-bit form, which the
+// device-pack path hands over): a template parameter.  A token is at most
+// 16 bits, so both give the same bytes; an int16 code is widened as
+// unsigned (class-15 codes from 32,768 up are negative as int16).
+//
 // Bound on the card: bytes.  The function reads a live bin's class (a
 // byte), its code where the class is not 0 (16 bits, its narrowest), the
 // exponents a coded (block, channel) sends (1 + 3 groups, a byte each;
@@ -49,10 +55,12 @@
 // of a block's classes and exponents, each chunk step's counts, the
 // block's grouped members compact by ordinal (a byte each) and its heads'
 // offsets compact by head ordinal (16 bits each): 13,128 B at 5.1 and
-// 2,560 bytes, 4,312 B at 2.0 and 768.  ptxas takes 80 registers, no
-// spill, so an SM holds 24 frames at 2.0 (three CTAs, by registers) and
-// 16 at 5.1 (one CTA, by shared memory); the first design, a CTA a frame,
-// held 12 and 6 (pack_frames_resident reports it).  The CTA's slot
+// 2,560 bytes, 4,312 B at 2.0 and 768.  The launch bounds ask three CTAs
+// an SM of 8 warps and one of 16 (min_ctas_for): ptxas takes 80 registers
+// up to two channels and 91-96 above, no spill, in both code widths, so an
+// SM holds 24 frames at 2.0 (three CTAs, by registers) and 16 at 5.1 (one
+// CTA, by shared memory); the first design, a CTA a frame, held 12 and 6
+// (pack_frames_resident reports it).  The CTA's slot
 // schedule and CRC tables are read once, into shared memory, before the
 // frames.  Per block:
 //  * the next block's classes and its coded channels' exponents (16
@@ -72,7 +80,8 @@
 //    class 0 costs a dozen instructions; the packed counts (16-bit fields:
 //    ungrouped bits, n1, n2, n4) go through one warp scan a step;
 //  * deposit: each lane owns the contiguous bits of its chunk; it loads
-//    the codes of its coded bins (one 16-byte load a word that has one),
+//    the codes of its coded bins (int32: one 16-byte load a word of
+//    classes that has one; int16: one a pair of such words),
 //    keeps the offset as a running sum (a grouped member adds its head's
 //    5 or 7 bits when its ordinal starts a group), assembles its ungrouped
 //    tokens in a register word and stores every word that lies inside its
@@ -414,10 +423,58 @@ __device__ __forceinline__ uint32_t live_mask(int live, int k)
     return n >= 4 ? 0xFFFFFFFFu : n <= 0 ? 0u : (1u << (8 * n)) - 1u;
 }
 
-template <int NCH>
-__global__ void __launch_bounds__(threads_for(NCH))
+// a lane's 16 codes of a chunk in registers: four int4s of int32 codes,
+// or two of int16 codes; an int4 that holds no coded bin is not loaded
+template <typename Code>
+struct ChunkCodes {
+    static constexpr int N = CHUNK * (int)sizeof(Code) / 16;
+    int4 q[N];
+
+    // the chunk's codes at row (its first bin), w its 4 words of classes
+    __device__ __forceinline__ void load(const Code* row, const uint32_t* w)
+    {
+        const int4* p = reinterpret_cast<const int4*>(row);
+        unrolled<N>([&](auto jj) {
+            constexpr int j = decltype(jj)::value;
+            uint32_t coded;
+            if constexpr (N == 4)
+                coded = positive_bytes(w[j]);
+            else
+                coded = positive_bytes(w[2 * j]) | positive_bytes(w[2 * j + 1]);
+            q[j] = coded ? __ldg(p + j) : make_int4(0, 0, 0, 0);
+        });
+    }
+
+    // the code of bin 4 K + i (K a constant, i in 0..3), as unsigned
+    template <int K>
+    __device__ __forceinline__ uint32_t at(int i) const
+    {
+        if constexpr (N == 4) {
+            const int4& v = q[K];
+            return (uint32_t)((i & 2) ? ((i & 1) ? v.w : v.z)
+                                      : ((i & 1) ? v.y : v.x));
+        } else {
+            const int4& v = q[K >> 1];
+            const uint32_t word = (uint32_t)((i & 2) ? ((K & 1) ? v.w : v.y)
+                                                     : ((K & 1) ? v.z : v.x));
+            return (i & 1) ? word >> 16 : word & 0xFFFFu;
+        }
+    }
+};
+
+// the CTAs an SM the launch bounds ask of ptxas: three of 8 warps (24
+// frames, the int32-code instances' residency by their own choice of 80
+// registers), one of 16.  Without a minimum ptxas spilled 28-112 bytes in
+// five int16-code instances to reach 64 registers
+__host__ __device__ constexpr int min_ctas_for(int nch)
+{
+    return warps_for(nch) <= 8 ? 3 : 1;
+}
+
+template <int NCH, typename Code>
+__global__ void __launch_bounds__(threads_for(NCH), min_ctas_for(NCH))
 pack_frames_kernel(const int8_t* __restrict__ bap,
-                   const int32_t* __restrict__ qmant,
+                   const Code* __restrict__ qmant,
                    const uint8_t* __restrict__ exps,
                    const int32_t* __restrict__ strat,
                    const int32_t* __restrict__ csnr,
@@ -571,14 +628,22 @@ pack_frames_kernel(const int8_t* __restrict__ bap,
                 const int live = live_bins(c);
                 const int4* qrow = reinterpret_cast<const int4*>(
                     qmant + (row0 + (c < NCH ? c : 0)) * BINS + k16);
-                if (positive_bytes((uint32_t)c4.x & live_mask(live, 0)))
-                    prefetch_l1(qrow);
-                if (positive_bytes((uint32_t)c4.y & live_mask(live, 1)))
-                    prefetch_l1(qrow + 1);
-                if (positive_bytes((uint32_t)c4.z & live_mask(live, 2)))
-                    prefetch_l1(qrow + 2);
-                if (positive_bytes((uint32_t)c4.w & live_mask(live, 3)))
-                    prefetch_l1(qrow + 3);
+                const uint32_t p0 = positive_bytes((uint32_t)c4.x
+                                                   & live_mask(live, 0));
+                const uint32_t p1 = positive_bytes((uint32_t)c4.y
+                                                   & live_mask(live, 1));
+                const uint32_t p2 = positive_bytes((uint32_t)c4.z
+                                                   & live_mask(live, 2));
+                const uint32_t p3 = positive_bytes((uint32_t)c4.w
+                                                   & live_mask(live, 3));
+                if constexpr (sizeof(Code) == 4) {
+                    if (p0) prefetch_l1(qrow);
+                    if (p1) prefetch_l1(qrow + 1);
+                    if (p2) prefetch_l1(qrow + 2);
+                    if (p3) prefetch_l1(qrow + 3);
+                } else if (p0 | p1 | p2 | p3) {
+                    prefetch_l1(qrow);      // 32 bytes: one line
+                }
             }
 
             // slots: a lane one, 32 at a time; lengths from the block's
@@ -658,14 +723,8 @@ pack_frames_kernel(const int8_t* __restrict__ bap,
                 Run run(off, s_pend[t * LANES + lane]);
                 int o1 = (int)((p >> 16) & 0xFFFF);
                 int o2 = (int)((p >> 32) & 0xFFFF), o4 = (int)(p >> 48);
-                const int4* qrow = reinterpret_cast<const int4*>(
-                    qmant + (row0 + (c < NCH ? c : 0)) * BINS + k16);
-                int4 q[4];
-                unrolled<4>([&](auto kk) {
-                    constexpr int k = decltype(kk)::value;
-                    q[k] = positive_bytes(w[k]) ? __ldg(qrow + k)
-                                                : make_int4(0, 0, 0, 0);
-                });
+                ChunkCodes<Code> q;
+                q.load(qmant + (row0 + (c < NCH ? c : 0)) * BINS + k16, w);
                 // one coded bin: a member by its ordinal (a head takes its
                 // group's bits), or an ungrouped token into the lane's run
                 auto bin = [&](int cls, uint32_t qv) {
@@ -705,8 +764,7 @@ pack_frames_kernel(const int8_t* __restrict__ bap,
                         if (!__any_sync(0xffffffffu, cls > 0))
                             return;
                         if (cls > 0)
-                            bin(cls, (uint32_t)(i == 0 ? q[k].x : i == 1 ? q[k].y
-                                                : i == 2 ? q[k].z : q[k].w));
+                            bin(cls, q.template at<k>(i));
                     });
                 } else {
                     // sparse: each lane only its coded bins (__ffs)
@@ -717,8 +775,7 @@ pack_frames_kernel(const int8_t* __restrict__ bap,
                             const int i = __ffs(pm) - 1;
                             pm &= pm - 1u;
                             bin((int)((w[k] >> (8 * i)) & 0xFFu),
-                                (uint32_t)((i & 2) ? ((i & 1) ? q[k].w : q[k].z)
-                                                   : ((i & 1) ? q[k].y : q[k].x)));
+                                q.template at<k>(i));
                         }
                     });
                 }
@@ -835,26 +892,27 @@ int smem_bytes(int total)
     return CTA_BYTES + cta_warps<NCH>(total) * warp_bytes(NCH, total);
 }
 
-// the CTAs an SM holds of the NCH instance for frames of `total` bytes;
-// the instance may take any CTA's shared memory (the attribute is the
-// function's, whatever the frame size of the next launch)
-template <int NCH>
+// the CTAs an SM holds of the (NCH, Code) instance for frames of `total`
+// bytes; the instance may take any CTA's shared memory (the attribute is
+// the function's, whatever the frame size of the next launch)
+template <int NCH, typename Code>
 cudaError_t resident(int total, int* per_sm)
 {
     cudaError_t e = cudaFuncSetAttribute(
-        pack_frames_kernel<NCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
+        pack_frames_kernel<NCH, Code>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (e != cudaSuccess)
         return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, pack_frames_kernel<NCH>, cta_warps<NCH>(total) * LANES,
+        per_sm, pack_frames_kernel<NCH, Code>, cta_warps<NCH>(total) * LANES,
         smem_bytes<NCH>(total));
 }
 
 // the CTAs the card holds at once (its SMs times the CTAs an SM) of the
-// NCH instance at frames of `total` bytes, asked of the runtime (and the
-// shared-memory attribute set) once a (device, total), then remembered
-template <int NCH>
+// (NCH, Code) instance at frames of `total` bytes, asked of the runtime
+// (and the shared-memory attribute set) once a (device, total), then
+// remembered
+template <int NCH, typename Code>
 cudaError_t card_ctas(int total, long long* ctas)
 {
     static std::mutex mu;
@@ -870,7 +928,7 @@ cudaError_t card_ctas(int total, long long* ctas)
         return cudaSuccess;
     }
     int per_sm = 0, sms = 0;
-    e = resident<NCH>(total, &per_sm);
+    e = resident<NCH, Code>(total, &per_sm);
     if (e == cudaSuccess)
         e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess)
@@ -881,49 +939,66 @@ cudaError_t card_ctas(int total, long long* ctas)
     return cudaSuccess;
 }
 
-template <int NCH>
+template <int NCH, typename Code>
 cudaError_t launch(const void* bap, const void* qmant, const void* exps,
                    const void* strat, const void* csnr, const void* fsnr,
                    const void* tab, int total, int fs58, void* out,
                    long long N, cudaStream_t s)
 {
     long long card = 0;
-    const cudaError_t e = card_ctas<NCH>(total, &card);
+    const cudaError_t e = card_ctas<NCH, Code>(total, &card);
     if (e != cudaSuccess)
         return e;
     const int warps = cta_warps<NCH>(total);
     const long long need = (N + warps - 1) / warps;
     const long long ctas = need < card ? need : card;
-    pack_frames_kernel<NCH><<<(unsigned)ctas, warps * LANES,
-                              smem_bytes<NCH>(total), s>>>(
-        (const int8_t*)bap, (const int32_t*)qmant, (const uint8_t*)exps,
+    pack_frames_kernel<NCH, Code><<<(unsigned)ctas, warps * LANES,
+                                    smem_bytes<NCH>(total), s>>>(
+        (const int8_t*)bap, (const Code*)qmant, (const uint8_t*)exps,
         (const int32_t*)strat, (const int32_t*)csnr, (const int32_t*)fsnr,
         (const int32_t*)tab, total, fs58, N, (uint8_t*)out);
     return cudaGetLastError();
 }
 
+// the NCH instance for codes of code_bytes (2: int16, 4: int32)
+template <int NCH>
+cudaError_t launch_nch(const void* bap, const void* qmant, const void* exps,
+                       const void* strat, const void* csnr, const void* fsnr,
+                       const void* tab, int total, int fs58, void* out,
+                       long long N, int code_bytes, cudaStream_t s)
+{
+    return code_bytes == 2
+        ? launch<NCH, int16_t>(bap, qmant, exps, strat, csnr, fsnr, tab,
+                               total, fs58, out, N, s)
+        : launch<NCH, int32_t>(bap, qmant, exps, strat, csnr, fsnr, tab,
+                               total, fs58, out, N, s);
+}
+
 }  // namespace
 
+// codes of code_bytes: 4 (int32) or 2 (int16, read as unsigned)
 extern "C" int pack_frames_launch(const void* bap, const void* qmant,
                                   const void* exps, const void* strat,
                                   const void* csnr, const void* fsnr,
                                   const void* tab, int total, int fs58,
                                   void* out, long long N, int nch,
-                                  void* stream)
+                                  int code_bytes, void* stream)
 {
     if (N == 0)
         return 0;
     if (N < 0 || N > 0x7fffffffLL || total < 8 || total > MAX_BYTES
-        || (total & 1) || fs58 < 2 || 2 * fs58 > total - 2)
+        || (total & 1) || fs58 < 2 || 2 * fs58 > total - 2
+        || (code_bytes != 2 && code_bytes != 4))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
+    const int cb = code_bytes;
     switch (nch) {
-    case 1: return (int)launch<1>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
-    case 2: return (int)launch<2>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
-    case 3: return (int)launch<3>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
-    case 4: return (int)launch<4>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
-    case 5: return (int)launch<5>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
-    case 6: return (int)launch<6>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, s);
+    case 1: return (int)launch_nch<1>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
+    case 2: return (int)launch_nch<2>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
+    case 3: return (int)launch_nch<3>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
+    case 4: return (int)launch_nch<4>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
+    case 5: return (int)launch_nch<5>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
+    case 6: return (int)launch_nch<6>(bap, qmant, exps, strat, csnr, fsnr, tab, total, fs58, out, N, cb, s);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -943,20 +1018,20 @@ extern "C" int pack_frames_warps(int nch, int total)
     }
 }
 
-// frames resident on an SM for nch channels and frames of `total` bytes
-// (the CTAs the registers and shared memory allow, times their warps);
-// a negative CUDA error code on failure
+// frames resident on an SM for nch channels, frames of `total` bytes and
+// int16 codes, the main path's (the CTAs the registers and shared memory
+// allow, times their warps); a negative CUDA error code on failure
 extern "C" int pack_frames_resident(int nch, int total)
 {
     int per_sm = 0, warps = 0;
     cudaError_t e = cudaErrorInvalidValue;
     switch (nch) {
-    case 1: e = resident<1>(total, &per_sm); warps = cta_warps<1>(total); break;
-    case 2: e = resident<2>(total, &per_sm); warps = cta_warps<2>(total); break;
-    case 3: e = resident<3>(total, &per_sm); warps = cta_warps<3>(total); break;
-    case 4: e = resident<4>(total, &per_sm); warps = cta_warps<4>(total); break;
-    case 5: e = resident<5>(total, &per_sm); warps = cta_warps<5>(total); break;
-    case 6: e = resident<6>(total, &per_sm); warps = cta_warps<6>(total); break;
+    case 1: e = resident<1, int16_t>(total, &per_sm); warps = cta_warps<1>(total); break;
+    case 2: e = resident<2, int16_t>(total, &per_sm); warps = cta_warps<2>(total); break;
+    case 3: e = resident<3, int16_t>(total, &per_sm); warps = cta_warps<3>(total); break;
+    case 4: e = resident<4, int16_t>(total, &per_sm); warps = cta_warps<4>(total); break;
+    case 5: e = resident<5, int16_t>(total, &per_sm); warps = cta_warps<5>(total); break;
+    case 6: e = resident<6, int16_t>(total, &per_sm); warps = cta_warps<6>(total); break;
     default: break;
     }
     return e == cudaSuccess ? per_sm * warps : -(int)e;

@@ -262,10 +262,16 @@ def pack_frames_native(cfg, res: dict, shape=None) -> list:
 
     res fields may carry arbitrary leading axes (e.g. [B, ...] or [F, B,
     ...]); frames are packed in C-order of those axes and returned as a
-    flat list of bytes objects.
+    flat list of bytes objects.  qmant holds int32 codes (JAX's dtype); a
+    signed type narrower than int32, as the device-pack path's 16-bit
+    codes are, would widen here with its sign, and raises TypeError.
     """
     import ctypes as C
     from .native import get_lib
+    qdt = np.asarray(res["qmant"]).dtype
+    if qdt.kind == "i" and qdt.itemsize < 4:
+        raise TypeError(f"qmant is {qdt}: the native packer takes int32 "
+                        f"codes")
     lib = get_lib()
     if not getattr(lib, "_pack_ready", False):
         lib.ac3h_pack_frames.restype = None

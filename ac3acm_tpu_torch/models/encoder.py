@@ -16,7 +16,10 @@ ac3enc.cpp), batched over streams:
     monotone bit cost, and the bap at the chosen offset, in one call
     (ops.snr_search: kernel E1 on the card),
   * quantization (ac3enc.cpp:1149-1190) elementwise, wrapping as the
-    reference's int32 does (ops.quantize: kernel Q1 on the card).
+    reference's int32 does (ops.quantize: kernel Q1 on the card); the
+    codes are int32 (JAX's dtype) in every field a caller gets, and their
+    16-bit form only between Q1 and the device packer inside
+    encode_pipeline_packed.
 
 Packing is host.pack (one frame in Python, or the threaded C++ packer) or
 ops.pack_device (frames assembled on the device).  Encoder state per
@@ -136,9 +139,9 @@ def quantize(coef, enc_exp, global_exp, bap):
     """Raw per-coefficient quantized codes (before group combining), every
     int32 step of the reference wrapped as it is there.  It takes what
     JAX's quantize takes: integer tensors of any width and layout, any
-    row length.  CPU tensors run ops.quantize's plain version as they
-    come; CUDA tensors are brought to kernel Q1's contract
-    (_q1_layout) and launch it once."""
+    row length; -> int32 codes.  CPU tensors run ops.quantize's plain
+    version as they come; CUDA tensors are brought to kernel Q1's
+    contract (_q1_layout) and launch it once."""
     if coef.device.type == "cpu":
         return QZ.quantize_ref(coef, enc_exp, global_exp, bap)
     k = coef.shape[-1]
@@ -148,9 +151,9 @@ def quantize(coef, enc_exp, global_exp, bap):
 def _q1_layout(coef, enc_exp, global_exp, bap):
     """coef, enc_exp, global_exp, bap as ops.quantize's kernel takes them:
     coef and global_exp int32, enc_exp int8 or else int32, bap int8
-    (classes fit a byte), each contiguous and aligned to 4 of its
-    elements, the rows padded with bins of class 0 to a multiple of 4."""
-    pad = -coef.shape[-1] % 4
+    (classes fit a byte), each contiguous and 16-byte aligned, the rows
+    padded with bins of class 0 to a multiple of 16 (QZ.CHUNK)."""
+    pad = -coef.shape[-1] % QZ.CHUNK
     if enc_exp.dtype != torch.int8:
         enc_exp = enc_exp.to(torch.int32)
     rows = []
@@ -158,7 +161,7 @@ def _q1_layout(coef, enc_exp, global_exp, bap):
         if pad:
             t = torch.nn.functional.pad(t, (0, pad))
         t = t.contiguous()
-        if t.data_ptr() % (4 * t.element_size()):
+        if t.data_ptr() % 16:
             t = t.clone()
         rows.append(t)
     return rows[0], rows[1], global_exp.to(torch.int32).contiguous(), rows[2]
@@ -201,7 +204,8 @@ def _mask_tables(cfg: EncoderConfig, device: torch.device):
     return nb, is_lfe, hth
 
 
-def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
+def frame_core(cfg: EncoderConfig, cur, prev, clock=None,
+               codes=torch.int32):
     """(cur, prev) -> frame-fields dict over a flat leading batch.
 
     cur/prev [N, 6, ch, 256] int32: a frame's blocks and the overlapped
@@ -210,7 +214,9 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     feasible coarse offset, which does not depend on the carried
     csnroffst (see _csnr_fixup).
 
-    clock: an object with mark(name), called after each stage."""
+    clock: an object with mark(name), called after each stage.
+    codes: qmant's dtype, torch.int32 (JAX's) or torch.int16 (the low 16
+    bits, which only the device packer reads: encode_pipeline_packed)."""
     mark = clock.mark if clock is not None else (lambda name: None)
     nf = cfg.nfchans
     # a view (encode_pipeline's transposed blocks) is copied; M1 takes
@@ -229,7 +235,7 @@ def frame_core(cfg: EncoderConfig, cur, prev, clock=None):
     M, fstar, bap = snr_search(enc8, avail, *_mask_tables(cfg, cur.device),
                                cfg.halfratecod)
     mark("masking curve + SNR search + bap")
-    qmant = QZ.quantize(coef, enc_exp, exp_samples, bap)
+    qmant = QZ.quantize(coef, enc_exp, exp_samples, bap, codes=codes)
     mark("quantize")
     return dict(bap=bap, qmant=qmant, enc_exp=enc8, strat=strat,
                 M=M, fsnroffst=fstar, new_last=cur[:, 5])
@@ -264,10 +270,11 @@ def encode_pipeline(cfg: EncoderConfig):
     return run
 
 
-def _frame_groups(cfg: EncoderConfig, samples, last, clock=None):
+def _frame_groups(cfg: EncoderConfig, samples, last, clock=None,
+                  codes=torch.int32):
     """samples [F, B, 1536, nch], last [B, ch, 256] -> yields the core
     result (leading [n, B]) of each group of n = max(1, CORE_ROWS // B)
-    consecutive frames, in order."""
+    consecutive frames, in order (qmant as `codes`: see frame_core)."""
     F, B = samples.shape[:2]
     cur = _blocks(samples, cfg.channels)                  # [F,B,6,ch,256]
     step = max(1, CORE_ROWS // B)
@@ -281,7 +288,7 @@ def _frame_groups(cfg: EncoderConfig, samples, last, clock=None):
         p = p.reshape((n * B,) + p.shape[2:])
         if clock is not None:
             clock.mark("block layout")
-        res = frame_core(cfg, c, p, clock)
+        res = frame_core(cfg, c, p, clock, codes)
         yield {k: v.reshape((n, B) + v.shape[1:]) for k, v in res.items()}
 
 
@@ -316,7 +323,8 @@ def encode_pipeline_packed(cfg: EncoderConfig, clock=None):
     """-> fn(samples [F, B, 1536, nch] int, last, csnr) -> ((last', csnr'),
     ok [F, B] bool, frames [F, B, frame_size*2] uint8), all on the
     samples' device: the dense fields never leave it, each frame group is
-    packed as soon as it is encoded (ops.pack_device).
+    packed as soon as it is encoded (ops.pack_device), its codes handed
+    from Q1 to the packer in their 16-bit form.
 
     clock: an object with mark(name), called after the block layout,
     each frame_core stage, the csnr carry and each pack stage."""
@@ -324,7 +332,7 @@ def encode_pipeline_packed(cfg: EncoderConfig, clock=None):
 
     def full(samples, last, csnr):
         oks, frames = [], []
-        for res in _frame_groups(cfg, samples, last, clock):
+        for res in _frame_groups(cfg, samples, last, clock, torch.int16):
             res, csnr = _replay_csnr(res, csnr)
             if clock is not None:
                 clock.mark("csnr carry")

@@ -140,11 +140,13 @@ _GROUP_CLASSES = ((1, 3, 5, (9, 3, 1)), (2, 3, 7, (25, 5, 1)),
 
 
 def _mant_tokens(cls, q):
-    """cls int8, q int32 [R, L]: one block's live coefficients a row, in
-    channel order.  -> (lens, vals) int64 [R, L] with the grouped classes
-    combined onto their heads (members after a head emit nothing)."""
+    """cls int8, q int32 or int16 [R, L]: one block's live coefficients a
+    row, in channel order.  -> (lens, vals) int64 [R, L] with the grouped
+    classes combined onto their heads (members after a head emit
+    nothing).  An int16 code is its low 16 bits, widened as unsigned."""
     cls = cls.to(torch.int64)
-    q = q.to(torch.int64)
+    q = q.to(torch.int64) & 0xFFFF if q.dtype == torch.int16 \
+        else q.to(torch.int64)
     # ungrouped lengths: 0 -> 0; 3 -> 3; 5..13 -> cls-1; 14 -> 14; 15 -> 16
     lens = torch.where(cls >= 5, cls - 1, torch.where(cls == 3, 3, 0))
     lens = torch.where(cls == 14, 14, lens)
@@ -501,7 +503,7 @@ def _bind(lib):
     p, i = C.c_void_p, C.c_int
     lib.pack_frames_launch.restype = i
     lib.pack_frames_launch.argtypes = [p, p, p, p, p, p, p, i, i, p,
-                                       C.c_longlong, i, p]
+                                       C.c_longlong, i, i, p]
     lib.pack_frames_warps.restype = i
     lib.pack_frames_warps.argtypes = [i, i]
     lib.pack_frames_resident.restype = i
@@ -521,7 +523,8 @@ def cta_warps(cfg) -> int:
 
 def resident_frames(cfg) -> int:
     """The frames P1 holds at once on one SM of the current card for cfg
-    (its CTAs an SM, by registers and shared memory, times their warps)."""
+    and the main path's int16 codes (its CTAs an SM, by registers and
+    shared memory, times their warps)."""
     lib = _lib()
     n = lib.pack_frames_resident(cfg.channels, cfg.frame_size * 2)
     if n <= 0:
@@ -545,12 +548,15 @@ def _check(cfg, bap, qmant, enc_exp, strat, csnr, fsnr):
     dev = bap.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"pack_frames_device runs on cuda or cpu, not {dev}")
-    named = (("bap", bap, torch.int8), ("qmant", qmant, torch.int32),
-             ("enc_exp", enc_exp, torch.uint8), ("strat", strat, torch.int32),
-             ("csnr", csnr, torch.int32), ("fsnr", fsnr, torch.int32))
-    for name, t, dtype in named:
-        if t.dtype != dtype:
-            raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+    named = (("bap", bap, (torch.int8,)),
+             ("qmant", qmant, (torch.int32, torch.int16)),
+             ("enc_exp", enc_exp, (torch.uint8,)),
+             ("strat", strat, (torch.int32,)),
+             ("csnr", csnr, (torch.int32,)), ("fsnr", fsnr, (torch.int32,)))
+    for name, t, dtypes in named:
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name} is {t.dtype}, expected one of "
+                            f"{dtypes}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, bap on {dev}")
         if not t.is_contiguous():
@@ -581,7 +587,8 @@ def pack_frames_device(cfg, bap=None, qmant=None, enc_exp=None, strat=None,
     TypeError.
 
       bap     [..., 6, nch, 256] int8 (classes 0..15 on the live bins)
-      qmant   [..., 6, nch, 256] int32
+      qmant   [..., 6, nch, 256] int32, or int16 (the codes' low 16 bits,
+                                 read as unsigned: Q1's 16-bit form)
       enc_exp [..., 6, nch, 256] uint8
       strat   [..., 6, nch]      int32 (0 reuse, 1 D15, 2 D25, 3 D45)
       csnr    [...]              int32
@@ -627,7 +634,7 @@ def _pack(cfg, bap, qmant, enc_exp, strat, csnr, fsnr, clock):
             bap.data_ptr(), qmant.data_ptr(), enc_exp.data_ptr(),
             strat.data_ptr(), csnr.data_ptr(), fsnr.data_ptr(),
             tab.data_ptr(), total, fs58, out.data_ptr(), n, cfg.channels,
-            stream)
+            qmant.element_size(), stream)
     if rc != 0:
         raise RuntimeError("pack_frames (P1) kernel launch failed: "
                            + lib.pack_frames_error_string(rc).decode())

@@ -7,7 +7,8 @@
     enc_exp    int8 or int32 [..., K]   the coded exponents
     global_exp int32 [...]              the block's exp_samples
     bap        int8 [..., K]            the class of each coefficient
-    ->         int32 [..., K]           the raw code (before grouping)
+    ->         int32 [..., K]           the raw code (before grouping);
+               or int16 [..., K]        its low 16 bits (codes=torch.int16)
 
 with e = enc_exp - global_exp (int32): class 0 gives 0; classes 1-5
 (levels L = 3, 5, 7, 11, 15) give L/2 + v for c >= 0 and L/2 - v below,
@@ -16,6 +17,13 @@ bits) give v & (2^q - 1), v = min(((c << s or c >> -s) + 1) >> 1,
 2^(q-1) - 1), s = e + q - 24.  Every step is int32 as XLA runs the
 reference's ints: |c|, L * x and v + 1 wrap; a left shift by a count
 outside [0, 31] gives 0 and a right shift by one fills with the sign.
+
+The codes come as int32 (JAX's dtype, the default: what every public
+function returns) or, with codes=torch.int16, as their low 16 bits: every
+code of the encoder fits 16 bits, and the device-pack path hands that form
+to the packer (P1), which reads half the bytes.  A class-15 code from
+32,768 up is negative as int16: widen it only as unsigned (code_bits, or
+& 0xFFFF), never by a sign-extending cast.
 
 On CUDA tensors it launches the hand-written kernel Q1
 (csrc/quantize.cu), once a call.  On CPU tensors it runs
@@ -75,8 +83,8 @@ def _quant_tables(device: torch.device):
             torch.tensor(qbits, device=device))
 
 
-def quantize_ref(coef, enc_exp, global_exp, bap):
-    """Plain version of quantize (any device).
+def quantize_ref(coef, enc_exp, global_exp, bap, codes=torch.int32):
+    """Plain version of quantize (any device), codes in either form.
 
     Each coefficient is quantized by its own class (a per-element table
     lookup of levels or bits, not one pass per class); every int32 step
@@ -102,22 +110,41 @@ def quantize_ref(coef, enc_exp, global_exp, bap):
     v = torch.where(v >= m, m - 1, v)
     asym = v & ((one << qbits) - 1)
     out = torch.where(cls >= 6, asym, torch.where(cls >= 1, sym, 0))
+    if codes == torch.int16:
+        # the low 16 bits, as the int16 of that pattern
+        return (((out + 0x8000) & 0xFFFF) - 0x8000).to(torch.int16)
     return out.to(torch.int32)
+
+
+def code_bits(q):
+    """Codes of either width -> their low 16 bits as int32 in [0, 65535]:
+    what the packers read of a code (every token is at most 16 bits).  An
+    int16 code widens as unsigned here; .to(), .long() or astype would
+    sign-extend the class-15 codes from 32,768 up."""
+    return q.to(torch.int32) & 0xFFFF
 
 
 def _bind(lib):
     p, i = C.c_void_p, C.c_int
     lib.quantize_launch.restype = i
-    lib.quantize_launch.argtypes = [p, p, i, p, p, p, C.c_longlong, i, p]
+    lib.quantize_launch.argtypes = [p, p, i, p, p, p, i, C.c_longlong, i, p]
     lib.quantize_error_string.restype = C.c_char_p
     lib.quantize_error_string.argtypes = [i]
 
 
-def _check(coef, enc_exp, global_exp, bap):
+# bins a thread takes at once (csrc/quantize.cu:CHUNK): the row length a
+# multiple of it, each tensor 16-byte aligned
+CHUNK = 16
+CODES = (torch.int32, torch.int16)
+
+
+def _check(coef, enc_exp, global_exp, bap, codes):
     """The kernel's contract, on both devices."""
     dev = coef.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"quantize runs on cuda or cpu, not {dev}")
+    if codes not in CODES:
+        raise TypeError(f"codes={codes}: expected one of {CODES}")
     named = (("coef", coef, (torch.int32,)),
              ("enc_exp", enc_exp, (torch.int8, torch.int32)),
              ("global_exp", global_exp, (torch.int32,)),
@@ -130,9 +157,9 @@ def _check(coef, enc_exp, global_exp, bap):
             raise ValueError(f"{name} is on {t.device}, coef on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if coef.dim() < 1 or coef.shape[-1] % 4:
+    if coef.dim() < 1 or coef.shape[-1] % CHUNK:
         raise ValueError(f"coef has shape {tuple(coef.shape)}: its last "
-                         f"axis must be a multiple of 4")
+                         f"axis must be a multiple of {CHUNK}")
     for name, t, shape in (("enc_exp", enc_exp, coef.shape),
                            ("bap", bap, coef.shape),
                            ("global_exp", global_exp, coef.shape[:-1])):
@@ -140,21 +167,22 @@ def _check(coef, enc_exp, global_exp, bap):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(shape)}")
     for name, t in (("coef", coef), ("enc_exp", enc_exp), ("bap", bap)):
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name} must be aligned to 4 of its elements")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def quantize(coef, enc_exp, global_exp, bap):
+def quantize(coef, enc_exp, global_exp, bap, codes=torch.int32):
     """The quantizer (see the module docstring): every tensor contiguous
-    and on one device, coef's last axis a multiple of 4, coef, enc_exp
-    and bap aligned to 4 elements; CUDA tensors launch Q1 once, CPU ones
-    run quantize_ref."""
+    and on one device, coef's last axis a multiple of 16, coef, enc_exp
+    and bap 16-byte aligned; codes torch.int32 (JAX's dtype) or
+    torch.int16 (their low 16 bits).  CUDA tensors launch Q1 once, CPU
+    ones run quantize_ref."""
     global launches_quantize
-    _check(coef, enc_exp, global_exp, bap)
+    _check(coef, enc_exp, global_exp, bap, codes)
     dev = coef.device
     if dev.type == "cpu":
-        return quantize_ref(coef, enc_exp, global_exp, bap)
-    out = torch.empty(coef.shape, dtype=torch.int32, device=dev)
+        return quantize_ref(coef, enc_exp, global_exp, bap, codes)
+    out = torch.empty(coef.shape, dtype=codes, device=dev)
     if coef.numel() == 0:
         return out
     lib = _cuda.load("quantize", _bind)
@@ -163,8 +191,8 @@ def quantize(coef, enc_exp, global_exp, bap):
         rc = lib.quantize_launch(
             coef.data_ptr(), enc_exp.data_ptr(),
             int(enc_exp.dtype == torch.int32), global_exp.data_ptr(),
-            bap.data_ptr(), out.data_ptr(), coef.numel(), coef.shape[-1],
-            stream)
+            bap.data_ptr(), out.data_ptr(), out.element_size(),
+            coef.numel(), coef.shape[-1], stream)
     if rc != 0:
         raise RuntimeError("quantize (Q1) kernel launch failed: "
                            + lib.quantize_error_string(rc).decode())

@@ -139,18 +139,21 @@ Phases, each fatal on failure (nothing is caught and passed over):
                and D45 throughout, reused exponents, a frame filled to its
                last payload bit, a block coded on every live bin, the
                16-bin chunk that straddles each channel's last live bin,
-               frames that overrun), each launched twice; 1 frame and a
+               frames that overrun), with int32 codes and with their int16
+               form (Q1's, read as unsigned), each launched twice; 1 frame
+               and a
                CTA's warps - 1 and + 1 (8 up to two channels, 16 above: its
                last warp idle, a second CTA of one frame); [F, B] leading axes; no frames (no launch);
                refusals.  In the encode phases below: P1 once a core call
                with pack="device" and never with "native"; every P1 call
                of one device-alone run of configs 3 and 4 and of the
-               transcode's first chunk held to its plain version byte for
-               byte; its time at each config's call beside its byte bound
-               (pack_least_bytes, from that call's own fields) and the
-               plain version; and on a loud encode (full-scale white noise
-               at config 4's format, most live bins coded), every call
-               held byte for byte and the first timed beside its bound
+               transcode's first chunk (int16 codes from Q1) held to its
+               plain version and to P1 on the same codes as int32 byte for
+               byte; its time in both code widths at each config's call
+               beside its byte bound (pack_least_bytes, from that call's
+               own fields) and the plain version; and on a loud encode
+               (full-scale white noise at config 4's format, most live bins
+               coded), every call held so and the first timed so
  17c. X1       the exponent stage (X1, csrc/exponents.cu: raw exponents,
                strategy, run fold, coding, reuse copy) equal to its plain
                version (exponents_ref, the eager chain) BITWISE in the 256
@@ -171,17 +174,22 @@ Phases, each fatal on failure (nothing is caught and passed over):
                each config's core call beside its byte bound and the plain
                version
  17d. Q1       the quantizer (Q1, csrc/quantize.cu) equal to its plain
-               version (quantize_ref, the int64 passes) BITWISE on every
-               class 0-15 at exponent differences -21..33, INT32_MIN/MAX
-               and the powers of two, saturating codes, runs of class 0
-               (whole sectors skipped), with int8 and int32 exponents,
-               each launched twice; the frame core's layout; the public
+               version (quantize_ref, the int64 passes) BITWISE in both
+               code widths (int16, the low 16 bits the device-pack path
+               hands P1; int32, JAX's values) on every class 0-15 at
+               exponent differences -21..33, INT32_MIN/MAX and the powers
+               of two, saturating codes, class-15 codes from 32,768 up,
+               runs of class 0 (whole sectors skipped), with int8 and int32
+               exponents, each launched twice; the frame core's layout;
+               more chunks than a pass of the full grid; the public
                models/encoder.py:quantize on JAX's inputs (int32 classes,
-               a ragged row, strided and unaligned tensors); none (no
-               launch); refusals.  In the encode phases below as X1: once
-               a core call, every call of the recorded runs held to
-               quantize_ref, its times beside its byte bound
-               (q1_least_bytes, from that call's own classes)
+               ragged rows of 1,021 and 1,012 bins, strided and unaligned
+               tensors), int32 codes; none (no launch); refusals.  In the
+               encode phases below as X1: once a core call (int16 codes on
+               the device-pack path), every call of the recorded runs held
+               to quantize_ref in both widths, its times in both widths
+               beside its byte bound (q1_least_bytes, from that call's own
+               classes)
  17e. M1       the window, normalize and MDCT (M1, csrc/window_mdct.cu)
                equal to its plain version (window_mdct_ref: ops/mdct.py's
                window_norm_block, then mdct512) BITWISE in coef and
@@ -2719,7 +2727,8 @@ def core_watch(record=False):
     window_mdct ("m1_calls": prev, cur, then the outputs as they came out,
     before X1 zeroes coefficients in place), snr_search ("calls"),
     exponents ("x1_calls": the coefficients as they came in, then the
-    outputs and the coefficients after) and quantize ("q1_calls") call's
+    outputs and the coefficients after) and quantize ("q1_calls": its four
+    tensors, then its codes, whose dtype says the width asked for) call's
     arguments and outputs, cloned.  Yields a dict that holds them (the
     launches when the block ends)."""
     from ac3acm_tpu_torch.models import encoder as PE
@@ -2777,8 +2786,8 @@ def core_watch(record=False):
                                  + (clones(out + (coef,)),))
         return out
 
-    def quant(*args):
-        out = orig["quantize"](*args)
+    def quant(*args, **kw):
+        out = orig["quantize"](*args, **kw)
         if record:
             w["q1_calls"].append(clones(args) + (out.clone(),))
         return out
@@ -3143,18 +3152,31 @@ def p1_bound(cfg, bap, strat):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def p1_other_codes(args):
+    """pack_frames_device's six fields with the codes in the other width:
+    int16 codes widened as unsigned to int32, int32 ones cut to int16."""
+    from ac3acm_tpu_torch.ops.quantize import code_bits
+    q = args[1]
+    return [args[0], code_bits(q) if q.dtype == torch.int16
+            else as_int16(q)] + list(args[2:])
+
+
 def p1_same(call):
     """One recorded pack_frames_device call (cfg, its six fields, then its
     frames) against pack_frames_ref on the same inputs and device, byte
-    for byte -> 0.0."""
-    from ac3acm_tpu_torch.ops.pack_device import pack_frames_ref
+    for byte, and against P1 given the codes in the other width (int32
+    beside the device-pack path's int16) -> 0.0."""
+    from ac3acm_tpu_torch.ops import pack_device as PD
     cfg, *args, got = call
-    want = pack_frames_ref(cfg, *args)
-    if not torch.equal(got, want):
-        bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
-        raise AssertionError(f"P1 != pack_frames_ref on "
-                             f"{int(bad.sum())} of {bad.numel()} frames, "
-                             f"first {int(bad.nonzero()[0])}")
+    for tag, want in (
+            ("pack_frames_ref", PD.pack_frames_ref(cfg, *args)),
+            ("P1 on the other code width",
+             PD.pack_frames_device(cfg, *p1_other_codes(args)))):
+        if not torch.equal(got, want):
+            bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
+            raise AssertionError(f"P1 ({args[1].dtype} codes) != {tag} on "
+                                 f"{int(bad.sum())} of {bad.numel()} "
+                                 f"frames, first {int(bad.nonzero()[0])}")
     return 0.0
 
 
@@ -3194,24 +3216,32 @@ def p1_frames(call):
 
 def p1_times(call):
     """P1 and its plain version on one recorded call's inputs: ms (device
-    time, median of 7 after 2 warm-ups), plain_ms (the eager chain), the
-    bound.  No PyTorch call packs frames: library_ms is null."""
+    time, median of 7 after 2 warm-ups) on its codes as recorded (the
+    device-pack path's int16), ms_int32 on the same codes as int32 (JAX's
+    calling form), plain_ms (the eager chain), the bound; codes names the
+    width ms times (int16 since it reads them; before, ms was int32, which
+    ms_int32 continues).  No PyTorch call packs frames: library_ms is
+    null."""
     from ac3acm_tpu_torch.ops import pack_device as PD
     cfg, *args, _ = call
-    ms = device_ms(lambda: PD.pack_frames_device(cfg, *args))
+    a16, a32 = ((args, p1_other_codes(args)) if args[1].dtype == torch.int16
+                else (p1_other_codes(args), args))
+    ms = device_ms(lambda: PD.pack_frames_device(cfg, *a16))
+    ms_int32 = device_ms(lambda: PD.pack_frames_device(cfg, *a32))
     plain_ms = cuda_ms(lambda: PD.pack_frames_ref(cfg, *args), warmup=1,
                        reps=3)
     bound_ms, bound_by = p1_bound(cfg, args[0], args[3])
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(ms=ms, ms_int32=ms_int32, codes="int16", plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_check_p1(dev):
     """P1 (csrc/pack.cu) against its plain version and the native packer
     BYTE FOR BYTE on the crafted cases (every config of P1_CONFIGS x every
-    kind of P1_KINDS, the overrun frames included), each launched twice
-    (the same bytes); leading axes [2, n/2]; a call of no frames (no
-    launch); bad inputs raise.  -> max |diff| (0)."""
+    kind of P1_KINDS, the overrun frames included), with int32 codes and
+    with their int16 form (half of them negative as int16), each launched
+    twice (the same bytes, in both widths); leading axes [2, n/2]; a call
+    of no frames (no launch); bad inputs raise.  -> max |diff| (0)."""
     from ac3acm_tpu_torch.host import pack as PK
     from ac3acm_tpu_torch.ops import pack_device as PD
     frames = 0
@@ -3226,6 +3256,14 @@ def phase_check_p1(dev):
         p1_same((cfg, *args, out))
         native = PK.pack_frames_native(cfg, f)
         assert [r.tobytes() for r in out.cpu().numpy()] == native, config
+        a16 = p1_other_codes(args)
+        assert a16[1].dtype == torch.int16 and bool((a16[1] < 0).any())
+        before = PD.launches_pack
+        out16 = PD.pack_frames_device(cfg, *a16)
+        again16 = PD.pack_frames_device(cfg, *a16)
+        assert PD.launches_pack == before + 2, config
+        assert torch.equal(out16, out) and torch.equal(again16, out), config
+        p1_same((cfg, *a16, out16))
         frames += out.shape[0]
     two = PD.pack_frames_device(cfg, *(a.reshape((2, -1) + a.shape[1:])
                                        for a in args))
@@ -3239,12 +3277,16 @@ def phase_check_p1(dev):
     for i, bad, err in (
             (0, bap.to(torch.int32), TypeError),
             (1, qmant.to(torch.int64), TypeError),
+            (1, qmant.to(torch.int8), TypeError),
             (2, exps.to(torch.int32), TypeError),
             (3, strat.to(torch.int64), TypeError),
             (4, csnr.to(torch.int64), TypeError),
             (5, fsnr.to(torch.int16), TypeError),
             (0, bap.transpose(0, 1).contiguous().transpose(0, 1), ValueError),
             (2, flat[1:1 + exps.numel()].view(exps.shape), ValueError),
+            (1, torch.zeros(qmant.numel() + 8, dtype=torch.int16,
+                            device=dev)[1:1 + qmant.numel()].view(
+                                qmant.shape), ValueError),
             (1, qmant[..., :255].contiguous(), ValueError),
             (3, strat[:-1], ValueError),
             (4, csnr[:-1], ValueError),
@@ -3275,6 +3317,8 @@ def phase_check_p1(dev):
             c_out = PD.pack_frames_device(c_cfg, *c_args)
             assert PD.launches_pack == before + 1
             p1_same((c_cfg, *c_args, c_out))
+            c16 = p1_other_codes(c_args)
+            p1_same((c_cfg, *c16, PD.pack_frames_device(c_cfg, *c16)))
             assert [r.tobytes() for r in c_out.cpu().numpy()] == \
                 PK.pack_frames_native(c_cfg, sub), (config, n)
     # 3,840-byte 5.1 frames are the ones whose CTA takes fewer warps
@@ -3291,11 +3335,13 @@ def phase_check_p1(dev):
     log(f"check pack_frames (P1): {len(P1_CONFIGS)} configs (1-6 channels, "
         f"32 / 44.1 / 48 / 24 kHz, frames of 256-3,840 bytes) x "
         f"{len(P1_KINDS)} field kinds {P1_KINDS} x {P1_ROWS_A_KIND} frames "
-        f"= {frames} frames, each launched twice (the same bytes), equal "
-        f"to pack_frames_ref and to the native packer byte for byte "
-        f"(overrun frames too); [2, n/2] leading axes; no frames: no "
-        f"launch; a wrong dtype (each of the six), a strided, an "
-        f"unaligned, a narrow, a short, a CPU input raise")
+        f"= {frames} frames, int32 codes and their int16 form, each "
+        f"launched twice (the same bytes in both widths), equal to "
+        f"pack_frames_ref and to the native packer byte for byte (overrun "
+        f"frames too); the walk's edges in both widths; [2, n/2] leading "
+        f"axes; no frames: no launch; a wrong dtype (each of the six, and "
+        f"int8 codes), a strided, an unaligned (int16 codes too), a "
+        f"narrow, a short, a CPU input raise")
     return 0.0
 
 
@@ -3433,17 +3479,31 @@ def x1_same(call):
     return 0.0
 
 
+def as_int16(q):
+    """int32 codes -> their low 16 bits as int16 (Q1's 16-bit form), by
+    arithmetic that no cast's overflow rule touches."""
+    return (((q.long() + 0x8000) & 0xFFFF) - 0x8000).to(torch.int16)
+
+
 def q1_same(call):
     """One recorded quantize call (coef, enc_exp, global_exp, bap, then
-    its codes) against quantize_ref on the same inputs and device, bitwise
-    -> max |diff| (0)."""
-    from ac3acm_tpu_torch.ops.quantize import quantize_ref
+    its codes, int16 or int32) against quantize_ref in that width on the
+    same inputs and device, bitwise; then Q1 in the other width on the
+    same inputs against quantize_ref in that one -> max |diff| (0).  An
+    int16 code is compared by its 16 bits (code_bits), never widened with
+    its sign."""
+    from ac3acm_tpu_torch.ops import quantize as QZ
     *args, got = call
-    want = quantize_ref(*args)
-    if not torch.equal(got, want):
-        raise AssertionError(f"Q1 != quantize_ref: max |diff| "
-                             f"{int((got.long() - want.long()).abs().max())}"
-                             f" on {int((got != want).sum())} codes")
+    other = torch.int32 if got.dtype == torch.int16 else torch.int16
+    for codes, g in ((got.dtype, got),
+                     (other, QZ.quantize(*args, codes=other))):
+        want = QZ.quantize_ref(*args, codes=codes)
+        if g.dtype != codes or not torch.equal(g, want):
+            a, b = ((QZ.code_bits(t) if codes == torch.int16 else t).long()
+                    for t in (g, want))
+            raise AssertionError(
+                f"Q1 != quantize_ref ({codes} codes): max |diff| "
+                f"{int((a - b).abs().max())} on {int((a != b).sum())} codes")
     return 0.0
 
 
@@ -3501,15 +3561,21 @@ def x1_times(call):
 
 def q1_times(call):
     """Q1 and its plain version on one recorded core call's inputs: ms
-    (device time, median of 7 after 2 warm-ups), plain_ms, the bound.  No
-    PyTorch call quantizes by class: library_ms is null."""
+    (device time, median of 7 after 2 warm-ups) with int16 codes (the
+    device-pack path's form), ms_int32 with int32 codes (the public
+    functions' form), plain_ms (int16), the bound; codes names the width
+    ms and plain_ms time (int16 since Q1's redesign; the first design's ms
+    was int32, which ms_int32 continues).  No PyTorch call quantizes by
+    class: library_ms is null."""
     from ac3acm_tpu_torch.ops import quantize as QZ
     args = call[:4]
-    ms = device_ms(lambda: QZ.quantize(*args))
-    plain_ms = cuda_ms(lambda: QZ.quantize_ref(*args), warmup=1, reps=3)
+    ms = device_ms(lambda: QZ.quantize(*args, codes=torch.int16))
+    ms_int32 = device_ms(lambda: QZ.quantize(*args, codes=torch.int32))
+    plain_ms = cuda_ms(lambda: QZ.quantize_ref(*args, codes=torch.int16),
+                       warmup=1, reps=3)
     bound_ms, bound_by = q1_bound(args[3])
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(ms=ms, ms_int32=ms_int32, codes="int16", plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def x1_patterns(strat, lfe):
@@ -3641,53 +3707,74 @@ def q1_case(seed):
 
 
 def phase_check_q1(dev):
-    """Q1 (csrc/quantize.cu) against its plain version BITWISE on the
-    crafted cases of q1_case (every class, e from -21 to 33, the edges of
-    int32, saturation) with the exponents as int8 and as int32 (the JAX
+    """Q1 (csrc/quantize.cu) against its plain version BITWISE in both
+    code widths (int16, the low 16 bits the device-pack path hands the
+    packer; int32, JAX's values) on the crafted cases of q1_case (every
+    class, e from -21 to 33, the edges of int32, saturation, class-15
+    codes from 32,768 up) with the exponents as int8 and as int32 (the JAX
     form), twice each (the same codes); at a frame core's layout
-    [R, 6, ch, 256]; no coefficients (no launch); bad inputs raise.
-    -> max |diff| (0)."""
+    [R, 6, ch, 256] (more chunks than one pass of the full grid are
+    walked at every recorded core call, which q1_same holds); the public
+    quantize on JAX's inputs (int32 classes, ragged rows padded to 16
+    bins, strided and unaligned tensors), int32 codes; no coefficients
+    (no launch); bad inputs raise.  -> max |diff| (0)."""
+    from ac3acm_tpu_torch.models import encoder as PE
     from ac3acm_tpu_torch.ops import quantize as QZ
     coef, enc, gexp, bap = (torch.from_numpy(a).to(dev)
                             for a in q1_case(1700))
-    sat = 0
+    widths = (torch.int16, torch.int32)
+    q = torch.tensor([1] * 6 + [c - 1 for c in range(6, 14)] + [14, 16],
+                     device=dev)[bap.long()]
+    top = (torch.ones_like(q) << (q - 1)) - 1
+    sat = high = 0
     for enc_t in (enc.to(torch.int8), enc):
         assert torch.equal(enc_t.to(torch.int32), enc)
-        before = QZ.launches_quantize
-        out = QZ.quantize(coef, enc_t, gexp, bap)
-        again = QZ.quantize(coef, enc_t, gexp, bap)
-        assert QZ.launches_quantize == before + 2
-        assert torch.equal(out, again)
-        q1_same((coef, enc_t, gexp, bap, out))
-        # an asymmetric code at its ceiling m - 1: the saturation ran
-        q = torch.tensor([1] * 6 + [c - 1 for c in range(6, 14)] + [14, 16],
-                         device=dev)[bap.long()]
-        top = (torch.ones_like(q) << (q - 1)) - 1
-        sat += int(((bap >= 6) & (out == top)).sum())
+        for codes in widths:
+            before = QZ.launches_quantize
+            out = QZ.quantize(coef, enc_t, gexp, bap, codes=codes)
+            again = QZ.quantize(coef, enc_t, gexp, bap, codes=codes)
+            assert QZ.launches_quantize == before + 2
+            assert out.dtype == codes and torch.equal(out, again)
+            q1_same((coef, enc_t, gexp, bap, out))
+            # an asymmetric code at its ceiling m - 1: the saturation ran;
+            # class-15 codes from 32,768 up: negative as int16
+            wide = QZ.code_bits(out)
+            sat += int(((bap >= 6) & (wide == top)).sum())
+            high += int(((bap == 15) & (wide >= 32768)).sum())
     assert sat > 0, "no code saturated"
+    assert high > 0, "no class-15 code from 32,768 up"
     frame = tuple(t[:48].reshape(48, 16, 64).reshape(-1, 6, 2, 256)
                   for t in (coef, enc.to(torch.int8), bap))
     g = gexp[:48, None].expand(48, 4).reshape(-1, 6, 2).contiguous()
-    q1_same(frame[:1] + (frame[1], g, frame[2],
-                         QZ.quantize(frame[0], frame[1], g, frame[2])))
-    # the public quantize on JAX's inputs, brought to Q1's contract: int32
-    # classes, a ragged row (a strided view), an unaligned coef and a
-    # strided enc_exp; one launch each
-    from ac3acm_tpu_torch.models import encoder as PE
+    # rows of 1,008 bins: 3,465 chunks, the last warp's partly past them
+    rag = [t[:, :1008].contiguous() for t in (coef, enc.to(torch.int8), bap)]
+    for codes in widths:
+        q1_same((rag[0], rag[1], gexp, rag[2],
+                 QZ.quantize(rag[0], rag[1], gexp, rag[2], codes=codes)))
+        q1_same(frame[:1] + (frame[1], g, frame[2], QZ.quantize(
+            frame[0], frame[1], g, frame[2], codes=codes)))
+    # the public quantize on JAX's inputs, brought to Q1's contract (rows
+    # padded to 16 bins): int32 classes, ragged rows (strided views), an
+    # unaligned coef and a strided enc_exp; int32 codes, one launch each
     spare = torch.zeros(coef.numel() + 4, dtype=torch.int32, device=dev)
     odd = spare[1:1 + coef.numel()].view(coef.shape)
     odd.copy_(coef)
     for args in ((coef, enc, gexp, bap.to(torch.int32)),
                  (coef[:, :1021], enc[:, :1021], gexp, bap[:, :1021]),
+                 (coef[:, :1012], enc[:, :1012], gexp, bap[:, :1012]),
                  (odd, enc.t().contiguous().t(), gexp, bap)):
         before = QZ.launches_quantize
-        q1_same(args + (PE.quantize(*args),))
+        got = PE.quantize(*args)
         assert QZ.launches_quantize == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, QZ.quantize_ref(*args))
     before = QZ.launches_quantize
-    none = QZ.quantize(coef[:0], enc[:0], gexp[:0], bap[:0])
-    assert none.shape == (0, coef.shape[1])
+    for codes in widths:
+        none = QZ.quantize(coef[:0], enc[:0], gexp[:0], bap[:0], codes=codes)
+        assert none.shape == (0, coef.shape[1]) and none.dtype == codes
     assert QZ.launches_quantize == before, "no coefficients launched"
     flat = torch.zeros(coef.numel() + 4, dtype=torch.int32, device=dev)
+    e8 = torch.zeros(coef.numel() + 16, dtype=torch.int8, device=dev)
     for i, bad, err in (
             (0, coef.to(torch.int64), TypeError),
             (1, enc.to(torch.int16), TypeError),
@@ -3695,6 +3782,8 @@ def phase_check_q1(dev):
             (3, bap.to(torch.int32), TypeError),
             (0, coef.t().contiguous().t(), ValueError),
             (0, flat[1:1 + coef.numel()].view(coef.shape), ValueError),
+            (1, e8[4:4 + coef.numel()].view(coef.shape), ValueError),
+            (0, coef[:, :1012].contiguous(), ValueError),
             (1, enc[:, :-4].contiguous(), ValueError),
             (2, gexp[:-1], ValueError),
             (3, bap.cpu(), ValueError)):
@@ -3705,16 +3794,25 @@ def phase_check_q1(dev):
             raise AssertionError(f"bad argument {i} was accepted")
         except err:
             pass
+    for codes in (torch.int64, torch.int8, torch.uint16):
+        try:
+            QZ.quantize(coef, enc, gexp, bap, codes=codes)
+            raise AssertionError(f"codes={codes} was accepted")
+        except TypeError:
+            pass
     log(f"check quantize (Q1): {coef.shape[0]} rows x {coef.shape[1]} "
         f"coefficients (every class 0-15, e = enc_exp - global_exp from -21 "
         f"to 33, INT32_MIN/MAX and the powers of two), exponents int8 and "
-        f"int32, each launched twice (the same codes), equal to "
-        f"quantize_ref bitwise; {sat} saturated asymmetric codes; the frame "
-        f"core's [R, 6, 2, 256] layout; runs of class 0; the public "
-        f"quantize on int32 classes, a ragged row, an unaligned and a "
-        f"strided input; no coefficients: no launch; a wrong "
-        f"dtype (each of the four), a strided, an unaligned, a short and a "
-        f"CPU input raise")
+        f"int32, int16 and int32 codes, each launched twice (the same "
+        f"codes), equal to quantize_ref bitwise in each width; {sat} "
+        f"saturated asymmetric codes, {high} class-15 codes from 32,768 up; "
+        f"the frame core's [R, 6, 2, 256] layout; runs of class 0; rows of "
+        f"1,008 bins (a last warp partly past the chunks); the public "
+        f"quantize (int32 codes) on int32 classes, ragged "
+        f"rows of 1,021 and 1,012 bins, an unaligned and a strided input; "
+        f"no coefficients: no launch; a wrong dtype (each of the four, and "
+        f"codes int64, int8, uint16), a strided, an unaligned (4 bytes off "
+        f"too), a row of 1,012 bins, a short and a CPU input raise")
     return 0.0
 
 
@@ -4149,28 +4247,40 @@ def phase_enc_main():
                                   rows=watch["x1_calls"][0][0].shape[0])
         q1_times_by[label] = dict(q1_times(watch["q1_calls"][0]),
                                   rows=watch["q1_calls"][0][0].shape[0])
+        assert all(c[-1].dtype == torch.int16 for c in watch["q1_calls"])
         for name, t in (("exponents (X1)", x1_times_by[label]),
                         ("quantize (Q1)", q1_times_by[label])):
+            int32 = (f"; int32 codes (the public functions' form) "
+                     f"{t['ms_int32']:.4f} ms "
+                     f"({t['bound_ms'] / t['ms_int32']:.2%})"
+                     if "ms_int32" in t else "")
             log(f"encode {label}: all {len(watch['x1_calls'])} X1 and "
                 f"{len(watch['q1_calls'])} Q1 calls of a device-alone run "
-                f"equal to their plain versions bitwise; time {name} at a "
-                f"core call [{t['rows']}, 6, {nch}, 256]: kernel_ms "
-                f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+                f"equal to their plain versions bitwise (Q1 in both code "
+                f"widths); time {name} at a core call [{t['rows']}, 6, "
+                f"{nch}, 256]: kernel_ms {t['ms']:.4f}"
+                + (" (int16 codes, the device-pack path's form)"
+                   if int32 else "")
+                + f"; plain_ms {t['plain_ms']:.3f}; bound_ms "
                 f"{t['bound_ms']:.4f} -> {t['bound_by']} "
-                f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time); "
-                f"library_ms null")
+                f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time)"
+                + int32 + "; library_ms null")
+        assert all(c[2].dtype == torch.int16 for c in pw["calls"])
         assert not any(p1_same(c) for c in pw["calls"])
         p1_times_by[label] = dict(p1_times(pw["calls"][0]),
                                   rows=p1_frames(pw["calls"][0]))
         t = p1_times_by[label]
         log(f"encode {label}: all {len(pw['calls'])} P1 calls of a "
-            f"device-alone run equal to pack_frames_ref byte for byte; time "
-            f"pack_frames (P1) at a core call [{t['rows']}, 6, {nch}, 256] "
-            f"-> [{t['rows']}, {cfg.frame_size * 2}]: kernel_ms "
-            f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
-            f"{t['bound_ms']:.4f} -> {t['bound_by']} "
-            f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time); "
-            f"library_ms null (no PyTorch call packs frames)")
+            f"device-alone run (int16 codes from Q1) equal to "
+            f"pack_frames_ref and to P1 on the same codes as int32 byte for "
+            f"byte; time pack_frames (P1) at a core call [{t['rows']}, 6, "
+            f"{nch}, 256] -> [{t['rows']}, {cfg.frame_size * 2}]: kernel_ms "
+            f"{t['ms']:.4f} (int16 codes); int32 codes {t['ms_int32']:.4f} "
+            f"({t['ms'] / t['ms_int32'] - 1:+.2%}); plain_ms "
+            f"{t['plain_ms']:.3f}; bound_ms {t['bound_ms']:.4f} -> "
+            f"{t['bound_by']} ({t['bound_ms'] / t['ms']:.2%} of the "
+            f"kernel's time); library_ms null (no PyTorch call packs "
+            f"frames)")
         # the stage run below quantizes and packs these same fields
         pack_least = sum(pack_least_bytes(c[0], c[1], c[4])
                          for c in pw["calls"])
@@ -4253,12 +4363,13 @@ def phase_enc_main():
 
 def phase_p1_loud():
     """P1 on the fields of a loud encode: seeded full-scale white noise
-    through BatchedEncoder (pack="device") at config 4's format (2,048
-    lanes x 8 frames of 5.1 at 640 kbit/s), where most live bins carry a
-    class.  Every P1 call of the run held to pack_frames_ref byte for
-    byte; the first timed beside its bound from its own fields (p1_bound),
-    so a design that wins only on sparse content shows.  -> its times,
-    the coded share of live bins."""
+    through BatchedEncoder (pack="device", int16 codes) at config 4's
+    format (2,048 lanes x 8 frames of 5.1 at 640 kbit/s), where most live
+    bins carry a class.  Every P1 call of the run held to pack_frames_ref
+    and to P1 on int32 codes byte for byte; the first timed in both code
+    widths beside its bound from its own fields (p1_bound), so a design
+    that wins only on sparse content shows.  -> its times, the coded
+    share of live bins."""
     from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
     _, B, F, nch, kbps = ENC_MAIN[1]
     rng = np.random.default_rng(18)
@@ -4269,6 +4380,7 @@ def phase_p1_loud():
     assert pw["launches"] == pw["n"] >= 1, pw["n"]
     assert len(out) == B and all(len(o) == F * enc.cfg.frame_size * 2
                                  for o in out)
+    assert all(c[2].dtype == torch.int16 for c in pw["calls"])
     assert not any(p1_same(c) for c in pw["calls"])
     call = pw["calls"][0]
     cfg, bap = call[0], call[1]
@@ -4279,9 +4391,11 @@ def phase_p1_loud():
     t = dict(p1_times(call), rows=p1_frames(call), coded_share=share)
     log(f"P1 on loud content (full-scale white noise, {B} lanes x {F} "
         f"frames of {nch} ch at {kbps} kbit/s; {len(pw['calls'])} calls "
-        f"equal to pack_frames_ref byte for byte): {share:.1%} of live bins "
-        f"carry a class; at a call of {t['rows']} frames kernel_ms "
-        f"{t['ms']:.4f}; plain_ms {t['plain_ms']:.3f}; bound_ms "
+        f"equal to pack_frames_ref and to P1 on int32 codes byte for "
+        f"byte): {share:.1%} of live bins carry a class; at a call of "
+        f"{t['rows']} frames kernel_ms {t['ms']:.4f} (int16 codes); int32 "
+        f"codes {t['ms_int32']:.4f} ({t['ms'] / t['ms_int32'] - 1:+.2%}); "
+        f"plain_ms {t['plain_ms']:.3f}; bound_ms "
         f"{t['bound_ms']:.4f} -> {t['bound_by']} "
         f"({t['bound_ms'] / t['ms']:.2%} of the kernel's time)")
     del pw, call, bap, enc, out
@@ -5654,9 +5768,10 @@ def main():
         launches=core_launches["E1"], max_abs_err=e1_err, **e1))
     p1 = dict(p1_times_by["config 3"])
     p1.update({f"{k}_51": v for k, v in p1_times_by["config 4"].items()
-               if k in ("ms", "plain_ms", "bound_ms")})
+               if k in ("ms", "ms_int32", "plain_ms", "bound_ms")})
     p1.pop("rows")
-    p1.update(ms_loud=p1_loud["ms"], bound_ms_loud=p1_loud["bound_ms"],
+    p1.update(ms_loud=p1_loud["ms"], ms_int32_loud=p1_loud["ms_int32"],
+              bound_ms_loud=p1_loud["bound_ms"],
               coded_share_loud=p1_loud["coded_share"])
     kernels.append(dict(
         name="pack (P1)", route="cuda",
@@ -5675,7 +5790,7 @@ def main():
              "M1", m1_err, m1_times_by)):
         t = dict(by["config 3"])
         t.update({f"{k}_51": v for k, v in by["config 4"].items()
-                  if k in ("ms", "plain_ms", "bound_ms")})
+                  if k in ("ms", "ms_int32", "plain_ms", "bound_ms")})
         t.pop("rows")
         t.pop("model_ms", None)
         kernels.append(dict(

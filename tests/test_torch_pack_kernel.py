@@ -25,8 +25,14 @@ on the CPU, byte for byte against the JAX package.
     two channels, 16 above, 15 for 3,840-byte 5.1 frames, as the source's
     cta_warps gives them), and the model's frames and the CPU route's
     equal JAX's device packer there.
-  * The wrapper refuses what the kernel does not take, and a CPU tensor
-    never reaches the CUDA build.
+  * The codes come as int32 or as Q1's 16-bit form (their low 16 bits as
+    int16, which the device-pack path hands over): given the crafted
+    fields' codes as int16 (half of them negative there), the plain
+    version, the CPU route and the kernel's model (which reads a 16-bit
+    code as unsigned, as the kernel does) give the int32 codes' bytes.
+  * The wrapper refuses what the kernel does not take, the native packer
+    refuses int16 codes (it would widen them with their sign), and a CPU
+    tensor never reaches the CUDA build.
 """
 import os
 import re
@@ -124,7 +130,9 @@ def kernel_model(cfg, f, r):
     where a lane codes more than 4 of its 16, else each lane its coded
     bins; the bits are the same); the heads and exponent groups are or-ed
     in after; the CRCs are the 32 lanes' chunk CRCs times their
-    multipliers, XORed."""
+    multipliers, XORed.  An int16 code is read as unsigned (its 16
+    bits), an int32 one as its 32."""
+    code_mask = 0xFFFF if f["qmant"].dtype == np.int16 else 0xFFFFFFFF
     tab = [int(x) for x in PD.kernel_table(cfg)]
     nch, total = cfg.channels, cfg.frame_size * 2
     fs58 = (cfg.frame_size >> 1) + (cfg.frame_size >> 3)
@@ -263,7 +271,7 @@ def kernel_model(cfg, f, r):
                 for i, x in enumerate(cls):
                     if x <= 0:
                         continue
-                    q = int(f["qmant"][r, b, c, k + i]) & 0xFFFFFFFF
+                    q = int(f["qmant"][r, b, c, k + i]) & code_mask
                     at = off if off < limit else None
                     if x in o:
                         g, bits = (3, 5) if x == 1 else (3, 7) if x == 2 \
@@ -349,6 +357,48 @@ def test_kernel_model_matches_plain_version(config):
     for r in range(0, len(want), ROWS):
         assert kernel_model(cfg, f, r) == want[r].tobytes(), (
             CS.P1_KINDS[r // ROWS])
+
+
+def _int16(f):
+    """The fields with Q1's 16-bit form of the codes: their low 16 bits
+    as int16."""
+    return dict(f, qmant=f["qmant"].astype(np.int16))
+
+
+@pytest.mark.parametrize("config", CS.P1_CONFIGS[1::2])
+def test_kernel_model_reads_int16_codes(config):
+    """The kernel's algorithm reading 16-bit codes (as unsigned) gives the
+    int32 codes' bytes on one frame of every kind."""
+    cfg, f = _case(config)
+    want = _ref(cfg, f)
+    f16 = _int16(f)
+    for r in range(0, len(want), ROWS):
+        assert kernel_model(cfg, f16, r) == want[r].tobytes(), (
+            CS.P1_KINDS[r // ROWS])
+
+
+@pytest.mark.parametrize("config", CS.P1_CONFIGS)
+def test_int16_codes_give_the_int32_bytes(config):
+    """pack_frames_ref and the CPU route given int16 codes give the bytes
+    they give for int32 codes (and the native packer's), on fields whose
+    coded bins hold 16-bit codes from 32,768 up (negative as int16)."""
+    cfg, f = _case(config)
+    want = _ref(cfg, f)
+    f16 = _int16(f)
+    q16 = torch.from_numpy(f16["qmant"])
+    live = np.arange(256) < np.asarray(cfg.nb_coefs)[:, None]
+    coded = (f["bap"] > 0) & live
+    assert (f16["qmant"][coded] < 0).any()
+    args = [torch.from_numpy(f16[k]) for k in CS.P1_KEYS]
+    assert args[1].dtype == torch.int16
+    assert np.array_equal(PD.pack_frames_ref(cfg, *args).numpy(), want)
+    assert np.array_equal(PD.pack_frames_device(cfg, *args).numpy(), want)
+    assert torch.equal(PD.pack_frames_device(cfg)(*args),
+                       PD.pack_frames_device(cfg, *args))
+    assert torch.equal(q16.to(torch.int32) & 0xFFFF,
+                       torch.from_numpy(f["qmant"]) & 0xFFFF)
+    with pytest.raises(TypeError):
+        PK.pack_frames_native(cfg, f16)
 
 
 @pytest.mark.parametrize("config", CS.P1_CONFIGS[::3])
@@ -557,6 +607,11 @@ def _offset_view(t, dtype):
 BAD = {
     "bap int32": (0, lambda t: t.to(torch.int32), TypeError),
     "qmant int64": (1, lambda t: t.long(), TypeError),
+    "qmant int8": (1, lambda t: t.to(torch.int8), TypeError),
+    "qmant uint16": (1, lambda t: t.to(torch.uint16), TypeError),
+    "qmant int16 unaligned": (1, lambda t: _offset_view(t.to(torch.int16),
+                                                        torch.int16),
+                              ValueError),
     "enc_exp int32": (2, lambda t: t.to(torch.int32), TypeError),
     "strat int64": (3, lambda t: t.long(), TypeError),
     "csnr int64": (4, lambda t: t.long(), TypeError),

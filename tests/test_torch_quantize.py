@@ -16,6 +16,12 @@ bitwise against the JAX package.
     tensors; on CPU tensors as they come, and brought to Q1's contract
     by _q1_layout (its CUDA route's step) through the kernel's wrapper.
   * frame_core's qmant equals JAX's frame core's on one config.
+  * The 16-bit form (codes=torch.int16, what the device-pack path hands
+    the packer) is the low 16 bits of JAX's codes: widened by & 0xFFFF
+    (code_bits) it equals them, while a sign-extending cast misreads the
+    class-15 codes from 32,768 up, which the crafted case reaches.  Only
+    encode_pipeline_packed asks frame_core for it: every public function
+    that returns qmant returns JAX's int32.
   * The wrapper refuses what the kernel does not take, and a CPU tensor
     never reaches the CUDA build.
 """
@@ -52,6 +58,29 @@ def test_crafted_cases_match_jax(exp_dtype):
     assert e.min() == -21 and e.max() == 33
     q = np.array([1] * 6 + [c - 1 for c in range(6, 14)] + [14, 16])[bap]
     assert ((bap >= 6) & (want == (1 << (q - 1)) - 1)).sum() > 0
+
+
+@pytest.mark.parametrize("exp_dtype", [np.int8, np.int32],
+                         ids=["int8", "int32"])
+def test_int16_codes_are_the_low_bits_of_jax(exp_dtype):
+    """Q1's plain version in the 16-bit form, widened by & 0xFFFF, equals
+    JAX's codes (their low 16 bits where a symmetric class's garbage
+    inputs give a negative one); class-15 codes from 32,768 up occur and
+    read negative as int16."""
+    coef, enc, gexp, bap = _case()
+    want = np.asarray(jax.jit(JE.quantize)(coef, enc, gexp, bap))
+    args = (torch.from_numpy(coef), torch.from_numpy(enc.astype(exp_dtype)),
+            torch.from_numpy(gexp), torch.from_numpy(bap))
+    got = QZ.quantize(*args, codes=torch.int16)
+    assert got.dtype == torch.int16
+    assert torch.equal(got, QZ.quantize_ref(*args, codes=torch.int16))
+    wide = QZ.code_bits(got).numpy()
+    assert np.array_equal(wide, want & 0xFFFF)
+    assert np.array_equal(wide[want >= 0], want[want >= 0])
+    high = (bap == 15) & (want >= 32768)
+    assert high.sum() > 0 and (got.numpy()[high] < 0).all()
+    # the hazard: a sign-extending cast reads them as negative
+    assert not np.array_equal(got.to(torch.int32).numpy(), want)
 
 
 def test_frame_layout_and_leading_axes():
@@ -95,6 +124,8 @@ JAX_FORMS = {
         c, e.astype(np.int16), g, b.astype(np.uint8)),
     "ragged row": lambda c, e, g, b: (c[:, :1021], e[:, :1021], g,
                                       b[:, :1021]),
+    "row a multiple of 4, not of 16": lambda c, e, g, b: (
+        c[:, :1012], e[:, :1012], g, b[:, :1012]),
 }
 
 
@@ -111,6 +142,7 @@ def test_public_quantize_takes_jax_inputs(form):
     assert not t[1].is_contiguous() and t[0].data_ptr() % 16
     assert np.array_equal(PE.quantize(*t).numpy(), want)
     laid = PE._q1_layout(*t)
+    assert laid[0].shape[-1] % QZ.CHUNK == 0
     got = QZ.quantize(*laid)[..., :t[0].shape[-1]]
     assert np.array_equal(got.numpy(), want)
 
@@ -120,9 +152,10 @@ def _good():
     return [coef.clone(), enc.to(torch.int8), gexp.clone(), bap.clone()]
 
 
-def _offset_view(t):
-    flat = torch.zeros(t.numel() + 4, dtype=t.dtype)
-    return flat[1:1 + t.numel()].view(t.shape)
+def _offset_view(t, k=1):
+    """t's values in a view k elements past a fresh buffer's start."""
+    flat = torch.zeros(t.numel() + 16, dtype=t.dtype)
+    return flat[k:k + t.numel()].view(t.shape).copy_(t)
 
 
 BAD = {
@@ -135,6 +168,8 @@ BAD = {
     "coef unaligned": (0, _offset_view, ValueError),
     "bap unaligned": (3, _offset_view, ValueError),
     "coef 1022 a row": (0, lambda t: t[:, :1022].contiguous(), ValueError),
+    "coef 1012 a row": (0, lambda t: t[:, :1012].contiguous(), ValueError),
+    "enc_exp 4 bytes off": (1, lambda t: _offset_view(t, 4), ValueError),
     "enc_exp short": (1, lambda t: t[:, :-4].contiguous(), ValueError),
     "global_exp short": (2, lambda t: t[:-1], ValueError),
     "bap on meta": (3, lambda t: t.to("meta"), ValueError),
@@ -154,6 +189,58 @@ def test_wrapper_refuses(bad):
     assert QZ.launches_quantize == before == 0
 
 
+@pytest.mark.parametrize("codes", [torch.int64, torch.int8, torch.uint16,
+                                   "int16"], ids=str)
+def test_wrapper_refuses_codes(codes):
+    """Codes come as int32 or int16 and in no other form."""
+    with pytest.raises(TypeError):
+        QZ.quantize(*_good(), codes=codes)
+    assert QZ.launches_quantize == 0
+
+
+def test_only_the_device_pack_path_asks_for_int16(monkeypatch):
+    """frame_core gets codes=torch.int16 from encode_pipeline_packed and
+    from no other route; the packer gets those codes; every route that
+    hands a caller qmant gives int32 (encode_pipeline, its multi form,
+    BatchedEncoder with the native packer, Encoder); both packers give the
+    same bytes."""
+    from ac3acm_tpu_torch.ops import pack_device as PD
+    from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
+    seen, packed = [], []
+    core, pack = PE.frame_core, PD.pack_frames_device
+
+    def core_spy(*a, **k):
+        out = core(*a, **k)
+        seen.append(out["qmant"].dtype)
+        return out
+
+    def pack_spy(cfg, bap, qmant, *rest, **k):
+        packed.append(qmant.dtype)
+        return pack(cfg, bap, qmant, *rest, **k)
+
+    monkeypatch.setattr(PE, "frame_core", core_spy)
+    monkeypatch.setattr(PD, "pack_frames_device", pack_spy)
+    cfg = PE.make_config(48000, 192000, 2)
+    pcm = CS.mixed_pcm(2, 2, 31, 2)                       # [2, 3072, 2]
+    x = torch.from_numpy(np.ascontiguousarray(
+        pcm.reshape(2, 2, 1536, 2).transpose(1, 0, 2, 3)))
+    last = torch.zeros((2, 2, 256), dtype=torch.int32)
+    csnr = torch.full((2,), 40, dtype=torch.int32)
+    one = PE.encode_pipeline(cfg)(x[0], last, csnr)
+    _, multi = PE.encode_pipeline_multi(cfg)(x, last, csnr)
+    assert one["qmant"].dtype == multi["qmant"].dtype == torch.int32
+    assert torch.equal(multi["qmant"][0], one["qmant"])
+    assert seen == [torch.int32] * 2 and not packed
+    native = BatchedEncoder(2, 48000, 192000, 2, pack="native",
+                            device="cpu").encode_frames(pcm)
+    PE.Encoder(48000, 192000, 2, device="cpu").encode(pcm[0])
+    assert seen == [torch.int32] * 4 and not packed
+    device = BatchedEncoder(2, 48000, 192000, 2,
+                            device="cpu").encode_frames(pcm)
+    assert seen[4:] == [torch.int16] and packed == [torch.int16]
+    assert device == native
+
+
 def test_cpu_never_reaches_the_cuda_build(monkeypatch):
     """CPU tensors take the plain version: the CUDA build is never
     touched and the launch count never moves; no coefficients, no codes."""
@@ -164,6 +251,7 @@ def test_cpu_never_reaches_the_cuda_build(monkeypatch):
     monkeypatch.setattr(_cuda, "build", refuse)
     args = _good()
     assert torch.equal(QZ.quantize(*args), QZ.quantize_ref(*args))
-    none = QZ.quantize(*(a[:0] for a in args))
-    assert none.shape == (0, args[0].shape[1])
+    for codes in (torch.int32, torch.int16):
+        none = QZ.quantize(*(a[:0] for a in args), codes=codes)
+        assert none.shape == (0, args[0].shape[1]) and none.dtype == codes
     assert QZ.launches_quantize == 0
