@@ -12,7 +12,8 @@ models.decoder.fixed_block_pipeline(fmt) computes: the LIBA52_FIXED
 On a CUDA tensor it launches the hand-written kernel B1QS
 (csrc/imdct_exact.cu:fixed_chain_kernel), once a call: the splits, the
 Q30 overlap-adds, the delay fixups and the mixes of every block in one
-CTA, the carry in shared memory.  On a CPU tensor it runs
+cluster of CTAs, a block's rows split a CTA each and walked in the first
+with the carry in registers.  On a CPU tensor it runs
 ``fixed_chain_ref``, the plain version: models.decoder._block_step block
 after block with the plain Q30 filterbank.  There is no other path.  The
 JAX package runs the same chain as one XLA program (a lax.scan of

@@ -479,12 +479,15 @@ def _bind(lib):
         fn.restype = C.c_int
         fn.argtypes = [p, p, p, p, p, p, C.c_longlong, p]
     lib.fused_steady_exact_launch.restype = C.c_int
-    lib.fused_steady_exact_launch.argtypes = [p, p, p, p, p, p, p, p, p,
-                                              i, i, i, i, p]
+    lib.fused_steady_exact_launch.argtypes = [p] * 10 + [i, i, i, i, p]
     lib.fixed_chain_launch.restype = C.c_int
     lib.fixed_chain_launch.argtypes = [p] * 13 + [i, p, p]
     lib.fixed_chain_mix_size.restype = C.c_int
     lib.fixed_chain_mix_size.argtypes = []
+    lib.imdct_exact_bare_launch.restype = C.c_int
+    lib.imdct_exact_bare_launch.argtypes = [i, i, i, p]
+    lib.fixed_chain_shape.restype = None
+    lib.fixed_chain_shape.argtypes = [p]
     lib.imdct_exact_error_string.restype = C.c_char_p
     lib.imdct_exact_error_string.argtypes = [C.c_int]
 

@@ -43,7 +43,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                bound, its plain version and the fast mode's matmul of the
                same rows (not the same function bitwise); B1F there (int16,
                f32, 30% short) beside B1 + the eager epilogue it replaces,
-               the eager epilogue alone, its plain version and its bound
+               the eager epilogue alone, its plain version and its bound,
+               and the design's model (the SASS on a pair step's path,
+               b1f_pair_paths, at the card's issue rate) on its log line
   5. main path BatchedDecoder(parser="native") in fast mode on 4096 lanes
                of distinct golden byte streams, f32 and compact H2D: the
                kernel's launch count must rise on every chunk, the PCM must
@@ -259,10 +261,11 @@ Phases, each fatal on failure (nothing is caught and passed over):
                mixed blksw, zero-coefficient channels, all short, carries
                with downmixed True and False), and the JAX digest's cases
                (B1QS_DIGEST); n = 0 and refusals; its device time a frame,
-               the call with no blocks (prologue and launch), the
+               the call with no blocks (prologue and launch) beside a
+               bare launch (one CTA, and a cluster of B1QS's shape), the
                wrapper's host time, the plain version, the bound (the
-               card's rates) and the one-CTA design's floor (one SM's
-               integer issue)
+               card's rates) and the same instructions at one SM's
+               integer issue rate
  23. fixed     SampleDecoder("fixed") on the card: 512 frames of the 5.1
                golden to stereo and to 3F2R|LFE, and the 5.1 -> 2.0
                switch with DRC off, each int32 bitwise the native fixed
@@ -305,6 +308,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+from collections import Counter
 import os
 import re
 import subprocess
@@ -450,6 +454,59 @@ def sass_functions(name, kernel):
     return funcs
 
 
+# an instruction of cuobjdump's SASS listing: its address and its text
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,5})\*/\s+([^;]*);")
+
+
+def b1f_pair_paths(func):
+    """Instructions on a pair step's path in one B1F function's SASS (a
+    cuobjdump listing), each block counted once as laid out: the step
+    loop's head (from its top to the dispatch on the pair's kinds), the
+    stub that picks the kind, that kind's pair transform, and the loop's
+    tail (the OLA and stores, to the branch back); and the __syncwarp()s
+    on it (a BRA.DIV each).  The layout read: the transforms' join E is
+    the target of the most unconditional branches; the long pair is the
+    code that falls into E, the short pair the code between the last two
+    unconditional branches to E, after the stub that branches to the long
+    one; the step loop is the innermost backward branch around E.
+    -> {"long", "short", "syncs_long", "syncs_short", "function"}, or None
+    where the listing is not laid out so."""
+    ins = [(int(a, 16), t.strip()) for a, t in SASS_LINE.findall(func)]
+    jumps = Counter(t.split()[1] for _, t in ins
+                    if re.fullmatch(r"BRA 0x[0-9a-f]+", t))
+    if not jumps:
+        return None
+    E = int(jumps.most_common(1)[0][0], 16)
+    ends = sorted(a for a, t in ins if t == f"BRA {hex(E)}")
+    target = lambda t: int(t.split("0x")[-1], 16)
+    loops = [(a, target(t)) for a, t in ins
+             if re.fullmatch(r"@!?U?P\w+ BRA 0x[0-9a-f]+", t)
+             and target(t) < E < a]
+    if len(ends) < 2 or not loops:
+        return None
+    back, top = min(loops, key=lambda lp: lp[0] - lp[1])
+    s_short, s_long = ends[-2] + 16, ends[-1] + 16
+    disp = [a for a, t in ins if a < s_short and t.startswith(("BRA", "@"))
+            and "BRA" in t and target(t) == s_short]
+    stub = [a for a, t in ins if s_short <= a < s_long and "BRA" in t
+            and target(t) == s_long]
+    if not disp or not stub:
+        return None
+
+    def tally(spans, what):
+        return sum(lo <= a < hi and what(t) for lo, hi in spans
+                   for a, t in ins)
+
+    shared = [(top, disp[0] + 16), (s_short, stub[0] + 16), (E, back + 16)]
+    paths = {"long": shared + [(s_long, E)],
+             "short": shared + [(stub[0] + 16, s_long)]}
+    out = {k: tally(v, lambda t: True) for k, v in paths.items()}
+    out.update({f"syncs_{k}": tally(v, lambda t: t.startswith("BRA.DIV"))
+                for k, v in paths.items()})
+    out["function"] = len(ins)
+    return out
+
+
 def phase_build():
     from ac3acm_tpu_torch.host import native
     from ac3acm_tpu_torch.ops import _cuda
@@ -507,6 +564,16 @@ def phase_build():
             f"{len(ins)} instructions, " + ", ".join(
                 f"{c} {n}" for c, n in mix.items()))
         assert ops["FFMA"] == 0 and ops["FMUL"] > 0, (kernel, ops)
+    # B1F's design model counts the instructions on its pair steps' paths
+    for f in sass_functions("imdct_exact", "fused_steady_exact_kernel"):
+        form = "int16" if "ILb1E" in f.split("\n", 1)[0] else "f32"
+        B1F_SASS[form] = paths = b1f_pair_paths(f)
+        log(f"sass fused_steady_exact_kernel {form}: " + (
+            f"{paths['long']} instructions on a long pair step's path, "
+            f"{paths['short']} on a short one's, {paths['syncs_long']} / "
+            f"{paths['syncs_short']} __syncwarp; {paths['function']} in "
+            f"the function" if paths else "the SASS layout is not the one "
+            "b1f_pair_paths reads: no design model"))
     # M1's design model counts its kernel's instructions (m1_bound)
     funcs = sass_functions("window_mdct", "window_mdct_kernel")
     assert len(funcs) == 1, funcs
@@ -1013,6 +1080,24 @@ def phase_times_b1f(inputs, b1_times):
         f"{nbytes / (ms * 1e-3) / 1e12:.2f} TB/s); f32 bound {t_f32:.3f} ms "
         f"({nbytes_f32} B; {t_f32 / ms_f32:.0%}); B1F / (B1 + eager) "
         f"{ms / ms_b1_eager:.3f}; {per_call:g} launch per call")
+    paths = B1F_SASS.get("int16")
+    if paths:
+        # a pair step transforms two rows; the 30% short chunk's pairs are
+        # of one kind, 30% of them short
+        rate = PEAK_ISSUE / 32
+        model = R * paths["long"] / 2 / rate * 1e3
+        model_short = R * (0.7 * paths["long"] + 0.3 * paths["short"]) \
+            / 2 / rate * 1e3
+        log(f"     fused_steady_exact design model (not bound_ms): "
+            f"{paths['long']} SASS instructions a long pair step "
+            f"({paths['long'] / 2:g} a row; a short pair step "
+            f"{paths['short']}) x {R} rows at {rate:.4e} warp instructions/s "
+            f"= {model:.3f} ms ({model / ms:.0%} of the kernel's time; the "
+            f"30% short chunk {model_short:.3f} ms, {model_short / ms_short:.0%})"
+            f", beside the byte bound {t_bytes:.3f} ms")
+    else:
+        log("     fused_steady_exact design model: none (phase_build did not "
+            "recognize the SASS layout)")
     assert ms < ms_b1_eager, "B1F is not faster than B1 + eager epilogue"
     return dict(ms=ms, plain_ms=plain_ms, library_ms=b1_times["library_ms"],
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -3838,6 +3923,9 @@ M1_TRANSFORM_OPS = (512 * 3 + 512 * 4 + 128 * 2 * 2 + 128 * 13
 # the static instruction count of M1's kernel in this build's SASS
 # (phase_build counts it): its loop body runs once a transform a warp
 M1_SASS = {}
+# B1F's SASS on its pair steps' paths, by output form (phase_build,
+# b1f_pair_paths): the design's model on B1F's log line
+B1F_SASS = {}
 
 
 def m1_edges():
@@ -4997,21 +5085,24 @@ def b1qs_bound(fmt, blocks):
     issue rate (PEAK_ISSUE: the rows' splits do not depend on one another
     and the overlap-add and mixes run per sample, so the function needs
     no one SM).  The instructions are the split of the rows the chain
-    reads (each block's path rows, long or short as its blksw says, and
-    the LFE long) and the overlap-add of the planes it emits or carries.
-    Beside it, the one-CTA design's floor: the same instructions at one
-    SM's issue rate.
-    -> (bound_ms, "bytes" | "operations", instructions, one_cta_floor_ms)."""
+    reads (each block's path rows, long or short as its blksw says, less
+    a frequency-path row whose downmix row is zero, whose input and split
+    are 0, or a time-path channel without coefficients, whose split is not
+    read; and the LFE long) and the overlap-add of the planes it emits or
+    carries.  Beside it, the same instructions at one SM's issue rate.
+    -> (bound_ms, "bytes" | "operations", instructions, one_sm_ms)."""
+    from ac3acm_tpu_torch.ops import fixed_chain as FC
+    D = FC.affine_mixers(fmt.acmod, fmt.output, fmt.slev_zero)[0]
     bs, nf, nfo = blocks["blksw"], fmt.nfchans, fmt.nf_out
     ops = 0
-    for blk in bs:
-        uniform = bool((blk[:nf] == blk[0]).all())
-        rows = ([bool(blk[0])] * 5 if nfo < nf and uniform
-                else [bool(x) for x in blk])
+    for blk, cf in zip(bs, blocks["coeff"]):
+        fp = nfo < nf and bool((blk[:nf] == blk[0]).all())
+        rows = ([bool(blk[0]) for p in range(5) if D[p].any()] if fp
+                else [bool(x) for x, c in zip(blk, cf) if c != 0])
         ops += sum(B1Q_SHORT_ROW_OPS if r else B1Q_LONG_ROW_OPS
                    for r in rows)
         ops += (B1Q_LONG_ROW_OPS + 256 * OLA_SAMPLE_OPS) * fmt.lfe_out
-        ops += 256 * OLA_SAMPLE_OPS * (nfo if nfo < nf and uniform else 5)
+        ops += 256 * OLA_SAMPLE_OPS * (nfo if fp else len(rows))
     n = len(bs)
     nbytes = (sum(np.asarray(v).nbytes for v in blocks.values())
               + 2 * (6 * 128 * 4 + 1) + n * fmt.nch_out * 256 * 4)
@@ -5021,14 +5112,41 @@ def b1qs_bound(fmt, blocks):
             else "operations", ops, ops / (PEAK_ISSUE / 132) * 1e3)
 
 
+def b1qs_shape(lib):
+    """(dynamic shared memory bytes a CTA, threads a CTA, CTAs) of the B1QS
+    launch, as the built library reports them."""
+    import ctypes
+    shape = (ctypes.c_int * 3)()
+    lib.fixed_chain_shape(shape)
+    return tuple(shape)
+
+
 def phase_times_b1qs(dev):
     """B1QS on one frame (6 blocks) of the 5.1 golden to 2.0 and to
     3F2R|LFE: the kernel's device time (device_ms), the wrapper's host
     time a call, the call with no blocks (the kernel's prologue and the
-    launch: the carry alone), the plain version, the bound and the
-    one-CTA design's floor.  No PyTorch call computes the chain:
-    library_ms is null."""
+    launch: the carry alone) beside a bare launch (a kernel that does
+    nothing: one CTA, and a cluster of B1QS's shape),
+    the plain version, the bound and the same instructions at one SM's
+    issue rate.  No
+    PyTorch call computes the chain: library_ms is null."""
+    from ac3acm_tpu_torch.ops import _cuda
     from ac3acm_tpu_torch.ops import fixed_chain as FC
+    from ac3acm_tpu_torch.ops import imdct_exact as IE
+    lib = _cuda.load("imdct_exact", IE._bind)
+    smem, threads, ctas = b1qs_shape(lib)
+
+    def bare(nbytes, cluster):
+        rc = lib.imdct_exact_bare_launch(
+            nbytes, threads, cluster, torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+
+    bare_ms = {c: device_ms(lambda: bare(smem if c > 1 else 0, c))
+               for c in (1, ctas)}
+    log(f"time a bare launch (a kernel that does nothing, {threads} threads "
+        f"a CTA): {bare_ms[1]:.4f} ms one CTA with no shared memory, "
+        f"{bare_ms[ctas]:.4f} ms a cluster of {ctas} CTAs of {smem} B "
+        f"(B1QS's shape; device time)")
     init = (np.zeros((6, 128), np.int32), np.array(True))
     out = {}
     for flags in (FLAGS_51_TO_20, 7 | 16 | 32):
@@ -5050,11 +5168,13 @@ def phase_times_b1qs(dev):
         log(f"time fixed_chain (B1QS) [one frame of the 5.1 golden to "
             f"{fmt.output}, 6 blocks]: kernel_ms {ms:.4f} (device time); "
             f"the call with no blocks (prologue and launch) "
-            f"{launch_ms:.4f} ms; wrapper {host_ms:.4f} ms a call on the "
+            f"{launch_ms:.4f} ms beside a bare launch's {bare_ms[ctas]:.4f} "
+            f"(B1QS's shape) / {bare_ms[1]:.4f} (one CTA); wrapper "
+            f"{host_ms:.4f} ms a call on the "
             f"host; plain_ms {plain_ms:.3f}; bound_ms {bound_ms:.3e} -> "
             f"{bound_by} ({ops} integer instructions at the card's "
             f"{PEAK_ISSUE:.4e}/s; {bound_ms / ms:.4%} of the kernel's "
-            f"time); the one-CTA design's floor {floor_ms:.6f} ms (the "
+            f"time); on one SM {floor_ms:.6f} ms (the "
             f"same instructions at one SM's {PEAK_ISSUE / 132:.4e}/s; "
             f"{floor_ms / ms:.2%}); library_ms null (no PyTorch call "
             f"computes the chain)")

@@ -270,7 +270,9 @@ def test_shared_layouts_are_conflict_free():
     instruction of the transform's schedule that they serve takes the
     fewest wavefronts its width allows: the fftorder gathers of the
     pre-twiddles, the leaves' float4 loads, each pass level's butterfly
-    loads, the post-twiddles' z and d writes and B1F's epilogue reads."""
+    loads, the post-twiddles' z and d writes and the one-row kernels'
+    reads of z and d (B1F's pair accesses:
+    test_pair_accesses_are_conflict_free)."""
     src = open(PE.__file__.replace("ops/imdct_exact.py",
                                    "csrc/imdct_exact.cu")).read()
     for name, (expr, f, size) in LAYOUTS.items():
@@ -320,6 +322,322 @@ def test_shared_layouts_are_conflict_free():
     for fn in (lambda i: 2 * i, lambda i: 2 * i + 1, lambda i: 127 - 2 * i,
                lambda i: 126 - 2 * i):
         assert one(fn(lanes), DS)
-    for k in range(8):                                      # B1F epilogue
+    for k in range(8):                          # B1's and B1Q's z, d out
         assert one(lanes + 32 * k, XS)
-        assert one(lanes + 32 * k if k < 4 else 255 - lanes - 32 * k, DS)
+        assert k >= 4 or one(lanes + 32 * k, DS)
+
+
+# ---------------------------------------------------------------------------
+# B1F's pair schedule (ops/fused_steady_exact.py:pair_table): a warp
+# transforms two rows at once, their leaves and ifft_pass butterflies
+# dealt to lanes from the table.  A numpy replay of the kernel's pair
+# transform (and of the one-row code that mixed pairs take) against the
+# plain split and JAX's, and a decoding of the table.
+
+from ac3acm_tpu_torch.ops import fused_steady_exact as FE  # noqa: E402
+
+_F = np.float32
+
+
+def _finish(a, t1, t2, t3, t4):
+    """csrc/imdct_exact.cu finish: a = [a0r, a0i, a1r, a1i, a2r, a2i, a3r,
+    a3i] -> the butterfly's outputs in the inputs' slots."""
+    b0r, b0i, b1r, b1i = a[0], a[1], a[2], a[3]
+    return [b0r + t1, b0i + t2, b1r + t3, b1i + t4, b0r - t1, b0i - t2,
+            b1r - t3, b1i - t4]
+
+
+def _bf_zero(a):
+    return _finish(a, a[4] + a[6], a[5] + a[7], a[5] - a[7], a[6] - a[4])
+
+
+def _bf_half(a, w):
+    t5, t6 = (a[4] + a[5]) * w, (a[5] - a[4]) * w
+    t7, t8 = (a[6] - a[7]) * w, (a[7] + a[6]) * w
+    return _finish(a, t5 + t7, t6 + t8, t6 - t8, t7 - t5)
+
+
+def _bf(a, wr, wi):
+    t5 = wi * a[5] + wr * a[4]
+    t6 = wr * a[5] - wi * a[4]
+    t8 = wi * a[6] + wr * a[7]
+    t7 = wr * a[6] - wi * a[7]
+    return _finish(a, t5 + t7, t6 + t8, t6 - t8, t7 - t5)
+
+
+def _ifft4(r, i):
+    t1, t2, t3, t4 = r[0] + r[1], r[3] + r[2], i[0] + i[1], i[2] + i[3]
+    t5, t6, t7, t8 = r[0] - r[1], i[0] - i[1], i[2] - i[3], r[3] - r[2]
+    return ([t1 + t2, t5 + t7, t1 - t2, t5 - t7],
+            [t3 + t4, t6 + t8, t3 - t4, t6 - t8])
+
+
+def _ifft8(r, i, w16):
+    r[:4], i[:4] = _ifft4(r[:4], i[:4])
+    for s in (4, 6):
+        r[s], r[s + 1] = r[s] + r[s + 1], r[s] - r[s + 1]
+        i[s], i[s + 1] = i[s] + i[s + 1], i[s] - i[s + 1]
+    z = _bf_zero([r[0], i[0], r[2], i[2], r[4], i[4], r[6], i[6]])
+    h = _bf_half([r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7]], w16)
+    r[0], i[0], r[2], i[2], r[4], i[4], r[6], i[6] = z
+    r[1], i[1], r[3], i[3], r[5], i[5], r[7], i[7] = h
+    return r, i
+
+
+def _pre(x, re, im, kind, word, tw, order):
+    """The pre-twiddle of one row into re/im at word(i)."""
+    if kind == "long":
+        o = order[:128]
+        dk, dm = x[o], x[255 - o]
+        tr, ti = tw["pre1_r"], tw["pre1_i"]
+        at = [word(i) for i in range(128)]
+        re[at], im[at] = ti * dm + tr * dk, tr * dm - ti * dk
+    else:
+        k = order[:64]
+        d1a, d1b, d2a, d2b = x[k], x[254 - k], x[k + 1], x[255 - k]
+        tr, ti = tw["pre2_r"], tw["pre2_i"]
+        a1, a2 = [word(c) for c in range(64)], [word(64 + c)
+                                                for c in range(64)]
+        re[a1], im[a1] = ti * d1b + tr * d1a, tr * d1b - ti * d1a
+        re[a2], im[a2] = ti * d2b + tr * d2a, tr * d2b - ti * d2a
+
+
+def _post(re, im, kind, word, tw):
+    """The post-twiddle of one row from re/im at word(i) -> (z, d)."""
+    z, d = np.zeros(256, _F), np.zeros(128, _F)
+    if kind == "long":
+        i = np.arange(64)
+        f, g = [word(v) for v in i], [word(127 - v) for v in i]
+        tr, ti = tw["post1_r"], tw["post1_i"]
+        a_r, a_i = tr * re[f] + ti * im[f], ti * re[f] - tr * im[f]
+        b_r, b_i = ti * re[g] + tr * im[g], tr * re[g] - ti * im[g]
+        z[255 - 2 * i], z[2 * i], z[2 * i + 1], z[254 - 2 * i] = \
+            a_r, -a_r, b_r, -b_r
+        d[2 * i], d[2 * i + 1] = a_i, b_i
+    else:
+        i = np.arange(32)
+        v = [[word(e) for e in idx] for idx in (i, 63 - i, 64 + i, 127 - i)]
+        tr, ti = tw["post2_r"], tw["post2_i"]
+        b1r, b1i, g1r, g1i = re[v[0]], im[v[0]], re[v[1]], im[v[1]]
+        b2r, b2i, g2r, g2i = re[v[2]], im[v[2]], re[v[3]], im[v[3]]
+        a_r, a_i = tr * b1r + ti * b1i, ti * b1r - tr * b1i
+        b_r, b_i = ti * g1r + tr * g1i, tr * g1r - ti * g1i
+        c_r, c_i = tr * b2r + ti * b2i, ti * b2r - tr * b2i
+        d_r, d_i = ti * g2r + tr * g2i, tr * g2r - ti * g2i
+        z[255 - 2 * i], z[2 * i] = a_r, -a_r
+        z[128 + 2 * i], z[127 - 2 * i] = a_i, -a_i
+        z[129 + 2 * i], z[126 - 2 * i] = b_r, -b_r
+        z[254 - 2 * i], z[2 * i + 1] = b_i, -b_i
+        d[127 - 2 * i], d[2 * i], d[2 * i + 1], d[126 - 2 * i] = \
+            c_r, c_i, d_r, d_i
+    return z, d
+
+
+def _leaf(re, im, w0, w4, ifft8, w16):
+    if ifft8:
+        at = list(range(w0, w0 + 4)) + list(range(w4, w4 + 4))
+        r, i = _ifft8(list(re[at]), list(im[at]), w16)
+    else:
+        at = list(range(w0, w0 + 4))
+        r, i = _ifft4(list(re[at]), list(im[at]))
+    re[at], im[at] = r, i
+
+
+def _butterfly(re, im, p, wr=None, wi=None):
+    a = [v for q in p for v in (re[q], im[q])]
+    out = _bf_zero(a) if wr is None else _bf(a, wr, wi)
+    for m, q in enumerate(p):
+        re[q], im[q] = out[2 * m], out[2 * m + 1]
+
+
+def _split_pair(xa, xb, kind, tw, order, pt):
+    """The kernel's pair_rows on two rows of one kind, from the table."""
+    re, im = np.zeros(256, _F), np.zeros(256, _F)
+    for r, x in ((0, xa), (1, xb)):
+        _pre(x, re, im, kind, lambda i, r=r: FE.pair_word(r, i), tw, order)
+    kk = ("long", "short").index(kind)
+    w16 = tw["roots16"][1]
+    for ph in (0, 1):                               # ifft8s, then ifft4s
+        for e in pt[FE.PT_LEAF + (2 * kk + ph) * 32:][:32]:
+            if e >= 0:
+                _leaf(re, im, e & 0xffff, e >> 16, ph == 0, w16)
+    rounds = pt[FE.PT_PASS:].reshape(-1, 32, 4)
+    first = 0 if kind == "long" else sum(FE.PAIR_ROUNDS["long"])
+    for rd in rounds[first:first + sum(FE.PAIR_ROUNDS[kind])]:
+        for a01, a23, wr, wi in rd:
+            if a01 >= 0:
+                p = (a01 & 0xffff, a01 >> 16, a23 & 0xffff, a23 >> 16)
+                w = np.array([wr, wi], np.int32).view(_F)
+                _butterfly(re, im, p, *((None, None) if wr == wi == 0
+                                        else w))
+    return [_post(re, im, kind, lambda i, r=r: FE.pair_word(r, i), tw)
+            for r in (0, 1)]
+
+
+def _split_one(x, kind, tw, order):
+    """The one-row code (long_row / short_row) on one row, from the
+    source's schedule."""
+    re, im = np.zeros(128, _F), np.zeros(128, _F)
+    cs = LAYOUTS["CS"][1]
+    _pre(x, re, im, kind, cs, tw, order)
+    w16 = tw["roots16"][1]
+    for e in FE.LEAVES[kind]:
+        o = e & 0xff
+        _leaf(re, im, cs(o), cs(o + 4), bool(e & 0x100), w16)
+    for offs, n, roots in FE.LEVELS[kind]:
+        for a in offs:
+            for k in range(n):
+                p = [cs(a + k + m * n) for m in range(4)]
+                _butterfly(re, im, p, *((None, None) if k == 0 else
+                                        (tw[roots][k - 1],
+                                         tw[roots][n - 1 - k])))
+    return _post(re, im, kind, cs, tw)
+
+
+@pytest.mark.parametrize("kinds", [("long", "long"), ("short", "short"),
+                                   ("long", "short"), ("short", "long")])
+def test_pair_replay_matches_plain_split(jax_split, kinds):
+    """The kernel's pair transform (both rows of one kind, from the pair
+    table) and the one-row code a mixed pair takes, replayed in numpy
+    float32 with the kernel's operations, give the plain split's z and d
+    and JAX's by value, row by row."""
+    tw = {k: np.asarray(v, _F) for k, v in PT.imdct_twiddles().items()
+          if k != "fftorder"}
+    order = np.asarray(PT.imdct_twiddles()["fftorder"], int)
+    pt = FE.pair_table()
+    x = _rows(40 + len(kinds[0]) + 3 * len(kinds[1]), 12)
+    blk = np.array([kinds[i % 2] == "short" for i in range(len(x))])
+    zr, dr = PE.split_fb_exact_ref(torch.from_numpy(x), torch.from_numpy(blk))
+    zj, dj = jax_split(x, blk)
+    for a in range(0, len(x), 2):
+        if kinds[0] == kinds[1]:
+            got = _split_pair(x[a], x[a + 1], kinds[0], tw, order, pt)
+        else:
+            got = [_split_one(x[a + r], kinds[r], tw, order) for r in (0, 1)]
+        for r in (0, 1):
+            _same(got[r][0], zr[a + r].numpy(), (kinds, a + r, "z"))
+            _same(got[r][1], dr[a + r].numpy(), (kinds, a + r, "d"))
+            _same(got[r][0], zj[a + r], (kinds, a + r, "z, JAX"))
+            _same(got[r][1], dj[a + r], (kinds, a + r, "d, JAX"))
+
+
+def _word_of():
+    """word -> (row, IFFT value) of a pair's re/im buffers."""
+    return {FE.pair_word(r, i): (r, i) for r in (0, 1) for i in range(128)}
+
+
+@pytest.mark.parametrize("kind", ["long", "short"])
+def test_pair_schedule_covers_every_butterfly(kind):
+    """Every leaf and every ifft_pass butterfly of both rows of a pair is in
+    the table once, in its level's rounds and in level order, with its
+    twiddles; the leaves and the source's schedule agree; row B's layout
+    is the kernel's; the table is laid out as the kernel reads it."""
+    src = open(PE.__file__.replace("ops/imdct_exact.py",
+                                   "csrc/imdct_exact.cu")).read()
+    assert f"constexpr int PAIR_XOR = {FE.PAIR_XOR};" in src
+    assert (f"PT_LEAF = {FE.PT_LEAF}, PT_PASS = {FE.PT_PASS}, PT_ROUNDS = "
+            f"{sum(sum(r) for r in FE.PAIR_ROUNDS.values())}") in src
+    sched = src[src.index("int SCHED[SCHED_SIZE] = {"):]
+    sched = [eval(v.strip()) for v in
+             sched[sched.index("{") + 1:sched.index("}")].split(",")]
+    assert tuple(sched[:21]) == FE.LEAVES["long"]
+    assert tuple(sched[21:43]) == FE.LEAVES["short"]
+    for offs, (key, n) in zip((sched[43:48], sched[48:51], sched[51:57],
+                               sched[57:59]),
+                              ((("long", 0), 4), (("long", 1), 8),
+                               (("short", 0), 4), (("short", 1), 8))):
+        assert tuple(offs[:len(FE.LEVELS[key[0]][key[1]][0])]) == \
+            FE.LEVELS[key[0]][key[1]][0], key
+    words = _word_of()
+    assert len(words) == 256
+    tw = PT.imdct_twiddles()
+    pt = FE.pair_table()
+    assert pt.shape == (FE.PT_SIZE,) and pt.dtype == np.int32
+    kk = ("long", "short").index(kind)
+    for ph, flag in enumerate((0x100, 0)):
+        got = []
+        for e in pt[FE.PT_LEAF + (2 * kk + ph) * 32:][:32]:
+            if e >= 0:
+                r, o = words[e & 0xffff]
+                if flag:
+                    assert words[e >> 16] == (r, o + 4)
+                got.append((r, o))
+        want = [(r, e & 0xff) for r in (0, 1) for e in FE.LEAVES[kind]
+                if e & 0x100 == flag]
+        assert sorted(got) == sorted(want), (kind, ph)
+    rounds = pt[FE.PT_PASS:].reshape(-1, 32, 4)
+    r = 0 if kind == "long" else sum(FE.PAIR_ROUNDS["long"])
+    for (offs, n, roots), nr in zip(FE.LEVELS[kind], FE.PAIR_ROUNDS[kind]):
+        got = []
+        for rd in rounds[r:r + nr]:
+            for a01, a23, wr, wi in rd:
+                if a01 < 0:
+                    assert (a01, a23, wr, wi) == (-1, -1, 0, 0)
+                    continue
+                q = [words[a01 & 0xffff], words[a01 >> 16],
+                     words[a23 & 0xffff], words[a23 >> 16]]
+                row, q0 = q[0]
+                node = max(a for a in offs if a <= q0)
+                k = q0 - node
+                assert q == [(row, q0 + m * n) for m in range(4)]
+                w = np.asarray(tw[roots], np.float32).view(np.int32)
+                assert (wr, wi) == ((0, 0) if k == 0 else
+                                    (w[k - 1], w[n - 1 - k]))
+                got.append((row, node, k))
+        want = [(row, a, k) for row in (0, 1) for a in offs
+                for k in range(n)]
+        assert sorted(got) == sorted(want), (kind, n)
+        r += nr
+
+
+def test_pair_accesses_are_conflict_free():
+    """B1F's pair transform and epilogue and B1QS's walk take the fewest
+    wavefronts their widths allow: each packed round's four loads (and
+    stores) over 32 banks, the packed leaves' float4 accesses one a group
+    of 8 lanes, row B's pre- and post-twiddle accesses at CB, the
+    epilogue's 8-byte reads of z (XS), the previous d (DS) and the window,
+    and B1QS's walk reading z at XS(j) (j = k or 255 - k) and d at DS(k)."""
+    XS, CS, DS = (LAYOUTS[k][1] for k in ("XS", "CS", "DS"))
+    CB = lambda i: FE.pair_word(1, i)
+    lanes = np.arange(32)
+    pt = FE.pair_table()
+    one = lambda idx, f: _wavefronts([f(int(i)) for i in idx]) == 1
+    for rd in pt[FE.PT_PASS:].reshape(-1, 32, 4):
+        for half, sh in ((0, 0), (0, 16), (1, 0), (1, 16)):
+            words = [None if a < 0 else (a >> sh) & 0xffff
+                     for a in rd[:, half]]
+            assert _wavefronts(words) == 1, rd
+    for base in range(0, 128, 32):
+        entries = pt[FE.PT_LEAF + base:][:32]
+        groups = {lane // 8 for lane in range(32) if entries[lane] >= 0}
+        for sh in ((0, 16) if base in (0, 64) else (0,)):
+            words = [None if e < 0 else (e >> sh) & 0xffff for e in entries]
+            assert _wavefronts(words, 4) == len(groups), (base, sh)
+    for it in range(4):                                   # row B's writes
+        assert one(32 * it + lanes, CB)
+    for it in range(2):
+        assert one(32 * it + lanes, CB) and one(64 + 32 * it + lanes, CB)
+        i = 32 * it + lanes
+        assert one(i, CB) and one(127 - i, CB)
+    for idx in (lanes, 63 - lanes, 64 + lanes, 127 - lanes):
+        assert one(idx, CB)
+    for k in range(4):                                    # B1F epilogue
+        j = 2 * lanes + 64 * k
+        assert _wavefronts([int(w) for w in j ^ (2 * k)], 2) == 2
+        # the pair at j ^ 2k holds z[j] and z[j + 1], swapped for h = 1
+        for lane in range(32):
+            h, w = lane >> 4, int(j[lane] ^ (2 * k))
+            assert {XS(w), XS(w + 1)} == {int(j[lane]), int(j[lane]) + 1}
+            assert XS(w) == int(j[lane]) + h
+        e = j if k < 2 else 254 - j
+        assert _wavefronts([int(w) for w in e], 2) == 2
+        for w in e:
+            f = (int(w) >> 5) & 1
+            assert (DS(int(w)), DS(int(w) + 1)) == (int(w) + f,
+                                                    int(w) + 1 - f)
+        assert _wavefronts([int(w) for w in j], 2) == 2
+        assert _wavefronts([int(w) for w in 254 - j], 2) == 2
+    for w in range(8):                                    # B1QS walk
+        k = 32 * (w % 4) + lanes
+        j = k if w < 4 else 255 - k
+        assert one(j, XS) and one(k, DS)
