@@ -21,10 +21,12 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
 
 from .. import tables as T
+from ..utils.trace import count
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
@@ -107,10 +109,13 @@ def _i32(x):
 
 
 def get_lib():
+    """The host library, built and loaded at the first call, whose seconds
+    go to the counter lib_load_s (utils.trace)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
         lib = C.CDLL(_build())
         lib.ac3h_new.restype = C.c_void_p
         lib.ac3h_free.argtypes = [C.c_void_p]
@@ -139,6 +144,7 @@ def get_lib():
         _bind_dense(lib)
         _bind_sideinfo(lib)
         _lib = lib
+        count("lib_load_s", time.perf_counter() - t0)
         return lib
 
 

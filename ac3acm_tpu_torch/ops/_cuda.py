@@ -15,6 +15,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+
+from ..utils.trace import count
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -69,10 +72,14 @@ def build(name: str) -> str:
 
 
 def load(name: str, bind) -> C.CDLL:
-    """The loaded library for csrc/<name>.cu; `bind(lib)` sets its argtypes."""
+    """The loaded library for csrc/<name>.cu; `bind(lib)` sets its argtypes.
+    The first load of each adds its seconds, build included, to the
+    counter lib_load_s (utils.trace)."""
     with _lock:
         if name not in _libs:
+            t0 = time.perf_counter()
             lib = C.CDLL(build(name))
             bind(lib)
             _libs[name] = lib
+            count("lib_load_s", time.perf_counter() - t0)
         return _libs[name]

@@ -47,6 +47,7 @@ import torch
 from .. import tables as T
 from ..host.native import RAW_REC_DTYPE
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from . import alloc as A
 from . import bitgather as BG
 
@@ -1140,28 +1141,31 @@ def unpack_blocks(frames_u8, meta, carry, bias, nfch: int = 5,
     layout: freq [L, S, 6, 256], blksw, coeff, remat, bias."""
     L, F, MB = frames_u8.shape
     S = 6 * F
-    meta = widen_meta(meta)
-    plan = plan_from_meta(meta, nfch, cpl_fc, exp_pts, alloc_pts, emax)
-
-    exp, exp_rows = unpack_exponents(frames_u8, meta, carry["exp"], plan)
-    # dead rows keep their carry state (liba52 leaves a52_state_t
-    # untouched for absent features)
-    carry_exp = carry["exp"].clone()
-    carry_exp[:, list(plan.rows)] = exp_rows
-    bap = allocate_rows(exp, meta, plan)
-    if plan.has_cpl:
-        cplco, carry_cplco = unpack_cplco(frames_u8, meta, carry["cplco"])
-    else:
-        cplco, carry_cplco = None, carry["cplco"]
-    freq, new_dpos = unpack_mantissas(frames_u8, exp, bap, cplco, meta,
-                                      carry["dpos"], plan)
-    blocks = {
-        "freq": freq,
-        "blksw": meta["blksw"] != 0,
-        "coeff": meta["coeff"],
-        "remat": remat_mask(meta),
-        "bias": torch.as_tensor(bias, dtype=torch.float32,
-                                device=freq.device).expand(L, S),
-    }
+    with span("unpack.exponents"):
+        meta = widen_meta(meta)
+        plan = plan_from_meta(meta, nfch, cpl_fc, exp_pts, alloc_pts, emax)
+        exp, exp_rows = unpack_exponents(frames_u8, meta, carry["exp"], plan)
+        # dead rows keep their carry state (liba52 leaves a52_state_t
+        # untouched for absent features)
+        carry_exp = carry["exp"].clone()
+        carry_exp[:, list(plan.rows)] = exp_rows
+    with span("unpack.alloc"):
+        bap = allocate_rows(exp, meta, plan)
+        if plan.has_cpl:
+            cplco, carry_cplco = unpack_cplco(frames_u8, meta,
+                                              carry["cplco"])
+        else:
+            cplco, carry_cplco = None, carry["cplco"]
+    with span("unpack.mantissas"):
+        freq, new_dpos = unpack_mantissas(frames_u8, exp, bap, cplco, meta,
+                                          carry["dpos"], plan)
+        blocks = {
+            "freq": freq,
+            "blksw": meta["blksw"] != 0,
+            "coeff": meta["coeff"],
+            "remat": remat_mask(meta),
+            "bias": torch.as_tensor(bias, dtype=torch.float32,
+                                    device=freq.device).expand(L, S),
+        }
     new_carry = {"exp": carry_exp, "cplco": carry_cplco, "dpos": new_dpos}
     return new_carry, blocks

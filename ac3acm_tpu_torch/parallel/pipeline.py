@@ -36,6 +36,7 @@ reference mode, K1, K2-K4 and the block scan work lane by lane.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
@@ -59,7 +60,7 @@ from ..ops.unpack_device import (init_unpack_carry, null_raw_rec,
                                  static_alloc_pts, static_cpl_fc,
                                  static_emax, static_exp_pts, unpack_blocks)
 from ..utils.device import resolve_device
-from ..utils.trace import log
+from ..utils.trace import count, log, set_step, span
 from .mesh import (Mesh, Sharded, check_mesh, over_data,
                    stream_sharding)
 
@@ -270,21 +271,20 @@ def raw_batched_pipeline(fmt: StreamFormat, mesh=None,
         if clock is not None:
             clock.mark("device unpack")
             clock.kept["blocks"] = blocks
-        if tail is not None:
-            dcarry, pcm = tail(dcarry, premix_blocks_device(fmt, blocks))
-        else:
-            if steady:
-                dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
-                                               long_only=long_only,
-                                               exact=exact)
+        with _stage("tail", clock, ("steady tail" if steady
+                                    else "block scan") + " + int16"):
+            if tail is not None:
+                dcarry, pcm = tail(dcarry, premix_blocks_device(fmt, blocks))
             else:
-                dcarry, pcm = _pipeline_body(fmt, dcarry, blocks,
-                                             exact=exact)
-            if emit_int16:
-                pcm = convert_to_int16(pcm)
-        if clock is not None:
-            clock.mark(("steady tail" if steady else "block scan")
-                       + " + int16")
+                if steady:
+                    dcarry, pcm = _pipeline_steady(fmt, dcarry, blocks,
+                                                   long_only=long_only,
+                                                   exact=exact)
+                else:
+                    dcarry, pcm = _pipeline_body(fmt, dcarry, blocks,
+                                                 exact=exact)
+                if emit_int16:
+                    pcm = convert_to_int16(pcm)
         return (ucarry, dcarry), pcm
 
     if mesh is None:
@@ -324,6 +324,16 @@ class StageClock:
         now = time.perf_counter()
         self.seconds[name] = now - self._t
         self._t = now
+
+
+@contextlib.contextmanager
+def _stage(name: str, clock: StageClock | None, stage: str):
+    """span(name), then clock.mark(stage) when a clock is passed: one site
+    for both, so the span and the stage end at the same boundary."""
+    with span(name):
+        yield
+    if clock is not None:
+        clock.mark(stage)
 
 
 def init_batched_carry(batch: int, mesh=None, device=None):
@@ -484,6 +494,9 @@ class BatchedDecoder:
         # per-(block, plane, group) scale, ~2x fewer H2D bytes
         self.compact_h2d = compact_h2d
         self.fused = fused
+        # decode_available calls so far: the step of the chunk that the
+        # next call makes, which feed's bytes go into (utils.trace spans)
+        self.step = 0
         self._fmt = None
         self._carry = init_batched_carry(
             batch, mesh, None if mesh is not None else self.device)
@@ -501,11 +514,14 @@ class BatchedDecoder:
                 batch, "cpu" if mesh is not None else self.device))
 
     def feed(self, lane: int, data: bytes):
-        ln = self.lanes[lane]
-        ln.buf += data
-        if ln.pos > (1 << 20):               # bounded-memory compaction
-            ln.buf = ln.buf[ln.pos:]
-            ln.pos = 0
+        with span("feed", self.step) as on:
+            ln = self.lanes[lane]
+            ln.buf += data
+            if on is not None:
+                count("feed_copied_bytes", len(ln.buf), self.step)
+            if ln.pos > (1 << 20):           # bounded-memory compaction
+                ln.buf = ln.buf[ln.pos:]
+                ln.pos = 0
 
     def decode_available(self, max_frames: int = 8,
                          clock: StageClock | None = None):
@@ -521,6 +537,8 @@ class BatchedDecoder:
         if clock is not None and self.mesh is not None:
             raise ValueError("a StageClock breaks down a one-device step; "
                              "pass no clock with a mesh")
+        set_step(self.step)
+        self.step += 1
         if self._sdense is not None:
             return self._decode_available_raw_native(max_frames, clock)
         if self._parser_kind == "raw_py":
@@ -638,34 +656,34 @@ class BatchedDecoder:
         """Raw-H2D decode step with the Python side-info parser: the same
         frame bytes and meta as parser="raw" assembles, the same device
         half."""
-        per_lane = self._take_pending(max_frames, self._parse_raw)
-        if clock is not None:
-            clock.mark("host side-info parse")
+        with _stage("sideinfo_parse", clock, "host side-info parse"):
+            per_lane = self._take_pending(max_frames, self._parse_raw)
         if per_lane is None:
             return None
-        L, nf = len(self.lanes), len(per_lane[0])
-        valid = np.array([[f is not None for f in row] for row in per_lane])
-        fmt = self._raw_pick_fmt({f[2] for row in per_lane for f in row
-                                  if f is not None})
-        mb = max((len(f[0]) for row in per_lane for f in row
-                  if f is not None), default=128)
-        mb = max(-(-mb // 128) * 128, 128)
-        fu8 = np.zeros((L, nf, mb), np.uint8)
-        null6 = [null_raw_rec()] * T.NB_BLOCKS
-        metas = []
-        for li, row in enumerate(per_lane):
-            recs = []
-            for fi, f in enumerate(row):
-                if f is None:
-                    recs.extend(null6)
-                else:
-                    fu8[li, fi, :len(f[0])] = np.frombuffer(f[0], np.uint8)
-                    recs.extend(f[1])
-            metas.append(stack_raw_meta(recs))
-        meta = {k: np.stack([m[k] for m in metas]) for k in metas[0]
-                if k != "raw_ok"}
-        if clock is not None:
-            clock.mark("chunk assembly")
+        with _stage("chunk_assembly", clock, "chunk assembly"):
+            L, nf = len(self.lanes), len(per_lane[0])
+            valid = np.array([[f is not None for f in row]
+                              for row in per_lane])
+            fmt = self._raw_pick_fmt({f[2] for row in per_lane for f in row
+                                      if f is not None})
+            mb = max((len(f[0]) for row in per_lane for f in row
+                      if f is not None), default=128)
+            mb = max(-(-mb // 128) * 128, 128)
+            fu8 = np.zeros((L, nf, mb), np.uint8)
+            null6 = [null_raw_rec()] * T.NB_BLOCKS
+            metas = []
+            for li, row in enumerate(per_lane):
+                recs = []
+                for fi, f in enumerate(row):
+                    if f is None:
+                        recs.extend(null6)
+                    else:
+                        fu8[li, fi, :len(f[0])] = np.frombuffer(f[0],
+                                                                np.uint8)
+                        recs.extend(f[1])
+                metas.append(stack_raw_meta(recs))
+            meta = {k: np.stack([m[k] for m in metas]) for k in metas[0]
+                    if k != "raw_ok"}
         return self._raw_dispatch(fmt, fu8, meta, valid, clock)
 
     # -- raw-H2D path (device bitstream unpack) -----------------------------
@@ -702,50 +720,52 @@ class BatchedDecoder:
         need = max_frames - int(npend.min())
         total = npend
         if need > 0:
-            r = self._sdense.parse([(l.buf, l.pos) for l in self.lanes],
-                                   need, self.flags, self.level, self.bias)
-            for i, lane in enumerate(self.lanes):
-                lane.pos += int(r["consumed"][i])
-            new = {k: r[k] for k in self._RAW_FRAME_KEYS}
-            new["recs"] = new["recs"].reshape(L, need, 6)
-            src = new if src is None else {
-                k: np.concatenate([src[k], new[k]], axis=1)
-                for k in self._RAW_FRAME_KEYS}
-            total = npend + r["nframes"]
-            if clock is not None:
-                clock.mark("host side-info parse")
-        # lane i's frame j: its pending frame j, else new frame j - npend[i]
-        # (with nothing pending, every lane's frame j: a plain slice)
-        tmax, nf = int(total.max(initial=0)), int(total.min())
-        if P == 0:
-            pick = lambda a, lo, hi: a[:, lo:hi]
-        else:
-            j = np.arange(tmax)
-            idx = np.minimum(np.where(j < npend[:, None], j,
-                                      P + j - npend[:, None]),
-                             src["valid"].shape[1] - 1)
-            lanes = np.arange(L)[:, None]
-            pick = lambda a, lo, hi: a[lanes, idx[:, lo:hi]]
-        self._raw_pending = None if tmax == nf else {
-            k: pick(src[k], nf, tmax) for k in self._RAW_FRAME_KEYS}
-        self._raw_npend = total - nf
-        if nf == 0:
-            return None
-        fsizes, fvalid, ffmt, recs = (pick(src[k], 0, nf) for k in
-                                      ("fsizes", "valid", "fmt", "recs"))
-        ok = (fvalid != 0) & (ffmt[..., 3] != 0)
-        fmts = {StreamFormat(acmod=int(a), output=int(o), slev_zero=bool(z),
-                             chanbias=int(c))
-                for a, o, z, c in np.unique(np.stack(
-                    [ffmt[..., 0][ok], ffmt[..., 1][ok], ffmt[..., 2][ok],
-                     recs[..., 0]["chanbias"][ok]], axis=-1), axis=0)}
-        mb = int(np.where(fvalid != 0, fsizes, 0).max(initial=0))
-        mb = max(-(-mb // 128) * 128, 128)
-        frames_u8 = pick(src["frames"][:, :, :mb], 0, nf)
-        recs = recs.reshape(L, 6 * nf)
-        meta = {k: np.ascontiguousarray(recs[k]) for k in recs.dtype.names}
-        if clock is not None:
-            clock.mark("chunk assembly")
+            with _stage("sideinfo_parse", clock, "host side-info parse"):
+                r = self._sdense.parse([(l.buf, l.pos) for l in self.lanes],
+                                       need, self.flags, self.level,
+                                       self.bias)
+                for i, lane in enumerate(self.lanes):
+                    lane.pos += int(r["consumed"][i])
+                new = {k: r[k] for k in self._RAW_FRAME_KEYS}
+                new["recs"] = new["recs"].reshape(L, need, 6)
+                src = new if src is None else {
+                    k: np.concatenate([src[k], new[k]], axis=1)
+                    for k in self._RAW_FRAME_KEYS}
+                total = npend + r["nframes"]
+        with _stage("chunk_assembly", clock, "chunk assembly"):
+            # lane i's frame j: its pending frame j, else new frame
+            # j - npend[i] (with nothing pending, every lane's frame j: a
+            # plain slice)
+            tmax, nf = int(total.max(initial=0)), int(total.min())
+            if P == 0:
+                pick = lambda a, lo, hi: a[:, lo:hi]
+            else:
+                j = np.arange(tmax)
+                idx = np.minimum(np.where(j < npend[:, None], j,
+                                          P + j - npend[:, None]),
+                                 src["valid"].shape[1] - 1)
+                lanes = np.arange(L)[:, None]
+                pick = lambda a, lo, hi: a[lanes, idx[:, lo:hi]]
+            self._raw_pending = None if tmax == nf else {
+                k: pick(src[k], nf, tmax) for k in self._RAW_FRAME_KEYS}
+            self._raw_npend = total - nf
+            if nf == 0:
+                return None
+            fsizes, fvalid, ffmt, recs = (pick(src[k], 0, nf) for k in
+                                          ("fsizes", "valid", "fmt", "recs"))
+            ok = (fvalid != 0) & (ffmt[..., 3] != 0)
+            fmts = {StreamFormat(acmod=int(a), output=int(o),
+                                 slev_zero=bool(z), chanbias=int(c))
+                    for a, o, z, c in np.unique(np.stack(
+                        [ffmt[..., 0][ok], ffmt[..., 1][ok],
+                         ffmt[..., 2][ok], recs[..., 0]["chanbias"][ok]],
+                        axis=-1), axis=0)}
+            mb = int(np.where(fvalid != 0, fsizes, 0).max(initial=0))
+            mb = max(-(-mb // 128) * 128, 128)
+            frames_u8 = pick(src["frames"][:, :, :mb], 0, nf)
+            recs = recs.reshape(L, 6 * nf)
+            meta = {k: np.ascontiguousarray(recs[k])
+                    for k in recs.dtype.names}
         return self._raw_pick_fmt(fmts), frames_u8, meta, ok
 
     @staticmethod
@@ -777,17 +797,16 @@ class BatchedDecoder:
         # allocation, coupling, dither, LFE): the plan gets fewer rows, a
         # smaller lattice and no coupling/dither stages, and the dropped
         # arrays never cross the host link
-        meta = prune_raw_meta(meta)
-        fn = raw_batched_pipeline(fmt, self.mesh, self.emit_int16,
-                                  **self._raw_plan(fmt, meta))
-        L, nf = fu8.shape[:2]
-        bias = np.full((L, T.NB_BLOCKS * nf), self.bias, np.float32)
-        if clock is not None:
-            clock.mark("prune + plan probes")
+        with _stage("prune_plan", clock, "prune + plan probes"):
+            meta = prune_raw_meta(meta)
+            fn = raw_batched_pipeline(fmt, self.mesh, self.emit_int16,
+                                      **self._raw_plan(fmt, meta))
+            L, nf = fu8.shape[:2]
+            bias = np.full((L, T.NB_BLOCKS * nf), self.bias, np.float32)
         host = dict(meta, frames_u8=fu8, bias=bias)
-        dev = {k: self._to_device(v) for k, v in host.items()}
+        with _stage("h2d", clock, "H2D copy"):
+            dev = {k: self._to_device(v) for k, v in host.items()}
         if clock is not None:
-            clock.mark("H2D copy")
             clock.kept["h2d_bytes"] = sum(v.nbytes for v in host.values())
         self._fmt = fmt
         (self._raw_carry, self._carry), pcm = fn(
@@ -904,9 +923,11 @@ class BatchedDecoder:
             fn = batched_pipeline(fmt, self.mesh, self.emit_int16,
                                   steady=steady, long_only=lo,
                                   fused=self.fused)
-        blocks = {k: self._to_device(v) for k, v in host.items()}
+        with span("h2d"):
+            blocks = {k: self._to_device(v) for k, v in host.items()}
         self._fmt = fmt
-        self._carry, pcm = fn(self._carry, blocks)
+        with span("tail"):
+            self._carry, pcm = fn(self._carry, blocks)
         return pcm, valid
 
     def _decode_available_native(self, max_frames: int):
@@ -917,11 +938,13 @@ class BatchedDecoder:
         need = max_frames - min(len(l.pending) for l in self.lanes)
         r = None
         if need > 0:
-            r = self._dense.parse([(l.buf, l.pos) for l in self.lanes],
-                                  need, self.flags, self.level, self.bias,
-                                  pp, compact=self.compact_h2d)
-            for i, lane in enumerate(self.lanes):
-                lane.pos += int(r["consumed"][i])
+            with span("dense_parse"):
+                r = self._dense.parse([(l.buf, l.pos) for l in self.lanes],
+                                      need, self.flags, self.level,
+                                      self.bias, pp,
+                                      compact=self.compact_h2d)
+                for i, lane in enumerate(self.lanes):
+                    lane.pos += int(r["consumed"][i])
         if r is not None and not had_pending:
             nfr = r["nframes"]
             nf = int(nfr.min())

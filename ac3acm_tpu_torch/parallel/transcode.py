@@ -25,6 +25,7 @@ from ..models.encoder import (EncoderConfig, encode_pipeline, make_config,
                               rate_failures)
 from ..ops.filterbank import convert_to_int16
 from ..utils.device import resolve_device
+from ..utils.trace import span
 from .encode import encode_run, frame_bytes, frame_major, lanes_first
 from .mesh import check_mesh, over_data, stream_sharding
 from .pipeline import BatchedDecoder
@@ -174,11 +175,13 @@ class Transcoder:
     def dispatch_frames(self, data: list[bytes], nframes: int):
         """Parse one chunk and enqueue its transcode (H2D, decode, encode
         and, with pack="device", the pack) without waiting for the device:
-        -> a handle for finish().  The caller may parse the next chunk
-        while the device works on this one."""
+        -> a handle for finish(), which carries the chunk's step to its
+        spans.  The caller may parse the next chunk while the device works
+        on this one."""
         if len(data) != self.batch:
             raise ValueError(f"{len(data)} streams for a batch of "
                              f"{self.batch}")
+        step = self._bd.step                 # the chunk's, for its spans
         for i, d in enumerate(data):
             self._bd.feed(i, d)
         r = self._bd.decode_available(max_frames=nframes)
@@ -194,31 +197,36 @@ class Transcoder:
                 f"complete frames were available on every lane "
                 f"(shortest lanes: {short[:8]})")
         nch = self.out_channels
-        if self.mesh is None:
-            carry, ok, out = encode_run(self.enc_cfg, self.pack,
-                                        enc_input(pcm, nch), self.enc_last,
-                                        self.enc_csnr)
-        else:
-            def shard(pcm, last, csnr):
-                return lanes_first(*encode_run(self.enc_cfg, self.pack,
-                                               enc_input(pcm, nch), last,
-                                               csnr))
+        with span("encode", step):
+            if self.mesh is None:
+                carry, ok, out = encode_run(self.enc_cfg, self.pack,
+                                            enc_input(pcm, nch),
+                                            self.enc_last, self.enc_csnr)
+            else:
+                def shard(pcm, last, csnr):
+                    return lanes_first(*encode_run(self.enc_cfg, self.pack,
+                                                   enc_input(pcm, nch), last,
+                                                   csnr))
 
-            carry, ok, out = over_data(self.mesh, shard)(
-                pcm, self.enc_last, self.enc_csnr)
+                carry, ok, out = over_data(self.mesh, shard)(
+                    pcm, self.enc_last, self.enc_csnr)
         self.enc_last, self.enc_csnr = carry
-        return F, valid, ok, out
+        return F, valid, ok, out, step
 
     def finish(self, handle) -> list[bytes]:
         """Drain one dispatch_frames handle: check rate control, record
         the per-lane `ok` mask, and return the re-encoded bytes per
         stream (packing them on the host for pack="native")."""
-        F, valid, ok, out = handle
+        F, valid, ok, out, step = handle
         if self.mesh is not None:
             _, ok, out = frame_major(None, ok, out)
         self.ok = np.asarray(valid)
-        bad = rate_failures(ok)
+        # ok's copy to the host waits for the work enqueued before it on
+        # the default stream (the next chunk's too, once dispatched)
+        with span("finish.wait", step):
+            bad = rate_failures(ok)
         if bad:
             raise RuntimeError(f"rate control failed at (frame, stream) "
                                f"{bad} -- out_bitrate too low")
-        return frame_bytes(self.enc_cfg, out, self.batch, F)
+        with span("finish.bytes", step):
+            return frame_bytes(self.enc_cfg, out, self.batch, F)
