@@ -411,6 +411,10 @@ class StreamLane:
     # parser="python" | "raw_py": the lane's host.parse.A52Parser (None
     # for the native parsers)
     parser: A52Parser | None
+    # the bytes fed and not yet dropped (a bytearray, whatever is passed);
+    # the parsers read from pos.  feed drops the consumed prefix before it
+    # appends, so the buffer holds only what was unconsumed when the lane
+    # was last fed, plus that feed
     buf: bytes = b""
     pos: int = 0
     ok: bool = True          # the JAX package's lane-mask slot; unread
@@ -422,6 +426,7 @@ class StreamLane:
     pending: list = None
 
     def __post_init__(self):
+        self.buf = bytearray(self.buf)
         if self.pending is None:
             self.pending = []
 
@@ -514,14 +519,19 @@ class BatchedDecoder:
                 batch, "cpu" if mesh is not None else self.device))
 
     def feed(self, lane: int, data: bytes):
+        """Appends data to the lane's stream.  It copies data and, when
+        frames were consumed since the last feed, the unconsumed remainder
+        that dropping them moves; never a consumed byte."""
         with span("feed", self.step) as on:
             ln = self.lanes[lane]
+            moved = 0
+            if ln.pos:
+                moved = len(ln.buf) - ln.pos
+                del ln.buf[:ln.pos]
+                ln.pos = 0
             ln.buf += data
             if on is not None:
-                count("feed_copied_bytes", len(ln.buf), self.step)
-            if ln.pos > (1 << 20):           # bounded-memory compaction
-                ln.buf = ln.buf[ln.pos:]
-                ln.pos = 0
+                count("feed_copied_bytes", len(data) + moved, self.step)
 
     def decode_available(self, max_frames: int = 8,
                          clock: StageClock | None = None):
@@ -563,7 +573,7 @@ class BatchedDecoder:
             if pos + size > len(buf):
                 break
             lane.pos = pos + size
-            return buf[pos:pos + size]
+            return bytes(buf[pos:pos + size])
         lane.pos = pos
         return None
 

@@ -2,8 +2,8 @@
 and never enter the profiler; under profile() every span of the raw
 decode and of the raw transcode is recorded, once a stretch, with its
 chunk's step, and shows in the Chrome trace as an ``ac3.<name>``
-annotation; StageClock keeps its stage names; feed counts the bytes of
-the buffers it builds; a library's first load counts its seconds."""
+annotation; StageClock keeps its stage names; feed counts the bytes it
+copies; a library's first load counts its seconds."""
 import glob
 import json
 import os
@@ -146,19 +146,24 @@ def test_stage_clock_names_unchanged(frames, tmp_path):
 
 
 def test_feed_counts_the_buffers_it_builds(frames, tmp_path):
+    """feed_copied_bytes of a step: the bytes fed, plus the unconsumed
+    bytes that dropping a lane's consumed frames moves.  Step 0 feeds lane
+    0 one frame and lane 1 two; the step decodes one frame a lane, so lane
+    1 keeps its second.  Step 1 feeds lane 0 two frames (its first feed
+    drops the consumed frame, nothing after it) and lane 1 one, whose feed
+    moves the frame lane 1 kept."""
     bd = _decoder()
-    want = {}
 
     def work():
-        for step, sizes in enumerate(((1, 2), (2, 1))):
+        for sizes in ((1, 2), (2, 1)):
             for lane, n in enumerate(sizes):
                 for f in range(n):
                     bd.feed(lane, frames[f])
-                    want[step] = want.get(step, 0) + len(bd.lanes[lane].buf)
             bd.decode_available(1)
     _profiled(tmp_path, work)
-    assert trace.counters()["feed_copied_bytes"] == want
-    assert want == {0: 1792 * 4, 1: 1792 * 8}
+    assert trace.counters()["feed_copied_bytes"] == {0: 1792 * (1 + 2),
+                                                     1: 1792 * (2 + 1 + 1)}
+    assert [(len(ln.buf), ln.pos) for ln in bd.lanes] == [(3584, 1792)] * 2
 
 
 def test_first_library_load_counts_its_seconds(monkeypatch):
