@@ -13,6 +13,15 @@ the device packer packs each shard's fields on its own device, where the
 core left them (a frame's bytes depend on that frame's fields alone, so
 the bytes are the same, and the dense fields, about 20x the frames'
 bytes, never cross between devices).
+
+A farm keeps one chunk in flight: dispatch_frames(chunk k+1), then
+finish(chunk k), as Transcoder does.  Each chunk's host work is marked by
+the spans ``enc.stage`` (the frame-major reorder on the host),
+``enc.h2d``, ``enc.run`` (the frame core and pack enqueued), ``enc.wait``
+(the ok mask's copy, which waits for the card; with a mesh, the gather of
+the outputs) and ``enc.bytes`` (the frames' D2H and each stream's bytes),
+and the counter ``enc_staged_bytes`` (the bytes the reorder writes), under
+the chunk's ``step`` (utils.trace: off unless a profiler records).
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ from ..host import pack as PK
 from ..models.encoder import (encode_pipeline_multi, encode_pipeline_packed,
                               make_config, rate_failures)
 from ..utils.device import resolve_device
+from ..utils.trace import count, span
 from .mesh import Sharded, check_mesh, over_data, stream_sharding
 
 
@@ -47,6 +57,7 @@ class BatchedEncoder:
         self.batch = batch
         self.cfg = make_config(freq, bitrate, channels)
         self.pack = pack
+        self.step = 0            # the next chunk's, for its spans
         self.last = torch.zeros((batch, channels, 256), dtype=torch.int32,
                                 device=self.device)
         self.csnr = torch.full((batch,), 40, dtype=torch.int32,
@@ -65,28 +76,61 @@ class BatchedEncoder:
     def encode_frames(self, pcm: np.ndarray) -> list[bytes]:
         """pcm int16 [batch, F*1536, nch] -> the AC-3 bytes of each stream,
         F frames; the same bytes as F encode_step calls.  PCM goes to the
-        device as int16."""
+        device as int16.  The synchronous form of dispatch_frames +
+        finish."""
+        return self.finish(self.dispatch_frames(pcm))
+
+    def dispatch_frames(self, pcm: np.ndarray):
+        """Stage, copy and enqueue the encode of pcm int16 [batch,
+        F*1536, nch] without waiting for the device, and advance the carry:
+        -> a handle for finish(), which carries the chunk's step to its
+        spans.  The caller may stage the next chunk while the device works
+        on this one."""
         B, n, nch = np.shape(pcm)
         F = n // 1536
-        pcm = np.asarray(pcm, np.int16)
+        step = self.step
+        self.step += 1
+        with span("enc.stage", step) as on:
+            pcm = np.asarray(pcm, np.int16)
+            if self.mesh is None:
+                pcm = np.ascontiguousarray(np.moveaxis(
+                    pcm.reshape(B, F, 1536, nch), 1, 0))
+            if on is not None:
+                count("enc_staged_bytes",
+                      pcm.nbytes if self.mesh is None else 0, step)
         if self.mesh is None:
-            x = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
-                pcm.reshape(B, F, 1536, nch), 1, 0))).to(self.device)
-            carry, ok, out = encode_run(self.cfg, self.pack, x, self.last,
-                                        self.csnr)
+            with span("enc.h2d", step):
+                x = torch.from_numpy(pcm).to(self.device)
+            with span("enc.run", step):
+                carry, ok, out = encode_run(self.cfg, self.pack, x,
+                                            self.last, self.csnr)
         else:
             def shard(x, last, csnr):
                 x = x.reshape(x.shape[0], F, 1536, nch).transpose(0, 1)
                 return lanes_first(*encode_run(self.cfg, self.pack,
                                                x.contiguous(), last, csnr))
 
-            carry, ok, out = frame_major(*over_data(self.mesh, shard)(
-                pcm, self.last, self.csnr))
-        bad = rate_failures(ok)
+            with span("enc.h2d", step):
+                x = stream_sharding(self.mesh).put(pcm)
+            with span("enc.run", step):
+                carry, ok, out = over_data(self.mesh, shard)(
+                    x, self.last, self.csnr)
+        self.last, self.csnr = carry
+        return F, ok, out, step
+
+    def finish(self, handle) -> list[bytes]:
+        """Drain one dispatch_frames handle: check rate control (raising,
+        with the carry already advanced past the chunk) and return each
+        stream's bytes (packing them on the host for pack="native")."""
+        F, ok, out, step = handle
+        with span("enc.wait", step):
+            if self.mesh is not None:
+                _, ok, out = frame_major(None, ok, out)
+            bad = rate_failures(ok)
         if bad:
             raise RuntimeError(f"rate control failed at (frame, stream) {bad}")
-        self.last, self.csnr = carry
-        return frame_bytes(self.cfg, out, B, F)
+        with span("enc.bytes", step):
+            return frame_bytes(self.cfg, out, self.batch, F)
 
 
 def encode_run(cfg, pack: str, samples, last, csnr):

@@ -9,13 +9,14 @@ the JAX package writes an XPlane dump for TensorBoard.
 Spans and counters.  The program marks its host work with ``span(name)``
 at the boundaries where it happens (``feed``, ``sideinfo_parse``,
 ``chunk_assembly``, ``prune_plan``, ``h2d``, ``unpack.*``, ``tail``,
-``encode``, ``finish.*``) and counts what it moves with ``count``.  A
-span records only while a torch.profiler is recording; otherwise it
-costs one check of the profiler's state.  While one records, each span
-is an ``ac3.<name>`` annotation on the profiler's timeline, beside the
-card's kernels and copies, and ``(name, step, t0_ns, t1_ns)`` in memory
-(``spans()``; ``counters()``; ``reset()`` clears both).  The spans of one
-chunk share its step: ``BatchedDecoder`` numbers its ``decode_available``
+``encode``, ``finish.*``, ``enc.*``) and counts what it moves with
+``count``.  A span records only while a torch.profiler is recording;
+otherwise it costs one check of the profiler's state.  While one records,
+each span is an ``ac3.<name>`` annotation on the profiler's timeline,
+beside the card's kernels and copies, and ``(name, step, t0_ns, t1_ns)``
+in memory (``spans()``; ``counters()``; ``reset()`` clears both).  The
+spans of one chunk share its step: ``BatchedDecoder`` numbers its
+``decode_available`` calls, ``BatchedEncoder`` its ``dispatch_frames``
 calls.  No span encloses another, so each stretch of host time has one
 name.  To see them::
 

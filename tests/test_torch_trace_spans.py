@@ -1,27 +1,32 @@
 """The port's spans and counters (utils/trace.py): off, they record nothing
 and never enter the profiler; under profile() every span of the raw
-decode and of the raw transcode is recorded, once a stretch, with its
-chunk's step, and shows in the Chrome trace as an ``ac3.<name>``
-annotation; StageClock keeps its stage names; feed counts the bytes it
-copies; a library's first load counts its seconds."""
+decode, of the raw transcode and of the batched encode is recorded, once
+a stretch, with its chunk's step, and shows in the Chrome trace as an
+``ac3.<name>`` annotation; StageClock keeps its stage names; feed counts
+the bytes it copies, the encoder the bytes it stages; a library's first
+load counts its seconds."""
 import glob
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as CS
 from ac3acm_tpu_torch.ops import _cuda
+from ac3acm_tpu_torch.parallel.encode import BatchedEncoder
 from ac3acm_tpu_torch.parallel.pipeline import BatchedDecoder, StageClock
 from ac3acm_tpu_torch.parallel.transcode import Transcoder
 from ac3acm_tpu_torch.utils import trace
+from benchmark.core.spec import BENCH
 
 FLAGS = 2 | 0x10                        # A52_STEREO | A52_ADJUST_LEVEL
 DECODE_SPANS = {"feed", "sideinfo_parse", "chunk_assembly", "prune_plan",
                 "h2d", "unpack.exponents", "unpack.alloc",
                 "unpack.mantissas", "tail"}
 TRANSCODE_SPANS = DECODE_SPANS | {"encode", "finish.wait", "finish.bytes"}
+ENCODE_SPANS = {"enc.stage", "enc.h2d", "enc.run", "enc.wait", "enc.bytes"}
 STAGES = ["host side-info parse", "chunk assembly", "prune + plan probes",
           "H2D copy", "device unpack", "steady tail + int16"]
 
@@ -179,3 +184,26 @@ def test_first_library_load_counts_its_seconds(monkeypatch):
     assert len(bound) == 1
     c = trace.counters()
     assert set(c) == {"lib_load_s"} and c["lib_load_s"][None] > 0
+
+
+def test_encoder_spans_and_staged_bytes(tmp_path, monkeypatch):
+    """Off, a chunk of BatchedEncoder records nothing and enters no
+    profiler; on, the next chunk records the five enc.* spans under its
+    step and counts the bytes its frame-major reorder writes."""
+    frozen = np.load(os.path.join(BENCH, "data", "a52_51_448_3f2r_lfe.npy"))
+    pcm = np.stack([frozen[0, :2].reshape(-1, 6)] * 4)   # [4, 2*1536, 6]
+    enc = BatchedEncoder(4, 48000, 640000, 6, device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with no profiler")
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        enc.encode_frames(pcm)
+    assert trace.spans() == []
+    assert "enc_staged_bytes" not in trace.counters()
+    _, events = _profiled(tmp_path,
+                          lambda: enc.finish(enc.dispatch_frames(pcm)))
+    spans = trace.spans()
+    assert {s[1] for s in spans} == {1}
+    _check(spans, events, ENCODE_SPANS)
+    assert trace.counters()["enc_staged_bytes"] == {1: 4 * 2 * 1536 * 6 * 2}
